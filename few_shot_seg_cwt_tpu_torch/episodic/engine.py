@@ -1,0 +1,249 @@
+"""Episodic engine: evaluation and serving of stage-2 CWT episodes.
+
+Counterpart of ``few_shot_seg_cwt_tpu.episodic.engine.EpisodicEngine`` for
+the eval and serve programs:
+
+  backbone features (frozen, one pass over shot+1 images)
+  -> inner-loop classifier adaptation (CUDA kernel for K=2 on the card)
+  -> CWT weight update against the L2-normalised query features
+  -> query prediction -> align-corners upsample -> I/U and CE, or a mask.
+
+Episodes are dicts of NHWC arrays (numpy or torch)::
+
+    {"s_img":  (E, shot, H, W, 3) float32,   # support images (normalised)
+     "s_label":(E, shot, H, W)    int,       # {0,1,255}; padded shots all-255
+     "q_img":  (E, H, W, 3)       float32,
+     "q_label":(E, H, W)          int,
+     "cls":    (E,)               int}       # episode class id (bookkeeping)
+
+The ``*_batch`` methods take a leading episode axis E (written out as a
+batch dimension where the JAX package used ``vmap``); the ``*_episode``
+methods take one episode without it. The engine owns the backbone and the
+transformer as ``nn.Module``s on its device, in eval mode. Training is not
+part of this engine yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.cwt import MultiHeadAttentionOne, build_cwt
+from ..models.pspnet import (PSPNet, apply_classifier, build_pspnet,
+                             init_classifier_weights)
+from ..ops.losses import binary_weighted_ce_from_diff, weighted_cross_entropy
+from ..ops.metrics import intersection_and_union
+from ..ops.resize import upsample_bilinear_ac
+from .inner_loop import adapt_classifier_batch
+
+EPISODE_KEYS = ("s_img", "s_label", "q_img", "q_label", "cls")
+
+
+def l2_normalize_channels(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """F.normalize(dim=channel) over the trailing channel axis."""
+    norm = torch.sqrt(torch.sum(x.float() ** 2, dim=-1, keepdim=True))
+    return (x / torch.clamp(norm, min=eps)).to(x.dtype)
+
+
+class EpisodicEngine:
+    """Eval and serve programs for one config, on one device."""
+
+    def __init__(self, cfg, backbone: Optional[PSPNet] = None,
+                 cwt: Optional[MultiHeadAttentionOne] = None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("EpisodicEngine: no CUDA device; pass device='cpu'")
+        self.backbone = (backbone if backbone is not None
+                         else build_pspnet(cfg)).to(self.device).eval()
+        self.cwt = (cwt if cwt is not None else build_cwt(cfg)).to(self.device).eval()
+        self.num_classes = cfg.num_classes_tr
+        self.adapt_iter = cfg.adapt_iter
+        self.cls_lr = cfg.cls_lr
+        self.bottleneck_dim = cfg.bottleneck_dim
+
+    # ------------------------------------------------------------------ #
+    # inputs
+    # ------------------------------------------------------------------ #
+
+    def to_device(self, episodes: Dict) -> Dict[str, torch.Tensor]:
+        """Episode fields as tensors on the engine's device (float32 images,
+        int64 labels)."""
+        out = {}
+        for k in EPISODE_KEYS:
+            if k not in episodes:
+                continue
+            v = episodes[k]
+            v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+            v = v.float() if k.endswith("img") else v.long()
+            out[k] = v.to(self.device, non_blocking=True)
+        return out
+
+    def init_weights(self, e: int, generator: torch.Generator) -> torch.Tensor:
+        """E fresh (K, C) classifier inits drawn from ``generator``."""
+        return torch.stack([
+            init_classifier_weights(generator, self.num_classes, self.bottleneck_dim)
+            for _ in range(e)
+        ]).to(self.device)
+
+    # ------------------------------------------------------------------ #
+    # building blocks (batched over E)
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def _episode_features(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Backbone features: ONE pass over the E*(shot+1) images.
+
+        Returns f_s (E, shot, h, w, C) and f_q (E, h, w, C), fp32.
+        """
+        s_img, q_img = batch["s_img"], batch["q_img"]
+        e, shot = s_img.shape[:2]
+        imgs = torch.cat([s_img.reshape((e * shot,) + s_img.shape[2:]), q_img], dim=0)
+        feat = self.backbone.extract_features(imgs).float()
+        f_s = feat[: e * shot].reshape((e, shot) + feat.shape[1:])
+        return f_s, feat[e * shot:]
+
+    @torch.no_grad()
+    def _adapted_episode(self, batch, w0: torch.Tensor):
+        """Shared eval prologue: features + inner-loop-adapted classifier."""
+        f_s, f_q = self._episode_features(batch)
+        w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.adapt_iter,
+                                   self.cls_lr)
+        return f_q, w
+
+    @torch.no_grad()
+    def _predict(self, f_q: torch.Tensor, w: torch.Tensor):
+        """Raw-classifier and CWT-updated query logits, (E, h, w, K) each."""
+        pred_q0 = apply_classifier(w, f_q)
+        f_qn = l2_normalize_channels(f_q)
+        w_upd = self.cwt(w, f_qn, f_qn)
+        pred_q = apply_classifier(w_upd, f_qn)
+        return pred_q, pred_q0
+
+    def _upsampled_diff(self, pred: torch.Tensor, size) -> torch.Tensor:
+        """(E, h, w, 2) feature-res logits -> upsampled (E, H, W) difference."""
+        d = (pred[..., 1] - pred[..., 0]).float()
+        return upsample_bilinear_ac(d[..., None], tuple(size))[..., 0]
+
+    def _upsampled_metrics(self, pred: torch.Tensor, q_label: torch.Tensor):
+        """align-corners upsample -> argmax I/U + unweighted CE, per episode.
+
+        pred (E, h, w, K), q_label (E, H, W) -> inter (E, K), union (E, K),
+        loss (E,).
+        """
+        size = q_label.shape[-2:]
+        ones = torch.ones((self.num_classes,), dtype=torch.float32, device=pred.device)
+        if self.num_classes == 2:
+            # K=2: argmax and CE depend only on the logit difference, so the
+            # whole tail runs on one (H, W) plane. Ties: argmax picks class 0
+            # <=> d > 0 exactly.
+            d = self._upsampled_diff(pred, size)
+            inter, union, _ = intersection_and_union((d > 0).long(), q_label, 2)
+            loss = torch.stack([binary_weighted_ce_from_diff(d[i], q_label[i], ones)
+                                for i in range(d.shape[0])])
+            return inter, union, loss
+        logits = upsample_bilinear_ac(pred.float(), tuple(size))
+        inter, union, _ = intersection_and_union(logits.argmax(-1), q_label,
+                                                 self.num_classes)
+        loss = torch.stack([weighted_cross_entropy(logits[i], q_label[i], ones)
+                            for i in range(logits.shape[0])])
+        return inter, union, loss
+
+    def metrics_from_predictions(self, pred_q, pred_q0, batch) -> Dict[str, torch.Tensor]:
+        q_label = batch["q_label"]
+        inter, union, loss = self._upsampled_metrics(pred_q, q_label)
+        inter0, union0, loss0 = self._upsampled_metrics(pred_q0, q_label)
+        return {"inter": inter, "union": union, "inter0": inter0,
+                "union0": union0, "loss": loss, "loss0": loss0,
+                "cls": batch["cls"]}
+
+    def mask_from_prediction(self, pred_q: torch.Tensor, size) -> torch.Tensor:
+        """(E, h, w, K) logits -> (E, H, W) int32 mask at image resolution."""
+        if self.num_classes == 2:
+            return (self._upsampled_diff(pred_q, size) > 0).int()
+        logits = upsample_bilinear_ac(pred_q.float(), tuple(size))
+        return logits.argmax(-1).int()
+
+    # ------------------------------------------------------------------ #
+    # batched programs
+    # ------------------------------------------------------------------ #
+
+    def _w0(self, e: int, generator: Optional[torch.Generator],
+            w0: Optional[torch.Tensor]) -> torch.Tensor:
+        if w0 is not None:
+            return torch.as_tensor(w0, dtype=torch.float32).to(self.device)
+        if generator is None:
+            raise ValueError("pass a torch.Generator or explicit w0")
+        return self.init_weights(e, generator)
+
+    @torch.no_grad()
+    def eval_batch_from_w0(self, episodes, w0) -> Dict[str, torch.Tensor]:
+        """Inner loop + CWT update + query logits for E episodes from given
+        (E, K, C) classifier inits."""
+        batch = self.to_device(episodes)
+        w0 = torch.as_tensor(w0, dtype=torch.float32).to(self.device)
+        f_q, w = self._adapted_episode(batch, w0)
+        pred_q, pred_q0 = self._predict(f_q, w)
+        return {"pred_q": pred_q, "pred_q0": pred_q0, "cls": batch["cls"]}
+
+    def eval_batch(self, episodes, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        e = len(episodes["q_img"])
+        return self.eval_batch_from_w0(episodes, self.init_weights(e, generator))
+
+    @torch.no_grad()
+    def eval_metrics_batch(self, episodes, generator: Optional[torch.Generator] = None,
+                           w0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Per-episode I/U (transformed and raw classifier) and CE losses;
+        classifier inits from ``generator`` or explicit ``w0``."""
+        batch = self.to_device(episodes)
+        e = batch["q_img"].shape[0]
+        f_q, w = self._adapted_episode(batch, self._w0(e, generator, w0))
+        pred_q, pred_q0 = self._predict(f_q, w)
+        return self.metrics_from_predictions(pred_q, pred_q0, batch)
+
+    @torch.no_grad()
+    def serve_batch(self, episodes, generator: Optional[torch.Generator] = None,
+                    w0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Label-free inference: E episodes -> (E, H, W) int32 query masks."""
+        batch = self.to_device(episodes)
+        e = batch["q_img"].shape[0]
+        f_q, w = self._adapted_episode(batch, self._w0(e, generator, w0))
+        pred_q, _ = self._predict(f_q, w)
+        return self.mask_from_prediction(pred_q, batch["q_img"].shape[1:3])
+
+    # ------------------------------------------------------------------ #
+    # single-episode programs (a batch of one)
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _one(episode) -> Dict:
+        return {k: (v[None] if torch.is_tensor(v) else np.asarray(v)[None])
+                for k, v in episode.items() if k in EPISODE_KEYS}
+
+    @staticmethod
+    def _first(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: v[0] for k, v in out.items()}
+
+    def eval_episode_from_w0(self, episode, w0) -> Dict[str, torch.Tensor]:
+        """One episode from an injected (K, C) init: pred_q, pred_q0 (h, w, K)."""
+        w0 = torch.as_tensor(w0, dtype=torch.float32)[None]
+        return self._first(self.eval_batch_from_w0(self._one(episode), w0))
+
+    def eval_episode(self, episode, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        return self._first(self.eval_batch(self._one(episode), generator))
+
+    def eval_episode_metrics(self, episode, generator: Optional[torch.Generator] = None,
+                             w0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        if w0 is not None:
+            w0 = torch.as_tensor(w0, dtype=torch.float32)[None]
+        return self._first(self.eval_metrics_batch(self._one(episode), generator, w0))
+
+    def serve_episode(self, episode, generator: Optional[torch.Generator] = None,
+                      w0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One episode -> (H, W) int32 query mask."""
+        if w0 is not None:
+            w0 = torch.as_tensor(w0, dtype=torch.float32)[None]
+        return self.serve_batch(self._one(episode), generator, w0)[0]
