@@ -6,12 +6,15 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Refuse to run without a CUDA card; turn TF32 off (the reference is fp32);
    print the card's name and power limit.
-2. Build every kernel of the port from its source in this checkout and
-   print the build seconds.
-3. Kernel phase: each kernel at the main path's shapes against its plain
+2. Build every kernel library of the port from its source in this checkout,
+   one nvcc per source, all started together, and print the build seconds.
+3. Kernel phase: each kernel at the main paths' shapes against its plain
    PyTorch version on the same inputs, with its tolerance; times by CUDA
    events (median after a warm-up) beside the bound for the same work.
-4. Main path at full width: ResNet-50 PSPNet + CWT with a seeded random
+   K1 (the inner loop); then the centre-pivot pair (pivot_fwd, pivot_dw) for
+   each consensus block at 473 px (2->10, 10->10, 10->1), its gradients held
+   against an fp64 run, beside the rank-4 route's cuDNN time.
+4. CWT main path at full width: ResNet-50 PSPNet + CWT with a seeded random
    init, 8 synthetic 1-shot episodes at 473 px, adapt_iter 200. First, at
    the raw init, the kernel and the plain loop in fp32 (card and host) are
    each held against the plain loop in fp64 on the same features
@@ -24,12 +27,24 @@ Phases (any failure raises and the script exits non-zero):
    must agree on >= 99.5% of pixels. Episodes/s for serve and eval.
 5. The evaluation entry point ``train.test.main`` on configs/pascal.yaml
    with synthetic episodes; its mIoU line is printed.
-6. A ``kernels`` JSON line, the card line, and as the last line
+6. MMN head at full width (configs/pascal_mmn.yaml, fp32, 1-shot, 473 px,
+   adapt_iter 200, 4 episodes, calibrated BN): eval + serve (batch and one
+   episode) on the flat route with the counts reset around them (K1 and
+   pivot_fwd must launch),
+   predictions against the rank-4 route (argmax agreement >= 99.5% for
+   pred and pred1), episodes/s on both routes and where the time goes. Then
+   one training step's head gradients on the flat route (pivot_dw must
+   launch) against the rank-4 route's, and timed optimizer steps with
+   dropout on.
+7. The trainer entry point ``train.train_head.main`` on pascal_mmn.yaml
+   with synthetic episodes; its validation line is printed.
+8. A ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -46,6 +61,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 E, SHOT, IMG, FEAT, CH, STEPS, CLS_LR = 8, 1, 473, 60, 512, 200, 0.1
+E_MMN = 4                                    # MMN episodes per eval/serve batch
+PIVOT_BLOCKS = ((2, 10), (10, 10), (10, 1))  # NeighConsensus (Ci, Co), rmid l34
+PIVOT_DIMS = (FEAT, FEAT, FEAT, FEAT)
+ROUTE_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4")
 
 
 def card_line() -> str:
@@ -175,6 +194,374 @@ def raw_init_witness(engine, batch, w0, cuda_inner_loop, binary_pixel_weights):
     return norm
 
 
+def pivot_work(ci, co, q, s):
+    """(flops, bytes) of one pivot pair call, or of its weight gradient: 2
+    FLOP per tap, 18 taps per (ci, co, q, s); each input element read once
+    and each output element written once, (Ci + Co) * Q * S floats (the
+    weights and the 18*Ci*Co + Co dW outputs add under 8 KB)."""
+    return 2 * 18 * ci * co * q * s, 4 * (ci + co) * q * s
+
+
+@contextlib.contextmanager
+def pivot_route(flat: bool):
+    """The consensus route for the enclosed calls: flat (the pivot kernels,
+    ``FSS_PIVOT_MXU=1``) or rank-4 (cuDNN plane convs, the default)."""
+    saved = os.environ.get("FSS_PIVOT_MXU")
+    if flat:
+        os.environ["FSS_PIVOT_MXU"] = "1"
+    else:
+        os.environ.pop("FSS_PIVOT_MXU", None)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("FSS_PIVOT_MXU", None)
+        else:
+            os.environ["FSS_PIVOT_MXU"] = saved
+
+
+def pivot_grads(fn, x, wa, wb, bias, t, dtype=torch.float32):
+    """(dx, dwa, dwb, db) of sum(fn(...) * t), ReLU off.
+
+    With the ReLU on, the few of the 13 M positions whose output lies
+    within rounding of 0 are masked differently in fp32 and fp64, and each
+    such flip moves db and dx by a whole |t| ~ 1, far above rounding; so the
+    fp64 witness runs the linear pair. The ReLU's mask (applied in Python
+    before the kernels) is held on the MMN path: flat against rank-4 grads."""
+    leaves = [a.to(dtype).clone().requires_grad_(True) for a in (x, wa, wb, bias)]
+    (fn(*leaves, PIVOT_DIMS, relu=False) * t.to(dtype)).sum().backward()
+    return [a.grad for a in leaves]
+
+
+def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card):
+    """Each consensus block at 473 px: pivot_fwd with the ReLU against the
+    plain version (max|y_k - y_p| <= 1e-5 max|y_p|); the autograd.Function's
+    dx (pivot_fwd with flipped weights) and (dwa, dwb, db) (pivot_dw) against
+    autograd of the plain version, both held against an fp64 run (see
+    ``pivot_grads``): the kernels may be at most 4x as far from fp64 as the
+    plain fp32 version, plus 2e-6 of the largest entry. The slack covers the
+    short sums: dx adds 18*Co <= 180 products per output in one fp32 chain,
+    good to ~1e-6 relative, while cuDNN's tree sums come closer; for the
+    13 M-term dW sums it is far below the plain version's own error.
+    Returns per-block numbers."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    q = s = FEAT * FEAT
+    out = {}
+    for ci, co in PIVOT_BLOCKS:
+        x = torch.tensor(rng.standard_normal((1, ci, q, s), dtype=np.float32), device=dev)
+        w = (rng.standard_normal((2, 3, 3, ci, co)) / np.sqrt(18 * ci)).astype(np.float32)
+        wa, wb = (torch.tensor(a, device=dev) for a in w)
+        bias = torch.tensor(rng.standard_normal(co, dtype=np.float32), device=dev)
+        t = torch.tensor(rng.standard_normal((1, co, q, s), dtype=np.float32), device=dev)
+        ref = cuda_pivot.pivot_conv_flat_reference
+
+        y_k = cuda_pivot.pivot_fwd(x, wa, wb, bias, PIVOT_DIMS, relu=True)
+        y_p = ref(x, wa, wb, bias, PIVOT_DIMS, relu=True)
+        fwd_err, fwd_scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+        del y_k, y_p
+        g_k = pivot_grads(cuda_pivot.pivot_conv_flat, x, wa, wb, bias, t)
+        g_p = pivot_grads(ref, x, wa, wb, bias, t)
+        g_64 = pivot_grads(ref, x, wa, wb, bias, t, torch.float64)
+        torch.cuda.synchronize()
+        grads = {}
+        for name, k, p, r in zip(("dx", "dwa", "dwb", "db"), g_k, g_p, g_64):
+            grads[name] = {"kernel_vs_fp64": float((k.double() - r).abs().max()),
+                           "plain_vs_fp64": float((p.double() - r).abs().max()),
+                           "kernel_vs_plain": float((k - p).abs().max()),
+                           "scale": float(r.abs().max())}
+        del g_k, g_p, g_64
+        dw_err = max(grads[n]["kernel_vs_plain"] for n in ("dwa", "dwb", "db"))
+        print(f"pivot {ci}->{co}: pivot_fwd max|y_k - y_p| = {fwd_err:.3e} (tolerance "
+              f"1e-5 * max|y_p| = {1e-5 * fwd_scale:.3e}, ReLU on); gradients (ReLU off) vs fp64: "
+              f"{json.dumps(grads)}")
+        if not np.isfinite(fwd_err) or fwd_err > 1e-5 * fwd_scale:
+            raise AssertionError(f"pivot_fwd {ci}->{co} disagrees with its plain version")
+        for name, g in grads.items():
+            if not g["kernel_vs_fp64"] <= 4 * g["plain_vs_fp64"] + 2e-6 * g["scale"]:
+                raise AssertionError(f"pivot {ci}->{co} {name}: the kernel is over 4x as far "
+                                     f"from fp64 as the plain fp32 version (+2e-6 of the "
+                                     f"scale): {g}")
+
+        fwd_ms = cuda_ms(lambda: cuda_pivot.pivot_fwd(x, wa, wb, bias, PIVOT_DIMS, True), 5)
+        fwd_plain_ms = cuda_ms(lambda: ref(x, wa, wb, bias, PIVOT_DIMS, True), 5)
+        dw_ms = cuda_ms(lambda: cuda_pivot.pivot_dw(x, t, PIVOT_DIMS), 5)
+        dw_plain_ms = cuda_ms(lambda: cuda_pivot.pivot_dw_reference(x, t, PIVOT_DIMS), 5)
+        blk = CenterPivotConv4d(ci, co).to(dev)
+        with torch.no_grad():
+            blk.conv1.weight.copy_(wa.permute(3, 2, 0, 1))
+            blk.conv2.weight.copy_(wb.permute(3, 2, 0, 1))
+            blk.conv1.bias.copy_(bias)
+            blk.conv2.bias.zero_()
+            xr = x.permute(0, 2, 3, 1).contiguous()         # (1, Q, S, Ci)
+            r4_ms = cuda_ms(lambda: blk(xr, False, True, PIVOT_DIMS, bqsc=True), 5)
+        del xr, x, t
+        torch.cuda.empty_cache()
+        flops, nbytes = pivot_work(ci, co, q, s)
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"pivot {ci}->{co}: pivot_fwd {fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f} ms), "
+              f"pivot_dw {dw_ms:.3f} ms (plain {dw_plain_ms:.3f} ms), rank-4 route "
+              f"forward (2 cuDNN conv2d + permute) {r4_ms:.3f} ms; bound {b_ms:.3f} ms "
+              f"({b_by}: {flops / 1e9:.2f} GFLOP / 67 TFLOP/s = "
+              f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms, {nbytes / 1e9:.3f} GB / "
+              f"3.35 TB/s = {nbytes / PEAK_HBM_BYTES * 1e3:.3f} ms) for each kernel; "
+              f"library_ms null [{card}]")
+        out[(ci, co)] = dict(fwd_err=fwd_err, dw_err=dw_err, fwd_ms=fwd_ms,
+                             fwd_plain_ms=fwd_plain_ms, dw_ms=dw_ms, dw_plain_ms=dw_plain_ms,
+                             r4_ms=r4_ms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+@torch.no_grad()
+def calibrate_consensus(engine, calib_episodes, get_corr):
+    """Set each consensus block's bias so that half of its outputs on a
+    calibration episode's correlation volume are positive (median
+    pre-activation per output channel at 0), block after block.
+
+    With the seeded random init (zero biases) the last block's ReLU can zero
+    the whole filtered volume: the readout is then a plain average over the
+    support and neither route's consensus reaches the prediction. This gives
+    the consensus the live units a trained one has, as ``calibrate_batchnorm``
+    does for the backbone. Runs on the flat route; conv2's bias stays 0.
+    """
+    from few_shot_seg_cwt_tpu_torch.ops.corr import mutual_matching_flat
+
+    batch = engine.to_device({k: v[:1] for k, v in calib_episodes.items()})
+    w0 = engine.init_weights(1, torch.Generator().manual_seed(9))
+    part = engine._one(engine.episode_parts(batch, w0), batch, 0)[0]
+    head = engine.head
+    corr = torch.stack([get_corr(q, s) for q, s in zip(head.prep_query(part["fq_feats"]),
+                                                         head.prep_query(part["fs_feats"]))],
+                       dim=1)
+    x = mutual_matching_flat(corr)
+    for blk in list(head.corr_net.NeighConsensus.conv)[::2]:
+        blk.conv1.bias.zero_()
+        blk.conv2.bias.zero_()
+        pre = blk(x, False, False, PIVOT_DIMS)
+        med = pre[0].flatten(1).median(dim=1).values
+        blk.conv1.bias.copy_(-med)
+        x = torch.relu(pre - med.view(1, -1, 1, 1))
+    print(f"consensus calibration: block biases "
+          f"{[round(float(b), 5) for blk in list(head.corr_net.NeighConsensus.conv)[::2] for b in blk.conv1.bias[:2]]} "
+          f"(first two channels each)")
+
+
+def device_profile(fn, label, card):
+    """One call of ``fn`` under torch.profiler (CUPTI): device ms per kernel,
+    the port's kernels summed by name, the top others, and the device's idle
+    share of the wall time (one stream, so kernel times do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ms = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+        if us > 0:
+            ms[ev.key] = ms.get(ev.key, 0.0) + us / 1e3
+    busy = sum(ms.values())
+    if busy <= 0:
+        print(f"{label}: the profiler recorded no device time (not measured)")
+        return
+    ours = {name: sum(v for k, v in ms.items() if pat in k) for name, pat in (
+        ("K1 adapt_binary", "adapt_binary_kernel"), ("pivot_fwd", "pivot_fwd_kernel"),
+        ("pivot_dw", "pivot_dw_"))}
+    others = sorted(((v, k) for k, v in ms.items()
+                     if not any(p in k for p in ("adapt_binary_kernel", "pivot_fwd_kernel",
+                                                 "pivot_dw_"))), reverse=True)[:6]
+    print(f"{label}: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+          f"{1 - busy / wall:.1%}); the port's kernels "
+          f"{ {k: round(v, 1) for k, v in ours.items()} }; top other kernels "
+          f"{[(k[:70], round(v, 1)) for v, k in others]} [{card}]")
+
+
+def launch_counts(*modules):
+    out = {}
+    for m in modules:
+        out.update(m.LAUNCHES)
+    return out
+
+
+def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
+    """MMN eval/serve on the flat route (counted), against the rank-4 route;
+    episodes/s on both; where an eval batch's time goes; one training step's
+    gradients on both routes; timed optimizer steps with dropout on."""
+    (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+     cuda_pivot, adapt_classifier_batch, get_corr, build_optimizer) = modules
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"),
+                              ["use_amp", "False", "episode_batch", str(E_MMN)])
+    got = (cfg.image_size, cfg.adapt_iter, cfg.layers, cfg.rmid, cfg.wa, cfg.temp,
+           cfg.att_wt, cfg.loss_type, cfg.cls_lr, cfg.conv4d, cfg.shot)
+    if got != (IMG, STEPS, 50, "l34", True, 20.0, 0.2, "wt_dc", CLS_LR, "red", 1):
+        raise AssertionError(f"configs/pascal_mmn.yaml no longer gives the MMN path: {got}")
+    with pivot_route(True):
+        engine = HeadEngine(cfg, "mmn", device="cuda")
+    calibrate_batchnorm(engine.backbone, calib_images)
+    with pivot_route(True):
+        calibrate_consensus(engine, calib_episodes, get_corr)
+    episodes = make_episode_batch(13, E_MMN, size=IMG, shot=SHOT)
+    w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(5))
+
+    # ---- the main path: eval + serve on the flat route, counted ----
+    with pivot_route(True):
+        cuda_inner_loop.reset_launches()
+        cuda_pivot.reset_launches()
+        metrics = engine.eval_metrics_batch(episodes, w0=w0)
+        masks = engine.serve_batch(episodes, w0=w0)
+        one = engine.serve_episode({k: v[0] for k, v in episodes.items()}, w0=w0[0])
+        torch.cuda.synchronize()
+        eval_launches = launch_counts(cuda_inner_loop, cuda_pivot)
+    print(f"MMN eval_metrics_batch + serve_batch of {E_MMN} + serve_episode launches "
+          f"(flat route): {eval_launches}; serve_episode vs serve_batch mask agreement "
+          f"{float((one == masks[0]).float().mean()):.6f}")
+    if eval_launches["adapt_binary"] < 1 or eval_launches["pivot_fwd"] < 1:
+        raise AssertionError("MMN eval/serve did not launch K1 and pivot_fwd")
+    if tuple(masks.shape) != (E_MMN, IMG, IMG) or not set(masks.unique().tolist()) <= {0, 1}:
+        raise AssertionError(f"MMN masks {tuple(masks.shape)} {masks.unique().tolist()}")
+    # a batch of 1 may take other cuDNN algorithms than a batch of 4
+    one_agree = float((one == masks[0]).float().mean())
+    if one_agree < 0.995:
+        raise AssertionError(f"MMN serve_episode and serve_batch agree on {one_agree:.4%} "
+                             "of episode 0's pixels (>= 99.5% needed)")
+    for k in ("inter", "union", "inter1", "union1", "inter0", "union0", "loss"):
+        if not torch.isfinite(metrics[k].float()).all():
+            raise AssertionError(f"MMN eval: non-finite {k}")
+
+    # ---- flat vs rank-4 predictions, same weights and inits ----
+    with pivot_route(True):
+        p_flat = engine.predict_batch(episodes, w0=w0)
+    with pivot_route(False):
+        before = cuda_pivot.LAUNCHES["pivot_fwd"]
+        p_r4 = engine.predict_batch(episodes, w0=w0)
+        torch.cuda.synchronize()
+        if cuda_pivot.LAUNCHES["pivot_fwd"] != before:
+            raise AssertionError("the rank-4 route launched the pivot kernels")
+    agree = {k: float((p_flat[k].argmax(-1) == p_r4[k].argmax(-1)).float().mean())
+             for k in ("pred", "pred1")}
+    rel = {k: float((p_flat[k] - p_r4[k]).abs().max() / p_r4[k].abs().max())
+           for k in ("pred", "pred1")}
+    fg = {k: (metrics[f"inter{k}"][:, 1] / metrics[f"union{k}"][:, 1].clamp(min=1))
+          .cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
+    print(f"MMN flat vs rank-4 route: argmax agreement {agree} (>= 0.995 needed), "
+          f"max|p_flat - p_r4| / max|p_r4| {rel}; flat-route per-episode fg IoU of "
+          f"pred, pred1 and the adapted classifier alone: {fg}")
+    if min(agree.values()) < 0.995:
+        raise AssertionError(f"MMN flat and rank-4 routes disagree: {agree}")
+
+    for name, flat in (("flat", True), ("rank-4", False)):
+        with pivot_route(flat):
+            serve_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
+            eval_s = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 3)
+        print(f"MMN {name} route: serve_batch {E_MMN / serve_s:.3f} episodes/s "
+              f"({serve_s * 1e3:.1f} ms per batch of {E_MMN}); eval_metrics_batch "
+              f"{E_MMN / eval_s:.3f} episodes/s ({eval_s * 1e3:.1f} ms) [{card}; fp32, "
+              f"TF32 off, 1-shot, 473 px, adapt_iter {STEPS}]")
+
+    # ---- where an eval batch's device time goes (flat route) ----
+    with torch.no_grad(), pivot_route(True):
+        batch = engine.to_device(episodes)
+        imgs = torch.cat([batch["s_img"][:, 0], batch["q_img"]])
+        t_backbone = cuda_ms(lambda: engine.backbone.extract_features(imgs), 3)
+        parts = engine.episode_parts(batch, w0)
+        t_k1 = cuda_ms(lambda: adapt_classifier_batch(parts["f_s"], batch["s_label"], w0,
+                                                      STEPS, CLS_LR), 1, warmup=0)
+        head = engine.head
+        ones = [engine._one(parts, batch, i)[0] for i in range(E_MMN)]
+
+        def prep_all():
+            return [(head.prep_query(p["fq_feats"]), head.prep_query(p["fs_feats"]))
+                    for p in ones]
+
+        t_wa = cuda_ms(prep_all, 3)
+        corrs = [torch.stack([get_corr(q, s) for q, s in zip(fq, fs)], dim=1)
+                 for fq, fs in prep_all()]
+        t_cons = cuda_ms(lambda: [head.corr_net.run_match_model_flat(c, PIVOT_DIMS)
+                                  for c in corrs], 3)
+        # the filtered correlation itself, flat route against rank-4
+        c_flat = head.corr_net.run_match_model_flat(corrs[0], PIVOT_DIMS)
+        with pivot_route(False):
+            c_r4 = head.corr_net.run_match_model_flat(corrs[0], PIVOT_DIMS)
+        c_rel = float((c_flat - c_r4).abs().max() / c_r4.abs().max())
+        c_range = (float(c_r4.min()), float(c_r4.max()))
+        c_pos = float((c_r4 > 0).float().mean())
+        del corrs, c_flat, c_r4
+        t_eval = cuda_ms(lambda: engine.eval_metrics_batch(episodes, w0=w0), 2)
+    rest = t_eval - t_backbone - t_k1 - t_wa - t_cons
+    print(f"MMN consensus output (episode 0), flat vs rank-4 route: max|c_flat - c_r4| / "
+          f"max|c_r4| = {c_rel:.3e} (tolerance 1e-4); values in [{c_range[0]:.3e}, "
+          f"{c_range[1]:.3e}], {c_pos:.1%} positive")
+    if not c_rel <= 1e-4 or c_pos < 0.01:
+        raise AssertionError(f"the consensus routes disagree ({c_rel}) or the filtered "
+                             f"volume is dead ({c_pos:.2%} positive)")
+    print(f"MMN eval batch of {E_MMN} by stage (flat route): backbone {t_backbone:.1f} ms, "
+          f"inner loop (K1) {t_k1:.1f} ms, WeightAverage {t_wa:.1f} ms, consensus "
+          f"(mutual matching + 2x3 pivot blocks) {t_cons:.1f} ms, correlation, readout, "
+          f"classifier, 473 px tail and the rest {rest:.1f} ms; whole batch {t_eval:.1f} ms "
+          f"[{card}]")
+
+    with pivot_route(True):
+        device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                       f"MMN eval batch of {E_MMN} (flat route), torch.profiler", card)
+
+    # ---- one training step's gradients: flat route against rank-4 ----
+    e2 = {k: v[:2] for k, v in episodes.items()}
+    grads = {}
+    for name, flat in (("flat", True), ("rank-4", False)):
+        with pivot_route(flat):
+            cuda_inner_loop.reset_launches()
+            cuda_pivot.reset_launches()
+            m = engine.backward_batch(e2, w0=w0[:2], deterministic=True)
+            torch.cuda.synchronize()
+            if flat:
+                train_launches = launch_counts(cuda_inner_loop, cuda_pivot)
+        if not torch.isfinite(m["loss_mean"]):
+            raise AssertionError(f"MMN train step ({name}): non-finite loss")
+        grads[name] = {k: p.grad.clone() for k, p in engine.head.named_parameters()}
+    print(f"MMN train step launches (flat route, 2 episodes): {train_launches}")
+    if train_launches["pivot_dw"] < 1 or train_launches["pivot_fwd"] < 1:
+        raise AssertionError("the MMN train step did not launch pivot_dw and pivot_fwd")
+    scale = {k: float(g.abs().max()) for k, g in grads["rank-4"].items()}
+    worst = max((float((grads["flat"][k] - g).abs().max()) / max(scale[k], 1e-30), k)
+                for k, g in grads["rank-4"].items())
+    print(f"MMN head gradients, flat vs rank-4 route: worst max|g_flat - g_r4| / "
+          f"max|g_r4| = {worst[0]:.3e} ({worst[1]}); tolerance 1e-3; max|g_r4| per "
+          f"tensor from {min(scale.values()):.3e} to {max(scale.values()):.3e}")
+    if not worst[0] <= 1e-3:
+        raise AssertionError(f"MMN gradients differ between routes: {worst}")
+    if not all(np.isfinite(v) and v > 0 for v in scale.values()):
+        raise AssertionError(f"MMN gradients: a head tensor has zero or non-finite grads {scale}")
+    del grads
+
+    # ---- optimizer steps with dropout on (flat route) ----
+    opt, sched = build_optimizer(engine.head.parameters(), cfg,
+                                 base_lr=cfg.trans_lr * cfg.scale_lr,
+                                 iters_per_epoch=max(1, cfg.iter_per_epoch // 2))
+    step = engine.make_train_step(opt, sched)
+    losses, times = [], []
+    with pivot_route(True):
+        for i in range(3):
+            t0 = time.perf_counter()
+            m = step(e2, torch.Generator().manual_seed(100 + i))
+            losses.append(float(m["loss_mean"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    train_s = statistics.median(times[1:])
+    print(f"MMN train step (flat route, dropout on, SGD): {2 / train_s:.3f} episodes/s "
+          f"({train_s * 1e3:.1f} ms per step of 2 episodes; steps {np.round(times, 3).tolist()} s); "
+          f"losses {np.round(losses, 4).tolist()}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"MMN train steps: non-finite loss {losses}")
+    with pivot_route(True):
+        device_profile(lambda: step(e2, torch.Generator().manual_seed(200)),
+                       "MMN train step of 2 episodes (flat route), torch.profiler", card)
+    return eval_launches, train_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -192,15 +579,27 @@ def main() -> int:
     from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
     from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
     from few_shot_seg_cwt_tpu_torch.episodic.engine import EpisodicEngine
-    from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import binary_pixel_weights
-    from few_shot_seg_cwt_tpu_torch.ops import cuda_inner_loop
+    from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
+    from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import (adapt_classifier_batch,
+                                                                binary_pixel_weights)
+    from few_shot_seg_cwt_tpu_torch.models.conv4d import CenterPivotConv4d
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_inner_loop, cuda_pivot
+    from few_shot_seg_cwt_tpu_torch.ops.corr import get_corr
     from few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop import cuda_ms
     from few_shot_seg_cwt_tpu_torch.train import test as test_entry
+    from few_shot_seg_cwt_tpu_torch.train import train_head
+    from few_shot_seg_cwt_tpu_torch.train.optim import build_optimizer
 
-    # ---- 2. build every kernel ----
+    for var in ROUTE_SWITCHES:
+        os.environ.pop(var, None)
+
+    # ---- 2. build every kernel: one nvcc per source, all at once ----
     t0 = time.perf_counter()
+    cuda_build.build([cuda_inner_loop.build_spec(), cuda_pivot.build_spec()])
     cuda_inner_loop.load_library()
-    print(f"build: 1 kernel (K1) in {time.perf_counter() - t0:.2f} s")
+    cuda_pivot.load_library()
+    print(f"build: 2 libraries (inner_loop.cu: K1; pivot.cu: pivot_fwd, pivot_dw) in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2021)
@@ -232,6 +631,9 @@ def main() -> int:
           f"bound {k1_bound:.3f} ms ({k1_bound_by}: {flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB), library_ms null [{card}]")
 
+    # ---- 3b. pivot kernels at the MMN path's shapes ----
+    pivot = pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card)
+
     # ---- 4. main path at full width ----
     cfg = load_cfg("configs/pascal.yaml")
     cfg = merge_cfg_from_list(cfg, ["cls_lr", str(CLS_LR), "episode_batch", str(E)])
@@ -245,8 +647,9 @@ def main() -> int:
     # the ones scored) so features have a trained network's scale, where the
     # 200-step inner loop is well-conditioned
     calib = make_episode_batch(11, E // 2, size=IMG, shot=SHOT)
-    calibrate_batchnorm(engine.backbone, torch.tensor(
-        np.concatenate([calib["s_img"][:, 0], calib["q_img"]]), device=dev))
+    calib_images = torch.tensor(np.concatenate([calib["s_img"][:, 0], calib["q_img"]]),
+                                device=dev)
+    calibrate_batchnorm(engine.backbone, calib_images)
 
     cuda_inner_loop.reset_launches()
     masks = engine.serve_batch(episodes, w0=w0)
@@ -314,6 +717,25 @@ def main() -> int:
     if not np.isfinite(miou):
         raise AssertionError("entry point returned a non-finite mIoU")
 
+    # ---- 6. MMN head: eval, serve and training at full width ----
+    mmn_eval_launches, mmn_train_launches = mmn_phase(card, calib_images, calib, cuda_ms, (
+        load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+        cuda_pivot, adapt_classifier_batch, get_corr, build_optimizer))
+
+    # ---- 7. the head trainer's entry point (flat route) ----
+    hcfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"), [
+        "synthetic_data", "True", "use_amp", "False", "epochs", "1", "iter_per_epoch", "8",
+        "episode_batch", "2", "test_num", "8", "save_models", "False"])
+    lines = []
+    with pivot_route(True):
+        best = train_head.main(hcfg, "mmn", device="cuda", log=lines.append)
+    val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
+    print(f"train.train_head.main: {val_line} (best {best:.4f}; random init, synthetic "
+          "episodes, 4 steps of 2 episodes)")
+    if not np.isfinite(best):
+        raise AssertionError("the head trainer returned a non-finite mIoU")
+
+    main_block = pivot[(10, 10)]  # the heaviest consensus block stands for each kernel
     kernels = [{
         "name": "adapt_binary",
         "route": "cuda",
@@ -325,6 +747,32 @@ def main() -> int:
         "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound,
         "bound_by": k1_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "pivot_fwd",
+        "route": "cuda",
+        "source": "few_shot_seg_cwt_tpu_torch/csrc/pivot.cu",
+        "replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot_mxu.py:109",
+        "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:106",
+        "launches": mmn_eval_launches["pivot_fwd"],
+        "max_abs_err": main_block["fwd_err"],
+        "ms": main_block["fwd_ms"],
+        "plain_ms": main_block["fwd_plain_ms"],
+        "bound_ms": main_block["bound_ms"],
+        "bound_by": main_block["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "pivot_dw",
+        "route": "cuda",
+        "source": "few_shot_seg_cwt_tpu_torch/csrc/pivot.cu",
+        "replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot_mxu.py:148",
+        "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:165",
+        "launches": mmn_train_launches["pivot_dw"],
+        "max_abs_err": main_block["dw_err"],
+        "ms": main_block["dw_ms"],
+        "plain_ms": main_block["dw_plain_ms"],
+        "bound_ms": main_block["bound_ms"],
+        "bound_by": main_block["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

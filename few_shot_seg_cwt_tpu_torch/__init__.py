@@ -7,10 +7,16 @@ its public layouts (NHWC episodes and features) so the two can be compared
 function by function, but imports nothing of it: configuration, synthetic
 data and resize matrices are the port's own copies.
 
+It also runs the MMN extension head (eval, serve and training, 1-shot,
+fp32) through ``episodic/heads.py`` and ``train/train_head.py``.
+
 The TPU inner-loop kernel (``few_shot_seg_cwt_tpu/ops/pallas_inner_loop.py``)
 is a hand-written CUDA C++ kernel here (``csrc/inner_loop.cu``, wrapped by
-``ops/cuda_inner_loop.py``). Convolutions and large matrix products go to
-plain torch ops. Entry points run on ``cuda`` unless the caller passes
+``ops/cuda_inner_loop.py``); the four Pallas kernels of the centre-pivot 4D
+convolution (``ops/pallas_pivot.py``, ``ops/pallas_pivot_mxu.py``) are two
+(``csrc/pivot.cu``: ``pivot_fwd`` and ``pivot_dw``, wrapped by
+``ops/cuda_pivot.py``). Convolutions and large matrix products go to plain
+torch ops. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
 

@@ -77,7 +77,38 @@ def make_episode_batch(seed: int, e: int, size: int = 473, shot: int = 1
         make_episode(np.random.default_rng(seed * 100_003 + i), size=size, shot=shot)
         for i in range(e)
     ]
+    return collate(records)
+
+
+def collate(records) -> Dict[str, np.ndarray]:
     return {k: np.stack([r[k] for r in records]) for k in records[0]}
+
+
+class ShuffledBatches:
+    """Collated training batches: one pass over ``dataset`` in the order of
+    a permutation seeded by (seed + epoch), dropping a short tail (the JAX
+    package's shuffled ``EpisodeLoader`` on one process)."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 2021):
+        if len(dataset) < batch_size:
+            raise ValueError(
+                f"dataset of {len(dataset)} items < batch_size {batch_size}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.random.default_rng(self.seed + self.epoch).permutation(len(self.dataset))
+        for b in range(len(self)):
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            yield collate([self.dataset[int(i)] for i in idx])
 
 
 class SequentialBatches:
@@ -96,6 +127,5 @@ class SequentialBatches:
         n_batches = len(self.dataset) // self.batch_size
         while True:
             for b in range(n_batches):
-                records = [self.dataset[b * self.batch_size + i]
-                           for i in range(self.batch_size)]
-                yield {k: np.stack([r[k] for r in records]) for k in records[0]}
+                yield collate([self.dataset[b * self.batch_size + i]
+                               for i in range(self.batch_size)])

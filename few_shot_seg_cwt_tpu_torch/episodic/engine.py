@@ -47,6 +47,36 @@ def l2_normalize_channels(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return (x / torch.clamp(norm, min=eps)).to(x.dtype)
 
 
+def episodes_to_device(episodes: Dict, device) -> Dict[str, torch.Tensor]:
+    """Episode fields as tensors on ``device`` (float32 images, int64 labels)."""
+    out = {}
+    for k in EPISODE_KEYS:
+        if k not in episodes:
+            continue
+        v = episodes[k]
+        v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+        v = v.float() if k.endswith("img") else v.long()
+        out[k] = v.to(device, non_blocking=True)
+    return out
+
+
+def init_weights(e: int, generator: torch.Generator, num_classes: int, dim: int,
+                 device) -> torch.Tensor:
+    """E fresh (K, C) classifier inits drawn from ``generator`` on the host."""
+    return torch.stack([init_classifier_weights(generator, num_classes, dim)
+                        for _ in range(e)]).to(device)
+
+
+def pick_w0(engine, e: int, generator: Optional[torch.Generator],
+            w0: Optional[torch.Tensor]) -> torch.Tensor:
+    """Explicit (E, K, C) inits ``w0``, else E draws from ``generator``."""
+    if w0 is not None:
+        return torch.as_tensor(w0, dtype=torch.float32).to(engine.device)
+    if generator is None:
+        raise ValueError("pass a torch.Generator or explicit w0")
+    return engine.init_weights(e, generator)
+
+
 class EpisodicEngine:
     """Eval and serve programs for one config, on one device."""
 
@@ -70,24 +100,12 @@ class EpisodicEngine:
     # ------------------------------------------------------------------ #
 
     def to_device(self, episodes: Dict) -> Dict[str, torch.Tensor]:
-        """Episode fields as tensors on the engine's device (float32 images,
-        int64 labels)."""
-        out = {}
-        for k in EPISODE_KEYS:
-            if k not in episodes:
-                continue
-            v = episodes[k]
-            v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-            v = v.float() if k.endswith("img") else v.long()
-            out[k] = v.to(self.device, non_blocking=True)
-        return out
+        return episodes_to_device(episodes, self.device)
 
     def init_weights(self, e: int, generator: torch.Generator) -> torch.Tensor:
         """E fresh (K, C) classifier inits drawn from ``generator``."""
-        return torch.stack([
-            init_classifier_weights(generator, self.num_classes, self.bottleneck_dim)
-            for _ in range(e)
-        ]).to(self.device)
+        return init_weights(e, generator, self.num_classes, self.bottleneck_dim,
+                            self.device)
 
     # ------------------------------------------------------------------ #
     # building blocks (batched over E)
@@ -171,14 +189,6 @@ class EpisodicEngine:
     # batched programs
     # ------------------------------------------------------------------ #
 
-    def _w0(self, e: int, generator: Optional[torch.Generator],
-            w0: Optional[torch.Tensor]) -> torch.Tensor:
-        if w0 is not None:
-            return torch.as_tensor(w0, dtype=torch.float32).to(self.device)
-        if generator is None:
-            raise ValueError("pass a torch.Generator or explicit w0")
-        return self.init_weights(e, generator)
-
     @torch.no_grad()
     def eval_batch_from_w0(self, episodes, w0) -> Dict[str, torch.Tensor]:
         """Inner loop + CWT update + query logits for E episodes from given
@@ -200,7 +210,7 @@ class EpisodicEngine:
         classifier inits from ``generator`` or explicit ``w0``."""
         batch = self.to_device(episodes)
         e = batch["q_img"].shape[0]
-        f_q, w = self._adapted_episode(batch, self._w0(e, generator, w0))
+        f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
         pred_q, pred_q0 = self._predict(f_q, w)
         return self.metrics_from_predictions(pred_q, pred_q0, batch)
 
@@ -210,7 +220,7 @@ class EpisodicEngine:
         """Label-free inference: E episodes -> (E, H, W) int32 query masks."""
         batch = self.to_device(episodes)
         e = batch["q_img"].shape[0]
-        f_q, w = self._adapted_episode(batch, self._w0(e, generator, w0))
+        f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
         pred_q, _ = self._predict(f_q, w)
         return self.mask_from_prediction(pred_q, batch["q_img"].shape[1:3])
 

@@ -8,6 +8,10 @@ from .pspnet import (
     init_classifier_weights,
 )
 from .cwt import MultiHeadAttentionOne, build_cwt
+from .conv4d import CenterPivotConv4d
+from .matching import MatchNet, NeighConsensus
+from .msm import WeightAverage
+from .mmn import MMN, build_mmn
 
 __all__ = [
     "RESNET_DEPTHS",
@@ -21,4 +25,10 @@ __all__ = [
     "init_classifier_weights",
     "MultiHeadAttentionOne",
     "build_cwt",
+    "CenterPivotConv4d",
+    "MatchNet",
+    "NeighConsensus",
+    "WeightAverage",
+    "MMN",
+    "build_mmn",
 ]

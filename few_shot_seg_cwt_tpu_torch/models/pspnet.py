@@ -18,13 +18,14 @@ reference ``.pth`` loads with ``load_state_dict``.
 from __future__ import annotations
 
 import math
+import re
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import DilatedResNet, reset_parameters
+from .resnet import DilatedResNet, reset_parameters, run_trunk
 
 
 def init_classifier_weights(generator: torch.Generator, num_classes: int,
@@ -85,8 +86,9 @@ class PSPNet(nn.Module):
 
     def __init__(self, layers: int = 50, bins: Sequence[int] = (1, 2, 3, 6),
                  dropout: float = 0.1, bottleneck_dim: int = 512,
-                 num_classes_tr: int = 2):
+                 num_classes_tr: int = 2, rmid: Optional[str] = None):
         super().__init__()
+        self.rmid = rmid
         trunk = DilatedResNet(layers)
         # the reference's attribute names: the trunk's stages hang off the
         # PSPNet itself (src/model/pspnet.py:96-101)
@@ -104,14 +106,19 @@ class PSPNet(nn.Module):
         self.classifier = DotCls(bottleneck_dim, num_classes_tr)
         self.gamma = nn.Parameter(torch.tensor(0.2))
 
-    def extract_features(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) NHWC images -> (B, h, w, 512) NHWC features."""
+    def extract_features(self, x: torch.Tensor):
+        """(B, H, W, 3) NHWC images -> (B, h, w, 512) NHWC features.
+
+        With ``rmid`` set (the matching heads), returns ``(features, feats)``
+        with ``feats[stage] = [block outputs]`` for stages 1..4, NHWC views,
+        as the JAX package's ``extract_features`` does.
+        """
         x = x.permute(0, 3, 1, 2).contiguous()
-        for stage in (self.layer0, self.layer1, self.layer2, self.layer3,
-                      self.layer4):
-            x = stage(x)
-        x = self.bottleneck(self.ppm(x))
-        return x.permute(0, 2, 3, 1).contiguous()
+        if not self.rmid:
+            return self.bottleneck(self.ppm(run_trunk(self, x))).permute(0, 2, 3, 1).contiguous()
+        x, feats = run_trunk(self, x, return_feats=True)
+        feats = {k: [f.permute(0, 2, 3, 1) for f in v] for k, v in feats.items()}
+        return self.bottleneck(self.ppm(x)).permute(0, 2, 3, 1).contiguous(), feats
 
 
 def build_pspnet(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
@@ -129,11 +136,15 @@ def build_pspnet(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
     if (str(cfg.get("compute_dtype", "float32")) != "float32"
             or cfg.get("use_amp", False) or cfg.get("bf16_stages")):
         raise NotImplementedError("the port runs fp32 only (no bf16 policy)")
-    if cfg.get("rmid") or cfg.get("inherit_base", False):
-        raise NotImplementedError("rmid / inherit_base are not ported")
+    rmid = cfg.get("rmid") or None
+    if rmid is not None and not re.fullmatch(r"l\d+", str(rmid)):
+        raise NotImplementedError(f"rmid {rmid!r}: only block taps 'l<stages>' are "
+                                  "ported; the no-ReLU taps wait (ROADMAP queue 1 item 7)")
+    if cfg.get("inherit_base", False):
+        raise NotImplementedError("inherit_base is not ported (ROADMAP queue 1 item 11)")
     model = PSPNet(layers=cfg.layers, bins=tuple(cfg.bins), dropout=cfg.dropout,
                    bottleneck_dim=cfg.bottleneck_dim,
-                   num_classes_tr=cfg.num_classes_tr)
+                   num_classes_tr=cfg.num_classes_tr, rmid=rmid)
     if generator is None:
         generator = torch.Generator().manual_seed(int(cfg.get("manual_seed") or 0))
     reset_parameters(model, generator)

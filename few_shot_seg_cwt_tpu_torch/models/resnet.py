@@ -84,12 +84,25 @@ class DilatedResNet(nn.Module):
                 in_ch = planes * 4
             setattr(self, f"layer{idx}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.layer0(x)
-        x = self.layer1(x)
-        x = self.layer2(x)
-        x = self.layer3(x)
-        return self.layer4(x)
+    def forward(self, x: torch.Tensor, return_feats: bool = False):
+        return run_trunk(self, x, return_feats)
+
+
+def run_trunk(trunk: nn.Module, x: torch.Tensor, return_feats: bool = False):
+    """``trunk.layer0..layer4`` (a DilatedResNet, or a PSPNet that holds the
+    stages itself): (N, 3, H, W) -> (N, 2048, H/8, W/8); with
+    ``return_feats`` also ``feats[stage] = [block outputs]`` for stages 1..4
+    (NCHW), as the JAX trunk returns them."""
+    x = trunk.layer0(x)
+    feats = {}
+    for stage in range(1, 5):
+        outs = []
+        for block in getattr(trunk, f"layer{stage}"):
+            x = block(x)
+            if return_feats:  # held only where a head reads them
+                outs.append(x)
+        feats[stage] = outs
+    return (x, feats) if return_feats else x
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:

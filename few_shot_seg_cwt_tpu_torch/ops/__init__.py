@@ -8,7 +8,17 @@ from .resize import (
 from .losses import (
     binary_weighted_ce_from_diff,
     class_balance_weights,
+    cross_entropy,
+    seg_loss,
     weighted_cross_entropy,
+    weighted_dice_loss,
+)
+from .corr import (
+    get_corr,
+    l2norm,
+    masked_attention_readout,
+    mutual_matching_bqsc,
+    mutual_matching_flat,
 )
 from .metrics import intersection_and_union
 
@@ -20,6 +30,14 @@ __all__ = [
     "upsample_bilinear_ac",
     "binary_weighted_ce_from_diff",
     "class_balance_weights",
+    "cross_entropy",
+    "seg_loss",
     "weighted_cross_entropy",
+    "weighted_dice_loss",
+    "get_corr",
+    "l2norm",
+    "masked_attention_readout",
+    "mutual_matching_bqsc",
+    "mutual_matching_flat",
     "intersection_and_union",
 ]

@@ -16,22 +16,14 @@ fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Dict, Sequence
 
 import torch
 
+from . import cuda_build
 from .resize import interp_matrix_align_corners
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "inner_loop.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+_SOURCE = cuda_build.CSRC / "inner_loop.cu"
 # shared memory one block may use on Hopper (bytes)
 MAX_SMEM_BYTES = 232_448
 
@@ -48,55 +40,17 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(fallback):
-        return fallback
-    raise RuntimeError("nvcc not found: the inner-loop kernel is built on the "
-                       "machine with the card, from csrc/inner_loop.cu")
-
-
-def library_path(defines: Sequence[str] = ()) -> Path:
-    """Where the built library lives; the name carries the hash of the source
-    and the flags so a changed source is never served by a stale build."""
-    flags = " ".join((*NVCC_FLAGS, *defines))
-    digest = hashlib.sha256(_SOURCE.read_bytes() + flags.encode())
-    return BUILD_DIR / f"libfss_inner_loop_{digest.hexdigest()[:12]}.so"
-
-
-def build_command(out: Path, defines: Sequence[str] = ()) -> list:
-    return [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(out), str(_SOURCE)]
-
-
-def build(defines: Sequence[str] = ()) -> Path:
-    """Compile the kernel if its library is missing; returns its path.
-    ``defines`` are extra nvcc flags such as ``-DFSS_PHASE_CLOCKS``."""
-    out = library_path(defines)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(build_command(Path(tmp), defines),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+def build_spec(defines: Sequence[str] = ()) -> cuda_build.Spec:
+    """The kernel's library for ``cuda_build.build``; ``defines`` are extra
+    nvcc flags such as ``-DFSS_PHASE_CLOCKS``."""
+    return (_SOURCE, "libfss_inner_loop", tuple(defines))
 
 
 def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     key = tuple(defines)
     if key not in _libs:
-        lib = ctypes.CDLL(str(build(key)))
+        lib = ctypes.CDLL(str(cuda_build.build([build_spec(key)])[0]))
         lib.fss_adapt_binary.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])

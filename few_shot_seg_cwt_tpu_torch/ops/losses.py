@@ -2,8 +2,9 @@
 
 Counterparts of ``few_shot_seg_cwt_tpu.ops.losses``: class-weighted CE with
 ignore index 255 and the weight-normalised mean of ``nn.CrossEntropyLoss``,
-its K=2 form on the logit difference, and the per-episode dynamic class
-weights [1, n_bg/n_fg].
+its K=2 form on the logit difference, the per-episode dynamic class
+weights [1, n_bg/n_fg], the binary dice loss and the ``seg_loss`` dispatcher
+of the head trainers.
 """
 
 from __future__ import annotations
@@ -68,3 +69,52 @@ def class_balance_weights(
     w = torch.ones((num_classes,), dtype=torch.float32, device=label.device)
     w[fg_idx] = (bg_cnt / torch.clamp(fg_cnt, min=1e-12)) ** tp
     return w
+
+
+def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                  ignore_index: int = 255) -> torch.Tensor:
+    """Unweighted nn.CrossEntropyLoss(ignore_index=255), mean over valid pixels."""
+    ones = torch.ones((logits.shape[-1],), dtype=torch.float32, device=logits.device)
+    return weighted_cross_entropy(logits, target, ones, ignore_index)
+
+
+def weighted_dice_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    weighted_val: float = 1.0,
+    reduction: str = "sum",
+    input_type: str = "lg",
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Binary dice over sigmoid'ed per-class maps (src/model/model_util.py:40-73).
+
+    logits (B, H, W, 2), target (B, H, W) in {0, 1, 255}; 255 drops out of
+    both one-hot planes. The leading axis is the batch B, whatever it is: an
+    unbatched (H, W, 2) input scores each row as one item, as the JAX
+    package's does.
+    """
+    tgt = torch.stack([(target == 0).float(), (target == 1).float()], dim=-1)
+    pred = logits.float()
+    if input_type in ("lg", "lt"):
+        pred = torch.sigmoid(pred)
+    b = tgt.shape[0]
+    pred = pred.reshape(b, -1, 2).transpose(1, 2).reshape(b * 2, -1)
+    tgt = tgt.reshape(b, -1, 2).transpose(1, 2).reshape(b * 2, -1)
+    denom = torch.sum(pred ** 2, -1) + torch.sum(tgt ** 2, -1)
+    loss = (1.0 - 2.0 * torch.sum(pred * tgt, -1) / torch.clamp(denom, min=eps)) * weighted_val
+    if reduction == "sum":
+        return torch.sum(loss) / b
+    if reduction == "mean":
+        return torch.mean(loss)
+    return loss
+
+
+def seg_loss(logits: torch.Tensor, target: torch.Tensor, loss_type: str = "wt_ce",
+             num_classes: int = 2, fg_idx: int = 1, input_type: str = "lg") -> torch.Tensor:
+    """SegLoss dispatcher (src/model/model_util.py:9-24)."""
+    if loss_type in ("wt_dc", "dc"):
+        return weighted_dice_loss(logits, target, input_type=input_type)
+    if loss_type == "ce":
+        return cross_entropy(logits, target)
+    w = class_balance_weights(target, num_classes=num_classes, fg_idx=fg_idx)
+    return weighted_cross_entropy(logits, target, w)

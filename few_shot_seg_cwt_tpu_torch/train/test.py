@@ -15,15 +15,13 @@ far; real datasets need the data loader and transforms, not yet ported.
 from __future__ import annotations
 
 import os
-import random
-
-import numpy as np
 
 from ..config import parse_args
 from ..data.synthetic import SequentialBatches, SyntheticEpisodicDataset
 from ..episodic.engine import EpisodicEngine
 from ..eval.validate import validate_transformer
 from ..utils.convert import load_torch_checkpoint
+from .common import apply_debug, set_seeds
 
 
 def transformer_ckpt_dir(cfg) -> str:
@@ -61,12 +59,8 @@ def main(cfg, device="cuda", log=print) -> float:
             "the PyTorch port evaluates synthetic episodes only: real datasets "
             "wait for the data loader and transforms (ROADMAP, queue 1: "
             "'Data loader and transforms', then 'Real-data train/test.py')")
-    if cfg.manual_seed is not None:
-        random.seed(cfg.manual_seed)
-        np.random.seed(cfg.manual_seed)
-    if cfg.debug:
-        cfg.test_num = min(cfg.test_num, 500)
-        cfg.n_runs = min(cfg.n_runs, 2)
+    set_seeds(cfg)
+    apply_debug(cfg)
 
     engine = EpisodicEngine(cfg, device=device)
     load_eval_weights(cfg, engine, log)

@@ -1,0 +1,134 @@
+"""Trainer for the extension heads, on the GPU (MMN so far).
+
+Counterpart of ``few_shot_seg_cwt_tpu.train.train_head``:
+
+    python -m few_shot_seg_cwt_tpu_torch.train.train_head \
+        --config configs/pascal_mmn.yaml \
+        --opts synthetic_data True use_amp False epochs 1
+
+Each step draws fresh classifier inits for the episodes, adapts them on the
+support features (inner loop), and takes one optimizer step on the head's
+parameters over the episodes' mean query loss; the backbone stays frozen.
+After every epoch the head is validated on ``test_num`` episodes (mIoU of
+the blended prediction and mIoU1 of the attention-only prediction, the
+reference's dual model-selection criterion, src/train_trans.py:202-215).
+With ``save_models`` the head's ``state_dict`` goes out with ``torch.save``
+as ``best.pt``, ``best1.pt`` and ``final.pt``. Not ported: the other heads
+(ROADMAP queue 1 items 7-10), resume (item 1), real data (item 4).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import defaultdict
+from typing import Dict
+
+import torch
+
+from ..config import parse_args
+from ..episodic.heads import HeadEngine
+from ..eval.validate import accumulate_fg_iou, batch_generator, exact_batch_sizes, fg_miou
+from ..utils.meters import AverageMeter, CompareMeter
+from .common import apply_debug, episodic_loaders, init_backbone, set_seeds
+from .optim import build_optimizer
+
+
+def init_head_trainables(engine: HeadEngine) -> Dict[str, torch.Tensor]:
+    """The head's trainable parameters by name. The engine built the head
+    with a seeded init (``manual_seed``; U(+-1/sqrt(fan_in)) kernels, zero
+    biases), as the JAX package's init does."""
+    return dict(engine.head.named_parameters())
+
+
+def validate_head(cfg, engine: HeadEngine, loader, log=print):
+    """Per-class foreground IoU over ``test_num`` episodes for the blended
+    (mIoU) and the attention-only (mIoU1) predictions."""
+    seed = int(cfg.manual_seed or 0)
+    acc = {k: defaultdict(float) for k in ("i", "u", "i1", "u1")}
+    loss_meter = AverageMeter()
+    stream = iter(loader)
+    for b, valid_n in enumerate(exact_batch_sizes(cfg.test_num, loader.batch_size)):
+        out = engine.eval_metrics_batch(next(stream), batch_generator(seed, 0, b))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        accumulate_fg_iou(acc["i"], acc["u"], out, limit=valid_n)
+        accumulate_fg_iou(acc["i1"], acc["u1"], out, suffix="1", limit=valid_n)
+        loss_meter.update(float(out["loss"][:valid_n].mean()), n=valid_n)
+    miou, miou1 = fg_miou(acc["i"], acc["u"]), fg_miou(acc["i1"], acc["u1"])
+    log(f"val: mIoU {miou:.4f} mIoU1 {miou1:.4f} loss {loss_meter.avg:.4f}")
+    return miou, miou1, loss_meter.avg
+
+
+def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
+    """Train the head for ``epochs`` epochs; returns the best validation mIoU."""
+    if cfg.get("resume_ckpt"):
+        raise NotImplementedError("resuming a head run is not ported (ROADMAP "
+                                  "queue 1 item 1)")
+    log(cfg)
+    set_seeds(cfg)
+    apply_debug(cfg)
+    head_type = head_type or cfg.get("head", "mmn")
+    train_loader, val_loader = episodic_loaders(cfg)
+    engine = HeadEngine(cfg, head_type, backbone=init_backbone(cfg), device=device)
+    trainables = init_head_trainables(engine)
+    optimizer, scheduler = build_optimizer(
+        trainables.values(), cfg, base_lr=cfg.trans_lr * cfg.scale_lr,
+        iters_per_epoch=max(1, cfg.iter_per_epoch // cfg.episode_batch))
+    step = engine.make_train_step(optimizer, scheduler)
+
+    sv_path = os.path.join(
+        "./results", f"{head_type}_{cfg.train_name}/{cfg.arch}{cfg.layers}/"
+        f"split{cfg.train_split}_shot{cfg.shot}/{cfg.exp_name}")
+    if cfg.save_models:
+        os.makedirs(sv_path, exist_ok=True)
+
+    def save(name: str) -> None:
+        if cfg.save_models:
+            torch.save(engine.head.state_dict(), os.path.join(sv_path, name))
+
+    steps_per_epoch = 5 if cfg.debug else max(
+        1, min(cfg.iter_per_epoch, len(train_loader.dataset)) // cfg.episode_batch)
+    seed = int(cfg.manual_seed or 0)
+    best, best1 = 0.0, 0.0
+    log(f"==> Start training head '{head_type}'")
+    for epoch in range(1, cfg.epochs + 1):
+        train_loader.set_epoch(epoch)
+        it = iter(train_loader)
+        loss_meter, compare = AverageMeter(), CompareMeter()
+        t0 = time.time()
+        for i in range(1, steps_per_epoch + 1):
+            try:
+                batch = next(it)
+            except StopIteration:
+                it = iter(train_loader)
+                batch = next(it)
+            metrics = step(batch, batch_generator(seed, epoch, i))
+            if i % 10 == 0 or (epoch == 1 and i <= 2):
+                m = {k: v.detach().cpu() for k, v in metrics.items()}
+                iou1 = float((m["inter1"] / (m["union1"] + 1e-10)).mean())
+                iou0 = float((m["inter0"] / (m["union0"] + 1e-10)).mean())
+                loss_meter.update(float(m["loss_mean"]))
+                compare.update(iou1, iou0)
+                if i % 100 == 0 or (epoch == 1 and i <= 2):
+                    log(f"Ep{epoch}/{i * cfg.episode_batch} loss {loss_meter.val:.3f} "
+                        f"IoU1 {iou1:.3f} IoU0 {iou0:.3f}")
+        log(f"==== Epoch {epoch}: loss {loss_meter.avg:.3f} ({time.time() - t0:.1f}s) ====")
+
+        miou, miou1, _ = validate_head(cfg, engine, val_loader, log=log)
+        if miou > best:
+            best = miou
+            save("best.pt")
+        if miou1 > best1:
+            best1 = miou1
+            save("best1.pt")
+        log(f"=> best mIoU {best:.3f} best mIoU1 {best1:.3f}")
+        stop_after = cfg.get("stop_after_epochs")
+        if stop_after and epoch >= int(stop_after):
+            log(f"=> stop_after_epochs={stop_after}: exiting after epoch {epoch}")
+            break
+    save("final.pt")
+    return best
+
+
+if __name__ == "__main__":
+    main(parse_args("Extension-head episodic training (PyTorch/CUDA)"))

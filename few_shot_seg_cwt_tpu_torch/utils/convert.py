@@ -1,7 +1,8 @@
 """Carry weights from the JAX package's flax variables to the port.
 
 The JAX package imports reference ``.pth`` state_dicts with
-``few_shot_seg_cwt_tpu.utils.ckpt.import_pspnet`` / ``import_cwt``. These
+``few_shot_seg_cwt_tpu.utils.ckpt.import_pspnet`` / ``import_cwt`` /
+``import_mmn``. These
 functions are their inverse: they take flax variables as nested dicts of
 numpy arrays and return a torch ``state_dict`` under the reference repo's
 parameter names, which are the port's module names. So flax variables load
@@ -93,6 +94,34 @@ def cwt_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Te
         "layer_norm.weight": _t(p["layer_norm"]["scale"]),
         "layer_norm.bias": _t(p["layer_norm"]["bias"]),
     }
+
+
+def mmn_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax MMN variables (or their ``params`` tree) -> torch state_dict.
+
+    Reference names, as ``utils/ckpt.py:import_mmn`` reads them: the
+    consensus pivot pair ``conv4d_{i}/conv_query|conv_support`` becomes
+    ``corr_net.NeighConsensus.conv.{2i}.conv1|conv2`` (the Sequential
+    interleaves ReLUs), ``wa_{bid}/conv_*`` stays ``wa_{bid}.conv_*`` and
+    ``rd_{bid}`` becomes ``rd_{bid}.0``.
+    """
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for block, pair in params["corr_net"]["ncons"].items():
+        i = int(re.fullmatch(r"conv4d_(\d+)", block).group(1))
+        for flax_name, ref_name in (("conv_query", "conv1"), ("conv_support", "conv2")):
+            prefix = f"corr_net.NeighConsensus.conv.{2 * i}.{ref_name}"
+            sd[prefix + ".weight"] = _conv(pair[flax_name]["kernel"])
+            if "bias" in pair[flax_name]:
+                sd[prefix + ".bias"] = _t(pair[flax_name]["bias"])
+    for name, node in params.items():
+        if name.startswith("wa_"):
+            for conv_name, leaf in node.items():
+                sd[f"{name}.{conv_name}.weight"] = _conv(leaf["kernel"])
+                sd[f"{name}.{conv_name}.bias"] = _t(leaf["bias"])
+        elif name.startswith("rd_"):
+            sd[f"{name}.0.weight"] = _conv(node["kernel"])
+    return sd
 
 
 def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:

@@ -25,7 +25,7 @@ from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import (
     binary_pixel_weights,
     support_loss,
 )
-from few_shot_seg_cwt_tpu_torch.ops import cuda_inner_loop
+from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_inner_loop
 from few_shot_seg_cwt_tpu_torch.ops.losses import class_balance_weights
 
 torch.set_num_threads(1)
@@ -164,10 +164,10 @@ def test_kernel_source_and_build_command():
     src = cuda_inner_loop._SOURCE.read_text()
     for sym in ("fss_adapt_binary(", "fss_adapt_binary_smem_bytes(", "fss_error_string("):
         assert sym in src
-    assert "arch=compute_90a,code=sm_90a" in cuda_inner_loop.NVCC_FLAGS
-    path = cuda_inner_loop.library_path()
-    assert path.parent == cuda_inner_loop.BUILD_DIR and path.suffix == ".so"
-    assert cuda_inner_loop.BUILD_DIR.relative_to(cuda_inner_loop._SOURCE.parents[2]).parts[0] == "build"
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    path = cuda_build.library_path(*cuda_inner_loop.build_spec())
+    assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
+    assert cuda_build.BUILD_DIR.relative_to(cuda_inner_loop._SOURCE.parents[2]).parts[0] == "build"
 
 
 def test_plain_version_runs_in_float64():
@@ -190,7 +190,8 @@ def test_phase_clock_build_is_a_separate_library():
     """``-DFSS_PHASE_CLOCKS`` builds another library (own hashed name) whose
     source exports the per-phase cycle counters; the default build has none."""
     defines = ("-DFSS_PHASE_CLOCKS",)
-    assert cuda_inner_loop.library_path(defines) != cuda_inner_loop.library_path()
+    assert (cuda_build.library_path(*cuda_inner_loop.build_spec(defines))
+            != cuda_build.library_path(*cuda_inner_loop.build_spec()))
     src = cuda_inner_loop._SOURCE.read_text()
     assert "fss_phase_cycles(" in src
     assert src.index("#ifdef FSS_PHASE_CLOCKS") < src.index("int fss_phase_cycles(")

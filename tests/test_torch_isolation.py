@@ -52,6 +52,17 @@ cfg = default_cfg()
 cfg.image_size, cfg.adapt_iter, cfg.cls_lr = 33, 2, 0.1
 engine = EpisodicEngine(cfg, device="cpu")
 masks = engine.serve_batch(make_episode_batch(1, 2, size=33), torch.Generator().manual_seed(0))
+# the MMN head on the flat consensus route (the pivot kernels' plain version)
+import os
+os.environ["FSS_PIVOT_MXU"] = "1"
+from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
+from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
+mcfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"),
+                           ["image_size", "33", "adapt_iter", "2", "use_amp", "False"])
+heads = HeadEngine(mcfg, "mmn", device="cpu")
+mmn_masks = heads.serve_batch(make_episode_batch(1, 2, size=33), torch.Generator().manual_seed(0))
+assert tuple(mmn_masks.shape) == (2, 33, 33)
+import few_shot_seg_cwt_tpu_torch.train.train_head  # noqa: F401
 forbidden = sorted(m for m in sys.modules
                    if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "orbax"}
                    or m == "few_shot_seg_cwt_tpu" or m.startswith("few_shot_seg_cwt_tpu."))
