@@ -11,9 +11,12 @@ Phases (any failure raises and the script exits non-zero):
 3. Kernel phase: each kernel at the main paths' shapes against its plain
    PyTorch version on the same inputs, with its tolerance; times by CUDA
    events (median after a warm-up) beside the bound for the same work.
-   K1 (the inner loop); then the centre-pivot pair (pivot_fwd, pivot_dw) for
-   each consensus block at 473 px (2->10, 10->10, 10->1), its gradients held
-   against an fp64 run, beside the rank-4 route's cuDNN time.
+   K1 (the inner loop); K2 (the same function, 2 episodes per CTA) on K1's
+   inputs, against the plain version and against K1, with its shared memory
+   and the tile ``pick_tile`` gives for FSS_INNER_TILE 2 and 4 (3c); then the
+   centre-pivot pair (pivot_fwd, pivot_dw) for each consensus block at 473 px
+   (2->10, 10->10, 10->1), its gradients held against an fp64 run, beside the
+   rank-4 route's cuDNN time (3b).
 4. CWT main path at full width: ResNet-50 PSPNet + CWT with a seeded random
    init, 8 synthetic 1-shot episodes at 473 px, adapt_iter 200. First, at
    the raw init, the kernel and the plain loop in fp32 (card and host) are
@@ -38,8 +41,20 @@ Phases (any failure raises and the script exits non-zero):
    dropout on.
 7. The trainer entry point ``train.train_head.main`` on pascal_mmn.yaml
    with synthetic episodes; its validation line is printed.
-8. A ``kernels`` JSON line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+8. CWT meta-train step at full width (configs/pascal.yaml, 8 episodes, the
+   calibrated engine of phase 4). With every dropout off, one step's
+   transformer gradients on the K1 path (FSS_INNER_TILE unset), on the K2
+   path (FSS_INNER_TILE=2) and with the plain inner loop called directly,
+   held against each other; the launch counts are reset around each path
+   (K1 launches on the first, K2 and not K1 on the second). Then timed SGD
+   steps with dropout on at both tiles (episodes/s, peak memory, the loss
+   over the steps on one batch) and a torch.profiler breakdown of each.
+9. The trainer entry point ``train.train_cwt.main`` on pascal.yaml with
+   synthetic episodes: one epoch with checkpoints into a scratch model_dir
+   under build/, a resume from its ``train_state.pth`` for one more epoch,
+   and ``train.test.main`` loading the ``best.pth`` it wrote.
+10. A ``kernels`` JSON line, the card line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -47,9 +62,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,10 +78,12 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 E, SHOT, IMG, FEAT, CH, STEPS, CLS_LR = 8, 1, 473, 60, 512, 200, 0.1
+TILE = 2                                     # K2's episodes per CTA at 473 px
 E_MMN = 4                                    # MMN episodes per eval/serve batch
 PIVOT_BLOCKS = ((2, 10), (10, 10), (10, 1))  # NeighConsensus (Ci, Co), rmid l34
 PIVOT_DIMS = (FEAT, FEAT, FEAT, FEAT)
-ROUTE_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4")
+ROUTE_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4",
+                  "FSS_INNER_TILE")
 
 
 def card_line() -> str:
@@ -203,21 +222,32 @@ def pivot_work(ci, co, q, s):
 
 
 @contextlib.contextmanager
-def pivot_route(flat: bool):
-    """The consensus route for the enclosed calls: flat (the pivot kernels,
-    ``FSS_PIVOT_MXU=1``) or rank-4 (cuDNN plane convs, the default)."""
-    saved = os.environ.get("FSS_PIVOT_MXU")
-    if flat:
-        os.environ["FSS_PIVOT_MXU"] = "1"
+def env_var(name: str, value):
+    """``name`` set to ``value`` (unset for None) for the enclosed calls."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
     else:
-        os.environ.pop("FSS_PIVOT_MXU", None)
+        os.environ[name] = value
     try:
         yield
     finally:
         if saved is None:
-            os.environ.pop("FSS_PIVOT_MXU", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["FSS_PIVOT_MXU"] = saved
+            os.environ[name] = saved
+
+
+def pivot_route(flat: bool):
+    """The consensus route for the enclosed calls: flat (the pivot kernels,
+    ``FSS_PIVOT_MXU=1``) or rank-4 (cuDNN plane convs, the default)."""
+    return env_var("FSS_PIVOT_MXU", "1" if flat else None)
+
+
+def inner_tile(tile):
+    """The inner loop's episodes per CTA for the enclosed calls: K1 (None,
+    FSS_INNER_TILE unset) or K2 (``FSS_INNER_TILE=tile``)."""
+    return env_var("FSS_INNER_TILE", None if tile is None else str(tile))
 
 
 def pivot_grads(fn, x, wa, wb, bias, t, dtype=torch.float32):
@@ -367,12 +397,12 @@ def device_profile(fn, label, card):
     if busy <= 0:
         print(f"{label}: the profiler recorded no device time (not measured)")
         return
-    ours = {name: sum(v for k, v in ms.items() if pat in k) for name, pat in (
-        ("K1 adapt_binary", "adapt_binary_kernel"), ("pivot_fwd", "pivot_fwd_kernel"),
-        ("pivot_dw", "pivot_dw_"))}
+    patterns = (("K1 adapt_binary", "adapt_binary_kernel"),
+                ("K2 adapt_binary_tiled", "adapt_binary_tiled_kernel"),
+                ("pivot_fwd", "pivot_fwd_kernel"), ("pivot_dw", "pivot_dw_"))
+    ours = {name: sum(v for k, v in ms.items() if pat in k) for name, pat in patterns}
     others = sorted(((v, k) for k, v in ms.items()
-                     if not any(p in k for p in ("adapt_binary_kernel", "pivot_fwd_kernel",
-                                                 "pivot_dw_"))), reverse=True)[:6]
+                     if not any(pat in k for _, pat in patterns)), reverse=True)[:6]
     print(f"{label}: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle share "
           f"{1 - busy / wall:.1%}); the port's kernels "
           f"{ {k: round(v, 1) for k, v in ours.items()} }; top other kernels "
@@ -562,6 +592,177 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     return eval_launches, train_launches
 
 
+def k2_phase(cuda_inner_loop, pick_tile, cuda_ms, inputs, acc_k1, acc_plain, tol, card):
+    """K2 at tile 2 on the K1 phase's inputs (E = 8, 200 steps): against the
+    plain version and against K1 with K1's tolerance, its time, and its
+    shared memory from the library against the dispatch's formula."""
+    f_s, pw, pwy, u0 = inputs
+    acc = cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, STEPS, CLS_LR, TILE)
+    torch.cuda.synchronize()
+    err = float((acc - acc_plain).abs().max())
+    vs_k1 = float((acc - acc_k1).abs().max())
+    lib = cuda_inner_loop.load_library()
+    smem = lib.fss_adapt_binary_tiled_smem_bytes(FEAT, FEAT, CH, IMG, TILE)
+    tiles = {}
+    for want in ("2", "4"):
+        with env_var("FSS_INNER_TILE", want):
+            tiles[want] = pick_tile(E, SHOT, FEAT, FEAT, CH, IMG)
+    print(f"K2 adapt_binary_tiled (tile {TILE}): max|acc_k2 - acc_p| = {err:.3e}, "
+          f"max|acc_k2 - acc_k1| = {vs_k1:.3e} (tolerance 1e-4 * max|acc_p| = {tol:.3e}); "
+          f"shared memory {smem} B per CTA (formula "
+          f"{cuda_inner_loop.smem_bytes(FEAT, FEAT, CH, IMG, TILE)}; tile 4 would need "
+          f"{cuda_inner_loop.smem_bytes(FEAT, FEAT, CH, IMG, 4)} of "
+          f"{cuda_inner_loop.MAX_SMEM_BYTES}); pick_tile at E = {E}, 473 px for "
+          f"FSS_INNER_TILE 2 / 4: {tiles['2']} / {tiles['4']}")
+    if not np.isfinite(err) or err > tol or vs_k1 > tol:
+        raise AssertionError(f"K2 disagrees with the plain version or K1: {err}, {vs_k1}")
+    if smem != cuda_inner_loop.smem_bytes(FEAT, FEAT, CH, IMG, TILE) or tiles != {"2": 2, "4": 2}:
+        raise AssertionError(f"K2's shared memory or the tile dispatch: {smem}, {tiles}")
+    ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, STEPS, CLS_LR,
+                                                            TILE), 5)
+    return err, ms
+
+
+def cwt_train_phase(engine, episodes, w0, card, modules):
+    """The CWT meta-train step at full width: gradients on the K1 path, the
+    K2 path and the plain inner loop (dropout off), held against each other;
+    launch counts around each kernel path; timed SGD steps with dropout on at
+    both tiles and a profiler breakdown of each. Returns the launch counts of
+    the K1 and K2 paths."""
+    cuda_inner_loop, binary_pixel_weights, build_optimizer = modules
+    cfg = engine.cfg
+    batch = engine.to_device(episodes)
+    cwt = engine.cwt
+    rates = (cfg.dropout, cwt.dropout, cwt.attn_dropout)
+
+    # ---- one step's gradients, dropout off, three inner loops ----
+    cfg.dropout = cwt.dropout = cwt.attn_dropout = 0.0
+    grads, counts, losses = {}, {}, {}
+    for name, tile in (("K1", None), ("K2", TILE)):
+        with inner_tile(tile):
+            cwt.zero_grad(set_to_none=True)
+            cuda_inner_loop.reset_launches()
+            loss, _ = engine.train_episode_losses(episodes, w0=w0, with_metrics=False)
+            loss.mean().backward()
+            torch.cuda.synchronize()
+            counts[name] = dict(cuda_inner_loop.LAUNCHES)
+        grads[name] = {k: p.grad.clone() for k, p in cwt.named_parameters()}
+        losses[name] = loss.detach()
+    with torch.no_grad():
+        f_s, f_q = engine._episode_features(batch)
+        pw, pwy = binary_pixel_weights(batch["s_label"])
+        acc = cuda_inner_loop.adapt_binary_reference(
+            f_s, pw, pwy, (w0[:, 1] - w0[:, 0]).contiguous(), STEPS, CLS_LR)
+        w_plain = torch.stack([w0[:, 0] + CLS_LR * acc, w0[:, 1] - CLS_LR * acc], dim=1)
+    cwt.zero_grad(set_to_none=True)
+    loss, _ = engine._train_losses(f_q, w_plain, batch["q_label"], with_metrics=False)
+    loss.mean().backward()
+    grads["plain"] = {k: p.grad.clone() for k, p in cwt.named_parameters()}
+    losses["plain"] = loss.detach()
+    cfg.dropout, cwt.dropout, cwt.attn_dropout = rates
+    cwt.zero_grad(set_to_none=True)
+
+    print(f"CWT train step launches: K1 path {counts['K1']}; K2 path (FSS_INNER_TILE={TILE}) "
+          f"{counts['K2']}")
+    if counts["K1"]["adapt_binary"] < 1 or counts["K1"]["adapt_binary_tiled"] != 0:
+        raise AssertionError(f"the K1 path of the train step: {counts['K1']}")
+    if counts["K2"]["adapt_binary_tiled"] < 1 or counts["K2"]["adapt_binary"] != 0:
+        raise AssertionError(f"the K2 path of the train step: {counts['K2']}")
+    top = max(float(g.abs().max()) for g in grads["plain"].values())
+    rel = {}
+    for a, b in (("K2", "K1"), ("K1", "plain"), ("K2", "plain")):
+        for k, g in grads[b].items():
+            diff = float((grads[a][k] - g).abs().max())
+            rel[f"{a} vs {b}: {k}"] = diff / max(float(g.abs().max()), 1e-30)
+            if not diff <= 1e-3 * float(g.abs().max()) + 1e-7 * top:
+                raise AssertionError(f"CWT gradients {a} vs {b} differ in {k}: {diff}")
+    loss_rel = {f"{a} vs {b}": float(((losses[a] - losses[b]).abs()
+                                      / losses[b].abs()).max())
+                for a, b in (("K2", "K1"), ("K1", "plain"))}
+    print(f"CWT train-step gradients (dropout off), max|g_a - g_b| / max|g_b| per tensor "
+          f"(tolerance 1e-3, plus 1e-7 of the largest entry for the layer_norm.bias "
+          f"gradient, 0 in exact arithmetic): {json.dumps(rel)}; per-episode losses, "
+          f"max relative difference {loss_rel}; per-episode losses (plain) "
+          f"{np.round(losses['plain'].cpu().numpy(), 4).tolist()}; max|g| per tensor "
+          f"{ {k: float(g.abs().max()) for k, g in grads['plain'].items()} }")
+
+    # ---- timed SGD steps with dropout on, both tiles ----
+    start = {k: v.clone() for k, v in cwt.state_dict().items()}
+    rows = {}
+    for name, tile in (("K1", None), ("K2", TILE)):
+        cwt.load_state_dict(start)
+        opt, _ = build_optimizer(cwt.parameters(), cfg, base_lr=cfg.trans_lr * cfg.scale_lr,
+                                 use_schedule=False)
+        step = engine.make_train_step(opt, with_metrics=False)
+        gen = torch.Generator().manual_seed(300)
+        with inner_tile(tile):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_losses, times = [], []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                m = step(episodes, gen, w0=w0)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                step_losses.append(float(m["loss"]))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            step_s = statistics.median(times[1:])
+            print(f"CWT train step ({name} path, dropout on, SGD lr "
+                  f"{cfg.trans_lr * cfg.scale_lr}, loss-only step): {E / step_s:.3f} episodes/s "
+                  f"({step_s * 1e3:.1f} ms per step of {E}; steps "
+                  f"{np.round(times, 4).tolist()} s); losses over the steps on one batch "
+                  f"{np.round(step_losses, 4).tolist()}; peak memory {peak:.2f} GiB [{card}; "
+                  f"fp32, TF32 off, 1-shot, 473 px, adapt_iter {STEPS}]")
+            if not all(np.isfinite(step_losses)):
+                raise AssertionError(f"CWT train steps ({name}): non-finite loss {step_losses}")
+            device_profile(lambda: step(episodes, gen, w0=w0),
+                           f"CWT train step of {E} ({name} path), torch.profiler", card)
+        rows[name] = step_s
+    cwt.load_state_dict(start)
+    return counts, rows
+
+
+def train_cwt_entry_phase(load_cfg, merge_cfg_from_list, train_cwt, test_entry,
+                          trans_ckpt_dir):
+    """``train.train_cwt.main``: one epoch with checkpoints, a resume from its
+    train state for one more, and ``train.test.main`` loading its best.pth."""
+    os.makedirs("build", exist_ok=True)
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir="build")
+    try:
+        def cfg(*opts):
+            return merge_cfg_from_list(load_cfg("configs/pascal.yaml"), [
+                "synthetic_data", "True", "iter_per_epoch", str(2 * E), "episode_batch",
+                str(E), "test_num", "8", "n_runs", "1", "save_models", "True",
+                "model_dir", model_dir, *opts])
+
+        keep = ("Epoch ", "Saving checkpoint", "=> resumed", "mIoU---Val", "=> Max_mIoU",
+                "=> stop_after", "=> loading transformer")
+        lines = []
+        best = train_cwt.main(cfg("epochs", "1"), device="cuda", log=lines.append)
+        out = trans_ckpt_dir(cfg())
+        written = sorted(os.listdir(out))
+        state = os.path.join(out, "train_state.pth")
+        lines.append(f"checkpoints written: {written}")
+        best2 = train_cwt.main(cfg("epochs", "2", "resume_ckpt", state, "stop_after_epochs", "1"),
+                               device="cuda", log=lines.append)
+        miou = test_entry.main(cfg("ckpt_used", "best"), device="cuda", log=lines.append)
+        print("train.train_cwt.main (2 steps of 8 an epoch, test_num 8, random init, synthetic "
+              "episodes): " + " | ".join(str(l) for l in lines
+                                        if str(l).startswith(keep + ("checkpoints",))))
+        print(f"train.train_cwt.main: best mIoU {best:.4f} after epoch 1, {best2:.4f} after "
+              f"the resumed epoch 2; train.test.main on best.pth: mIoU {miou:.4f}")
+        if written != ["best.pth", "final.pth", "train_state.pth"]:
+            raise AssertionError(f"train_cwt wrote {written}")
+        if not any(str(l).startswith("=> resumed full train state at epoch 1") for l in lines):
+            raise AssertionError("train_cwt did not resume its train state")
+        if not any(str(l).startswith("=> loading transformer weight") for l in lines):
+            raise AssertionError("train.test.main did not load best.pth")
+        if not all(np.isfinite([best, best2, miou])):
+            raise AssertionError("train_cwt / test returned a non-finite mIoU")
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -581,13 +782,15 @@ def main() -> int:
     from few_shot_seg_cwt_tpu_torch.episodic.engine import EpisodicEngine
     from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
     from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import (adapt_classifier_batch,
-                                                                binary_pixel_weights)
+                                                                binary_pixel_weights,
+                                                                pick_tile)
     from few_shot_seg_cwt_tpu_torch.models.conv4d import CenterPivotConv4d
     from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_inner_loop, cuda_pivot
     from few_shot_seg_cwt_tpu_torch.ops.corr import get_corr
     from few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop import cuda_ms
     from few_shot_seg_cwt_tpu_torch.train import test as test_entry
-    from few_shot_seg_cwt_tpu_torch.train import train_head
+    from few_shot_seg_cwt_tpu_torch.train import train_cwt, train_head
+    from few_shot_seg_cwt_tpu_torch.train.common import trans_ckpt_dir
     from few_shot_seg_cwt_tpu_torch.train.optim import build_optimizer
 
     for var in ROUTE_SWITCHES:
@@ -598,7 +801,7 @@ def main() -> int:
     cuda_build.build([cuda_inner_loop.build_spec(), cuda_pivot.build_spec()])
     cuda_inner_loop.load_library()
     cuda_pivot.load_library()
-    print(f"build: 2 libraries (inner_loop.cu: K1; pivot.cu: pivot_fwd, pivot_dw) in "
+    print(f"build: 2 libraries (inner_loop.cu: K1, K2; pivot.cu: pivot_fwd, pivot_dw) in "
           f"{time.perf_counter() - t0:.2f} s")
 
     dev = torch.device("cuda")
@@ -630,6 +833,13 @@ def main() -> int:
     print(f"K1 adapt_binary: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
           f"bound {k1_bound:.3f} ms ({k1_bound_by}: {flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB), library_ms null [{card}]")
+
+    # ---- 3c. K2 on the same inputs ----
+    k2_err, k2_ms = k2_phase(cuda_inner_loop, pick_tile, cuda_ms, (f_s, pw, pwy, u0),
+                                acc_k, acc_p, k1_tol, card)
+    print(f"K2 adapt_binary_tiled (tile {TILE}): kernel {k2_ms:.3f} ms against K1's "
+          f"{k1_ms:.3f} ms; plain {k1_plain_ms:.3f} ms (the same function), bound "
+          f"{k1_bound:.3f} ms ({k1_bound_by}, the same work), library_ms null [{card}]")
 
     # ---- 3b. pivot kernels at the MMN path's shapes ----
     pivot = pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card)
@@ -735,6 +945,14 @@ def main() -> int:
     if not np.isfinite(best):
         raise AssertionError("the head trainer returned a non-finite mIoU")
 
+    # ---- 8. CWT meta-train step at full width (calibrated engine of phase 4) ----
+    train_counts, _ = cwt_train_phase(engine, episodes, w0, card, (
+        cuda_inner_loop, binary_pixel_weights, build_optimizer))
+
+    # ---- 9. the CWT trainer's entry point ----
+    train_cwt_entry_phase(load_cfg, merge_cfg_from_list, train_cwt, test_entry,
+                          trans_ckpt_dir)
+
     main_block = pivot[(10, 10)]  # the heaviest consensus block stands for each kernel
     kernels = [{
         "name": "adapt_binary",
@@ -744,6 +962,18 @@ def main() -> int:
         "launches": launches["adapt_binary"],
         "max_abs_err": k1_err,
         "ms": k1_ms,
+        "plain_ms": k1_plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "adapt_binary_tiled",
+        "route": "cuda",
+        "source": "few_shot_seg_cwt_tpu_torch/csrc/inner_loop.cu",
+        "replaces": "few_shot_seg_cwt_tpu/ops/pallas_inner_loop.py:97",
+        "launches": train_counts["K2"]["adapt_binary_tiled"],
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
         "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound,
         "bound_by": k1_bound_by,

@@ -1,7 +1,7 @@
-"""Episodic engine: evaluation and serving of stage-2 CWT episodes.
+"""Episodic engine: evaluation, serving and meta-training of stage-2 CWT
+episodes.
 
-Counterpart of ``few_shot_seg_cwt_tpu.episodic.engine.EpisodicEngine`` for
-the eval and serve programs:
+Counterpart of ``few_shot_seg_cwt_tpu.episodic.engine.EpisodicEngine``:
 
   backbone features (frozen, one pass over shot+1 images)
   -> inner-loop classifier adaptation (CUDA kernel for K=2 on the card)
@@ -19,8 +19,10 @@ Episodes are dicts of NHWC arrays (numpy or torch)::
 The ``*_batch`` methods take a leading episode axis E (written out as a
 batch dimension where the JAX package used ``vmap``); the ``*_episode``
 methods take one episode without it. The engine owns the backbone and the
-transformer as ``nn.Module``s on its device, in eval mode. Training is not
-part of this engine yet.
+transformer as ``nn.Module``s on its device, in eval mode. The meta-train
+step (``make_train_step``) trains the transformer alone: the backbone is
+frozen, and the transformer is in train mode (dropout live) only inside
+the step's loss, so evaluation between steps runs without dropout.
 """
 
 from __future__ import annotations
@@ -30,10 +32,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.cwt import MultiHeadAttentionOne, build_cwt
+from ..models.cwt import MultiHeadAttentionOne, build_cwt, dropout
 from ..models.pspnet import (PSPNet, apply_classifier, build_pspnet,
                              init_classifier_weights)
-from ..ops.losses import binary_weighted_ce_from_diff, weighted_cross_entropy
+from ..ops.losses import (binary_weighted_ce_from_diff, class_balance_weights,
+                          weighted_cross_entropy)
 from ..ops.metrics import intersection_and_union
 from ..ops.resize import upsample_bilinear_ac
 from .inner_loop import adapt_classifier_batch
@@ -89,6 +92,7 @@ class EpisodicEngine:
             raise RuntimeError("EpisodicEngine: no CUDA device; pass device='cpu'")
         self.backbone = (backbone if backbone is not None
                          else build_pspnet(cfg)).to(self.device).eval()
+        self.backbone.requires_grad_(False)
         self.cwt = (cwt if cwt is not None else build_cwt(cfg)).to(self.device).eval()
         self.num_classes = cfg.num_classes_tr
         self.adapt_iter = cfg.adapt_iter
@@ -112,16 +116,27 @@ class EpisodicEngine:
     # ------------------------------------------------------------------ #
 
     @torch.no_grad()
-    def _episode_features(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _episode_features(self, batch, support_dropout: bool = False,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Backbone features: ONE pass over the E*(shot+1) images.
 
         Returns f_s (E, shot, h, w, C) and f_q (E, h, w, C), fp32.
+
+        ``support_dropout`` (the train step): the reference extracts support
+        features in train mode, where the bottleneck's channel dropout is
+        the only difference; the same mask is applied here to f_s alone,
+        Bernoulli(1 - ``cfg.dropout``) per (episode, shot, channel) from
+        ``generator``, kept channels scaled by 1/(1 - rate).
         """
         s_img, q_img = batch["s_img"], batch["q_img"]
         e, shot = s_img.shape[:2]
         imgs = torch.cat([s_img.reshape((e * shot,) + s_img.shape[2:]), q_img], dim=0)
         feat = self.backbone.extract_features(imgs).float()
         f_s = feat[: e * shot].reshape((e, shot) + feat.shape[1:])
+        if support_dropout:
+            mask_shape = (e, shot, 1, 1, f_s.shape[-1])
+            f_s = dropout(f_s, float(self.cfg.dropout), generator, mask_shape)
         return f_s, feat[e * shot:]
 
     @torch.no_grad()
@@ -223,6 +238,86 @@ class EpisodicEngine:
         f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
         pred_q, _ = self._predict(f_q, w)
         return self.mask_from_prediction(pred_q, batch["q_img"].shape[1:3])
+
+    # ------------------------------------------------------------------ #
+    # meta-training
+    # ------------------------------------------------------------------ #
+
+    def _train_losses(self, f_q: torch.Tensor, w: torch.Tensor, q_label: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      with_metrics: bool = True):
+        """Per-episode query losses (E,), differentiable in the transformer's
+        parameters, from the raw query features and the adapted classifier.
+
+        The transformer runs in train mode (both dropouts live, masks from
+        ``generator``) and is back in eval mode on return. The loss is the
+        class-weighted CE of the upsampled prediction, weights [1, n_bg/n_fg]
+        of each query label. ``with_metrics`` adds the I/U of the transformed
+        and raw classifiers, as the JAX ``train_episode_loss`` does.
+        """
+        with torch.no_grad():
+            f_qn = l2_normalize_channels(f_q)
+        self.cwt.train()
+        try:
+            w_upd = self.cwt(w, f_qn, f_qn, generator=generator)
+        finally:
+            self.cwt.eval()
+        logits60 = apply_classifier(w_upd, f_qn)          # (E, h, w, K)
+        size = q_label.shape[-2:]
+        e = q_label.shape[0]
+        qw = [class_balance_weights(q_label[i], num_classes=self.num_classes)
+              for i in range(e)]
+        if self.num_classes == 2:
+            # single-plane tail; its gradient is the two-logit CE gradient
+            d = self._upsampled_diff(logits60, size)
+            losses = torch.stack([binary_weighted_ce_from_diff(d[i], q_label[i], qw[i])
+                                  for i in range(e)])
+        else:
+            logits = upsample_bilinear_ac(logits60.float(), tuple(size))
+            losses = torch.stack([weighted_cross_entropy(logits[i], q_label[i], qw[i])
+                                  for i in range(e)])
+        if not with_metrics:
+            return losses, {}
+        with torch.no_grad():
+            inter, union, _ = self._upsampled_metrics(logits60, q_label)
+            inter0, union0, _ = self._upsampled_metrics(apply_classifier(w, f_q), q_label)
+        return losses, {"inter": inter, "union": union, "inter0": inter0, "union0": union0}
+
+    def train_episode_losses(self, episodes, generator: Optional[torch.Generator] = None,
+                             w0: Optional[torch.Tensor] = None, with_metrics: bool = True):
+        """The JAX ``train_episode_loss`` for E episodes: per-episode losses
+        (E,), differentiable in the transformer's parameters, and metrics.
+
+        Classifier inits come from ``w0`` (E, K, C) or are drawn from
+        ``generator``, which then also draws the support-dropout and the
+        transformer's dropout masks, in that order. With every dropout rate
+        at 0 no generator is needed.
+        """
+        batch = self.to_device(episodes)
+        w0 = pick_w0(self, batch["q_img"].shape[0], generator, w0)
+        f_s, f_q = self._episode_features(batch, support_dropout=True, generator=generator)
+        with torch.no_grad():   # no gradient flows into the inner loop
+            w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.adapt_iter,
+                                       self.cls_lr)
+        return self._train_losses(f_q, w, batch["q_label"], generator, with_metrics)
+
+    def make_train_step(self, optimizer: torch.optim.Optimizer, with_metrics: bool = True):
+        """step(episodes, generator=None, w0=None) -> metrics: one optimizer
+        step on the transformer over the mean episode loss. ``metrics`` holds
+        ``loss`` and, with ``with_metrics``, the (E, K) I/U of the transformed
+        and raw classifiers (the loss-only step skips that tail)."""
+
+        def step(episodes, generator=None, w0=None):
+            self.cwt.zero_grad(set_to_none=True)
+            losses, metrics = self.train_episode_losses(episodes, generator, w0,
+                                                        with_metrics)
+            loss = losses.mean()
+            loss.backward()
+            optimizer.step()
+            metrics["loss"] = loss.detach()
+            return metrics
+
+        return step
 
     # ------------------------------------------------------------------ #
     # single-episode programs (a batch of one)

@@ -9,17 +9,20 @@ per-episode class weights [1, n_bg/n_fg] and ignore index 255.
   ``support_loss`` (with ``row_mask``), one episode at a time.
 * For K=2 without ``row_mask`` the loop has a closed form that evolves one
   (C,) accumulator (see ``_adapt_binary``); ``adapt_binary_batch`` runs it for
-  a batch of episodes through ``ops.cuda_inner_loop.adapt_binary``, which
-  launches the CUDA kernel on the card and runs the plain version on the CPU.
+  a batch of episodes through ``ops.cuda_inner_loop.adapt_binary`` (K1) or,
+  when ``pick_tile`` says so, ``adapt_binary_tiled`` (K2). Each launches its
+  CUDA kernel on the card and runs the plain version on the CPU.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 
-from ..ops.cuda_inner_loop import adapt_binary
+from ..ops.cuda_inner_loop import (MAX_SMEM_BYTES, TILES, adapt_binary,
+                                   adapt_binary_tiled, smem_bytes)
 from ..ops.losses import class_balance_weights, weighted_cross_entropy
 from ..ops.resize import upsample_bilinear_ac
 
@@ -93,13 +96,39 @@ def binary_pixel_weights(s_label: torch.Tensor,
     return pw.contiguous(), (pw * fg.float()).contiguous()
 
 
+def pick_tile(e: int, shot: int, h: int, w: int, c: int, big_w: int) -> int:
+    """Episodes per CTA of the inner-loop kernel for a batch of ``e``.
+
+    The counterpart of the JAX package's ``_pick_tile``
+    (``ops/pallas_inner_loop.py``), with the same switch and rule:
+    ``FSS_INNER_TILE`` (default 1) asks for a tile; 1-shot only; try the
+    tile asked for, then 2; the batch must divide by the tile. The budget is
+    Hopper's 232,448 B of shared memory per block (the kernel's layout,
+    ``smem_bytes``) in place of the TPU's 127 MiB of VMEM, and the tile one
+    the kernel is built for (2, 3 or 4). So the grouping can differ from the
+    JAX package's for the same function: at 473 px (60x60x512 features)
+    tile 2 needs 170,624 B and tile 4 304,640 B, so ``FSS_INNER_TILE=4``
+    gives tile 2 here where the TPU fits 4.
+    """
+    want = int(os.environ.get("FSS_INNER_TILE", "1"))
+    if shot != 1 or want <= 1:
+        return 1
+    for t in (want, 2):
+        if (t in TILES and e % t == 0
+                and smem_bytes(h, w, c, big_w, t) <= MAX_SMEM_BYTES):
+            return t
+    return 1
+
+
 def adapt_binary_batch(f_s: torch.Tensor, s_label: torch.Tensor,
                        w_init: torch.Tensor, num_steps: int, lr: float,
                        cls_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Closed-form K=2 inner loop for a batch of episodes.
 
     f_s (E, shot, h, w, C), s_label (E, shot, H, W), w_init (E, 2, C);
-    returns the adapted (E, 2, C) weights.
+    returns the adapted (E, 2, C) weights. The batch runs on K1, or on K2
+    when ``pick_tile`` gives a tile above 1 (never for a batch of one, as
+    the JAX package's unbatched call runs K1).
 
     For K=2 the weighted-CE gradient w.r.t. the two logits is
     +-pw*(sigmoid(l1-l0) - y)/sum(pw), so the two rows move in exact
@@ -107,7 +136,13 @@ def adapt_binary_batch(f_s: torch.Tensor, s_label: torch.Tensor,
     """
     pw, pwy = binary_pixel_weights(s_label, cls_weights)
     u0 = (w_init[:, 1] - w_init[:, 0]).float().contiguous()
-    acc = adapt_binary(f_s.float().contiguous(), pw, pwy, u0, num_steps, float(lr))
+    f_s = f_s.float().contiguous()
+    e, shot, h, w, c = f_s.shape
+    tile = pick_tile(e, shot, h, w, c, pw.shape[-1])
+    if tile > 1:
+        acc = adapt_binary_tiled(f_s, pw, pwy, u0, num_steps, float(lr), tile)
+    else:
+        acc = adapt_binary(f_s, pw, pwy, u0, num_steps, float(lr))
     return torch.stack([w_init[:, 0] + lr * acc, w_init[:, 1] - lr * acc], dim=1)
 
 

@@ -5,7 +5,10 @@ cross-attention block whose queries are the (K, 512) episodic classifier
 weights and whose keys/values are the flattened (h*w, 512) query features.
 Q, K and V share one bias-free projection ``w_qkvs``; attention is scaled by
 sqrt(d_k) with dropout 0.1 on its weights; then ``fc`` (with bias), output
-dropout, residual and LayerNorm (eps 1e-5). Both dropouts are off in eval.
+dropout, residual and LayerNorm (eps 1e-5). Both dropouts are live only in
+training mode (the JAX ``deterministic=False``), and their masks come from
+the ``torch.Generator`` the caller passes, never from torch's global one, so
+a train step is reproducible from its generator's state.
 
 Shapes are tiny (len_q = 2, len_k = 3600), so this is plain matmul and
 softmax; it was no Pallas kernel in the JAX package either.
@@ -14,10 +17,25 @@ softmax; it was no Pallas kernel in the JAX package either.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            mask_shape: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale the kept ones by 1/(1 - rate). ``mask_shape`` broadcasts one draw
+    over axes of size 1 (channel dropout). The mask is drawn on the
+    generator's device (the host for a CPU generator) and moved to ``x``'s."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator in training mode")
+    keep = torch.rand(mask_shape or x.shape, generator=generator,
+                      device=generator.device) >= rate
+    return torch.where(keep.to(x.device), x / (1.0 - rate), torch.zeros_like(x))
 
 
 class MultiHeadAttentionOne(nn.Module):
@@ -33,8 +51,8 @@ class MultiHeadAttentionOne(nn.Module):
         self.w_qkvs = nn.Linear(d_model, n_head * d_k, bias=False)
         self.fc = nn.Linear(n_head * d_v, d_model)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
-        self.attn_dropout = nn.Dropout(attn_dropout)
-        self.dropout = nn.Dropout(dropout)
+        self.attn_dropout = attn_dropout
+        self.dropout = dropout
         self.temperature = math.sqrt(d_k)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -48,9 +66,12 @@ class MultiHeadAttentionOne(nn.Module):
         nn.init.uniform_(self.fc.bias, -bound, bound, generator=generator)
         self.layer_norm.reset_parameters()
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor) -> torch.Tensor:
-        """q: (B, len_q, d_model); k, v: (B, h, w, d_model) or (B, L, d_model)."""
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """q: (B, len_q, d_model); k, v: (B, h, w, d_model) or (B, L, d_model).
+        In training mode the dropout masks are drawn from ``generator``
+        (attention weights first, then the output)."""
+        attn_rate, out_rate = (self.attn_dropout, self.dropout) if self.training else (0.0, 0.0)
         if k.ndim == 4:
             k = k.reshape(k.shape[0], -1, k.shape[-1])
         if v.ndim == 4:
@@ -62,10 +83,10 @@ class MultiHeadAttentionOne(nn.Module):
         kp = self.w_qkvs(k).view(b, k.shape[1], self.n_head, self.d_k).transpose(1, 2)
         vp = self.w_qkvs(v).view(b, v.shape[1], self.n_head, self.d_v).transpose(1, 2)
         attn = torch.matmul(qp, kp.transpose(-1, -2)) / self.temperature
-        attn = self.attn_dropout(torch.softmax(attn, dim=-1))
+        attn = dropout(torch.softmax(attn, dim=-1), attn_rate, generator)
         out = torch.matmul(attn, vp)
         out = out.transpose(1, 2).reshape(b, len_q, self.n_head * self.d_v)
-        out = self.dropout(self.fc(out))
+        out = dropout(self.fc(out), out_rate, generator)
         return self.layer_norm(out + residual)
 
 

@@ -1,6 +1,6 @@
-"""Where the K1 inner-loop kernel's time goes on the card.
+"""Where the inner-loop kernel's time goes on the card (K1, or K2 with --tile).
 
-    python -m few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop [--episodes 8] [--steps 200]
+    python -m few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop [--episodes 8] [--steps 200] [--tile 1]
 
 Builds ``csrc/inner_loop.cu`` twice: as the main path runs it, and with
 ``-DFSS_PHASE_CLOCKS``, where thread 0 of each CTA adds the cycles between
@@ -12,6 +12,8 @@ shapes (1-shot, 60x60x512 features, 473x473 pixel weights) it prints:
 * per phase: cycles per step, share, the FMAs the kernel executes there per
   cycle (an SM executes at most 128 fp32 FMAs a cycle), the global bytes its
   loads ask for per cycle, and the cycles per iteration of its serial loop;
+  with ``--tile`` T > 1 (K2) a CTA carries T episodes, so its cycles cover T
+  episodes' work and its serial loops run as K1's do;
 * the kernel's device time as ``torch.profiler`` (CUPTI) records it, or
   that the trace held none.
 
@@ -83,8 +85,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def profiler_device_ms(fn) -> Dict:
-    """The kernel's device time as torch.profiler records it."""
+def profiler_device_ms(fn, kernel: str = "adapt_binary_kernel") -> Dict:
+    """The device time of ``kernel`` as torch.profiler records it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -93,7 +95,7 @@ def profiler_device_ms(fn) -> Dict:
         fn()
         torch.cuda.synchronize()
     for ev in prof.key_averages():
-        if "adapt_binary_kernel" in ev.key:
+        if kernel in ev.key:
             us = getattr(ev, "device_time_total", None)
             if us is None:
                 us = getattr(ev, "cuda_time_total", 0.0)
@@ -107,6 +109,7 @@ def main(argv=None) -> int:
     ap.add_argument("--episodes", type=int, default=8)
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--tile", type=int, default=1, help="episodes per CTA (K2 above 1)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_inner_loop: needs a CUDA device", file=sys.stderr)
@@ -131,8 +134,10 @@ def main(argv=None) -> int:
     clock_lib.fss_phase_cycles.argtypes = [np.ctypeslib.ndpointer(np.uint64)]
     clock_lib.fss_phase_cycles.restype = ctypes.c_int
 
+    tile = args.tile
+
     def run(lib):
-        return cuda_inner_loop.launch(lib, f_s, pw, pwy, u0, steps, lr)
+        return cuda_inner_loop.launch(lib, f_s, pw, pwy, u0, steps, lr, tile)
 
     acc_plain = run(plain_lib)
     acc_clock = run(clock_lib)
@@ -148,7 +153,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     if clock_lib.fss_phase_cycles(cycles) != 0:
         raise RuntimeError("fss_phase_cycles failed")
-    per_cta = cycles.astype(np.float64) / e
+    per_cta = cycles.astype(np.float64) / (e // tile)
     total = float(per_cta.sum())
     clock_ghz = total / (ms_clock * 1e-3) / 1e9
     phases = []
@@ -157,14 +162,16 @@ def main(argv=None) -> int:
         phases.append({
             "phase": name, "cycles_per_step": per_step, "share": float(cyc) / total,
             "ms": ms_clock * float(cyc) / total,
-            "fma_per_cycle": work["fma"] / per_step,
-            "bytes_per_cycle": work["bytes"] / per_step,
+            "fma_per_cycle": tile * work["fma"] / per_step,
+            "bytes_per_cycle": tile * work["bytes"] / per_step,
             "cycles_per_serial_iter": per_step / work["serial"],
         })
-    prof = profiler_device_ms(lambda: run(plain_lib))
+    prof = profiler_device_ms(lambda: run(plain_lib), "adapt_binary_kernel" if tile == 1
+                              else "adapt_binary_tiled_kernel")
 
     print(f"card: {card}")
-    print(f"K1, E={e}, 1-shot, {h}x{h}x{c} -> {big}x{big}, {steps} steps: "
+    print(f"{'K1' if tile == 1 else f'K2 (tile {tile})'}, E={e}, 1-shot, {h}x{h}x{c} -> "
+          f"{big}x{big}, {steps} steps: "
           f"{ms:.3f} ms; with phase clocks {ms_clock:.3f} ms (same acc: {same}); "
           f"{total:.4g} cycles per CTA, effective clock {clock_ghz:.3f} GHz")
     for p in phases:
@@ -172,7 +179,7 @@ def main(argv=None) -> int:
               f"{p['cycles_per_step']:10.0f} cyc/step  {p['fma_per_cycle']:6.2f} FMA/cyc  "
               f"{p['bytes_per_cycle']:6.2f} B/cyc  {p['cycles_per_serial_iter']:7.1f} cyc/iter")
     print(f"torch.profiler: {prof}")
-    print(json.dumps({"card": card, "episodes": e, "steps": steps, "ms": ms,
+    print(json.dumps({"card": card, "episodes": e, "tile": tile, "steps": steps, "ms": ms,
                       "ms_with_clocks": ms_clock, "same_acc": same,
                       "cycles_per_cta": total, "clock_ghz": clock_ghz,
                       "phases": phases, "profiler": prof}))

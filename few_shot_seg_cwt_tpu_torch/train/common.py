@@ -1,4 +1,5 @@
-"""Shared trainer plumbing: seeds, debug limits, episode loaders, backbone.
+"""Shared trainer plumbing: seeds, debug limits, episode loaders, backbone
+and transformer inits, checkpoint directory and auto-resume.
 
 Counterpart of ``few_shot_seg_cwt_tpu.train.common`` on one process.
 Episodes are synthetic only: the real-data loader and transforms are not
@@ -7,6 +8,7 @@ ported yet (ROADMAP queue 1 item 4), and asking for them raises.
 
 from __future__ import annotations
 
+import os
 import random
 from typing import Optional, Tuple
 
@@ -14,7 +16,9 @@ import numpy as np
 import torch
 
 from ..data.synthetic import SequentialBatches, ShuffledBatches, SyntheticEpisodicDataset
+from ..models.cwt import MultiHeadAttentionOne, build_cwt
 from ..models.pspnet import PSPNet, build_pspnet
+from ..utils.dirs import get_model_dir_trans
 
 
 def set_seeds(cfg) -> None:
@@ -53,3 +57,24 @@ def init_backbone(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
     the stage-1 ``.pth`` by the reference's directory schema waits for the
     real-data path (ROADMAP queue 1 item 5)."""
     return build_pspnet(cfg, generator)
+
+
+def init_cwt(cfg, generator: Optional[torch.Generator] = None) -> MultiHeadAttentionOne:
+    """The transformer to meta-train: a seeded random init (``manual_seed``
+    + 1, as the JAX package seeds it)."""
+    return build_cwt(cfg, generator)
+
+
+def trans_ckpt_dir(cfg) -> str:
+    """Where the CWT trainer writes and ``train.test`` reads transformer
+    checkpoints (the reference's schema)."""
+    return get_model_dir_trans(cfg)
+
+
+def maybe_auto_resume(cfg, state_path: str, log=print) -> None:
+    """``auto_resume``: pick up this run's own train state at ``state_path``
+    when one exists, so that a preempted job restarted with the same command
+    continues where it stopped."""
+    if cfg.get("auto_resume") and not cfg.get("resume_ckpt") and os.path.exists(state_path):
+        cfg.resume_ckpt = os.path.abspath(state_path)
+        log(f"=> auto_resume: found {cfg.resume_ckpt}")

@@ -41,10 +41,11 @@ def build_lr_schedule(cfg, base_lr: float, iters_per_epoch: int) -> Callable[[in
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter], cfg, base_lr: float,
-                    iters_per_epoch: int = 1
+                    iters_per_epoch: int = 1, use_schedule: bool = True
                     ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
     """(optimizer, per-iteration scheduler); call ``scheduler.step()`` after
-    every ``optimizer.step()``."""
+    every ``optimizer.step()``. ``use_schedule=False`` keeps ``base_lr``
+    whatever ``cfg.scheduler`` says (the stage-2 CWT trainer's setting)."""
     if cfg.main_optim == "SGD":
         opt = torch.optim.SGD(params, lr=base_lr, momentum=cfg.momentum,
                               weight_decay=cfg.weight_decay, nesterov=cfg.nesterov)
@@ -52,6 +53,7 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], cfg, base_lr: float,
         opt = torch.optim.Adam(params, lr=base_lr, weight_decay=cfg.weight_decay)
     else:
         raise ValueError(f"unknown optimizer {cfg.main_optim}")
-    schedule = build_lr_schedule(cfg, base_lr, iters_per_epoch)
+    schedule = (build_lr_schedule(cfg, base_lr, iters_per_epoch) if use_schedule
+                else lambda step: base_lr)
     factor = (lambda step: schedule(step) / base_lr) if base_lr else (lambda step: 1.0)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)

@@ -21,14 +21,7 @@ from ..data.synthetic import SequentialBatches, SyntheticEpisodicDataset
 from ..episodic.engine import EpisodicEngine
 from ..eval.validate import validate_transformer
 from ..utils.convert import load_torch_checkpoint
-from .common import apply_debug, set_seeds
-
-
-def transformer_ckpt_dir(cfg) -> str:
-    """Reference schema (src/util.py:152-179)."""
-    return os.path.join(cfg.model_dir, cfg.train_name, f"split={cfg.train_split}",
-                        "model", f"shot_{cfg.shot}",
-                        f"transformer_{cfg.arch}{cfg.layers}")
+from .common import apply_debug, set_seeds, trans_ckpt_dir
 
 
 def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
@@ -45,7 +38,7 @@ def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
     if cfg.ckpt_used is None:
         log("=> Not loading anything")
         return
-    trans = os.path.join(transformer_ckpt_dir(cfg), f"{cfg.ckpt_used}.pth")
+    trans = os.path.join(trans_ckpt_dir(cfg), f"{cfg.ckpt_used}.pth")
     if os.path.isfile(trans):
         engine.cwt.load_state_dict(load_torch_checkpoint(trans))
         log(f"=> loading transformer weight '{trans}'")

@@ -13,8 +13,14 @@ After every epoch the head is validated on ``test_num`` episodes (mIoU of
 the blended prediction and mIoU1 of the attention-only prediction, the
 reference's dual model-selection criterion, src/train_trans.py:202-215).
 With ``save_models`` the head's ``state_dict`` goes out with ``torch.save``
-as ``best.pt``, ``best1.pt`` and ``final.pt``. Not ported: the other heads
-(ROADMAP queue 1 items 7-10), resume (item 1), real data (item 4).
+as ``best.pt``, ``best1.pt`` and ``final.pt``, and every epoch the full
+train state as ``train_state.pt`` (head, optimizer, scheduler, the state
+of the default generator that the head's dropout draws from, epoch, best
+and best1; each step's classifier inits come from a generator seeded by
+(``manual_seed``, epoch, step)). ``resume_ckpt`` takes such a state (exact
+resume) or a head state_dict (weights only); ``auto_resume`` picks up this
+run's own train state; ``stop_after_epochs`` ends the run early. Not
+ported: the other heads (ROADMAP queue 1 items 7-10), real data (item 4).
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ import torch
 from ..config import parse_args
 from ..episodic.heads import HeadEngine
 from ..eval.validate import accumulate_fg_iou, batch_generator, exact_batch_sizes, fg_miou
+from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
 from ..utils.meters import AverageMeter, CompareMeter
-from .common import apply_debug, episodic_loaders, init_backbone, set_seeds
+from .common import apply_debug, episodic_loaders, init_backbone, maybe_auto_resume, set_seeds
 from .optim import build_optimizer
 
 
@@ -59,11 +66,21 @@ def validate_head(cfg, engine: HeadEngine, loader, log=print):
     return miou, miou1, loss_meter.avg
 
 
+def dropout_rng_state(device: torch.device) -> torch.Tensor:
+    """State of the generator the head's dropout draws from: torch's default
+    generator on ``device``."""
+    return torch.cuda.get_rng_state(device) if device.type == "cuda" else torch.get_rng_state()
+
+
+def set_dropout_rng_state(device: torch.device, state: torch.Tensor) -> None:
+    if device.type == "cuda":
+        torch.cuda.set_rng_state(state, device)
+    else:
+        torch.set_rng_state(state)
+
+
 def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
     """Train the head for ``epochs`` epochs; returns the best validation mIoU."""
-    if cfg.get("resume_ckpt"):
-        raise NotImplementedError("resuming a head run is not ported (ROADMAP "
-                                  "queue 1 item 1)")
     log(cfg)
     set_seeds(cfg)
     apply_debug(cfg)
@@ -84,14 +101,33 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
 
     def save(name: str) -> None:
         if cfg.save_models:
-            torch.save(engine.head.state_dict(), os.path.join(sv_path, name))
+            save_ckpt(os.path.join(sv_path, name), engine.head.state_dict())
 
     steps_per_epoch = 5 if cfg.debug else max(
         1, min(cfg.iter_per_epoch, len(train_loader.dataset)) // cfg.episode_batch)
     seed = int(cfg.manual_seed or 0)
     best, best1 = 0.0, 0.0
+    start_epoch = 1
+    state_path = os.path.join(sv_path, "train_state.pt")
+    maybe_auto_resume(cfg, state_path, log)
+    if cfg.get("resume_ckpt"):
+        path = str(cfg.resume_ckpt)
+        if is_full_train_state(path):
+            state = load_ckpt(path)
+            engine.head.load_state_dict(state["model"])
+            optimizer.load_state_dict(state["optimizer"])
+            scheduler.load_state_dict(state["scheduler"])
+            set_dropout_rng_state(engine.device, state["rng"])
+            start_epoch = int(state["meta"]["epoch"]) + 1
+            best, best1 = float(state["meta"]["best"]), float(state["meta"]["best1"])
+            log(f"=> resumed full head train state after epoch {start_epoch - 1} "
+                f"(best {best:.3f} best1 {best1:.3f})")
+        else:
+            engine.head.load_state_dict(load_ckpt(path))
+            log(f"=> resumed head weights from {path}")
+
     log(f"==> Start training head '{head_type}'")
-    for epoch in range(1, cfg.epochs + 1):
+    for epoch in range(start_epoch, cfg.epochs + 1):
         train_loader.set_epoch(epoch)
         it = iter(train_loader)
         loss_meter, compare = AverageMeter(), CompareMeter()
@@ -122,8 +158,12 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
             best1 = miou1
             save("best1.pt")
         log(f"=> best mIoU {best:.3f} best mIoU1 {best1:.3f}")
+        if cfg.save_models:
+            save_ckpt(state_path, pack_train_state(engine.head, optimizer,
+                                                   dropout_rng_state(engine.device), epoch, best,
+                                                   scheduler=scheduler, best1=best1))
         stop_after = cfg.get("stop_after_epochs")
-        if stop_after and epoch >= int(stop_after):
+        if stop_after and epoch - start_epoch + 1 >= int(stop_after):
             log(f"=> stop_after_epochs={stop_after}: exiting after epoch {epoch}")
             break
     save("final.pt")

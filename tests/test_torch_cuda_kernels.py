@@ -1,14 +1,16 @@
 """The CUDA kernels against their plain versions, on the card: the
-inner-loop kernel (K1) and the centre-pivot conv pair (pivot_fwd, pivot_dw).
+inner-loop kernels (K1, and K2 with several episodes per CTA) and the
+centre-pivot conv pair (pivot_fwd, pivot_dw).
 
 Marked ``cuda``: each test skips when no CUDA device is present (decided in
 the fixture, not at import). Run them on a machine with an H100 and nvcc:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
 
-Tolerances: K1, max|acc_kernel - acc_plain| <= 1e-4 * max|acc_plain| (fp32;
-the kernel sums the channel and pixel contractions in another order than
-cuBLAS, and 200 steps compound it). Pivot pair: forward within
+Tolerances: K1 and K2, max|acc_kernel - acc_plain| <= 1e-4 * max|acc_plain|
+(fp32; the kernel sums the channel and pixel contractions in another order
+than cuBLAS, and 200 steps compound it); K2 against K1 the same (per
+episode they do the same arithmetic in the same order). Pivot pair: forward within
 1e-5 * max|y_plain|; gradients held against an fp64 run, at most 4x as far
 from it as the plain fp32 version plus 2e-6 of the scale (the weight
 gradients sum up to 13 M terms, where fp32 order matters).
@@ -60,6 +62,56 @@ def test_kernel_matches_plain(device, e, shot, h, big, c, steps):
     acc_p = cuda_inner_loop.adapt_binary_reference(f_s, pw, pwy, u0, steps, 0.1)
     err = float((acc_k - acc_p).abs().max())
     assert err <= 1e-4 * float(acc_p.abs().max()), err
+
+
+@pytest.mark.parametrize("e,h,big,c,steps,tile", [
+    (4, 6, 25, 16, 5, 2),        # small
+    (6, 7, 41, 40, 7, 3),        # ragged sizes, tile 3
+    (8, 6, 25, 16, 5, 4),        # tile 4 where it fits
+    (8, 60, 473, 512, 200, 2),   # the train step's batch at tile 2
+])
+def test_tiled_kernel_matches_plain_and_k1(device, e, h, big, c, steps, tile):
+    f_s, pw, pwy, u0 = _inputs(device, e, 1, h, big, c, seed=tile)
+    before = dict(cuda_inner_loop.LAUNCHES)
+    acc_t = cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, steps, 0.1, tile)
+    torch.cuda.synchronize()
+    assert cuda_inner_loop.LAUNCHES["adapt_binary_tiled"] == before["adapt_binary_tiled"] + 1
+    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == before["adapt_binary"]
+    acc_p = cuda_inner_loop.adapt_binary_reference(f_s, pw, pwy, u0, steps, 0.1)
+    acc_1 = cuda_inner_loop.adapt_binary(f_s, pw, pwy, u0, steps, 0.1)
+    scale = float(acc_p.abs().max())
+    assert float((acc_t - acc_p).abs().max()) <= 1e-4 * scale
+    assert float((acc_t - acc_1).abs().max()) <= 1e-4 * scale
+
+
+def test_tiled_smem_query_matches_the_dispatch_formula(device):
+    """The library's shared-memory query and ``smem_bytes`` (which decides the
+    tile without the library) agree; tile 4 does not fit at 473 px and the
+    wrapper refuses it."""
+    lib = cuda_inner_loop.load_library()
+    for h, w, c, big_w in ((6, 6, 16, 25), (7, 9, 40, 41), (60, 60, 512, 473)):
+        assert lib.fss_adapt_binary_smem_bytes(h, w, c, big_w) == \
+            cuda_inner_loop.smem_bytes(h, w, c, big_w)
+        for tile in cuda_inner_loop.TILES:
+            assert lib.fss_adapt_binary_tiled_smem_bytes(h, w, c, big_w, tile) == \
+                cuda_inner_loop.smem_bytes(h, w, c, big_w, tile)
+    f_s, pw, pwy, u0 = _inputs(device, 4, 1, 60, 473, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, 1, 0.1, 4)
+
+
+def test_batched_dispatch_under_inner_tile_2_launches_k2(device, monkeypatch):
+    monkeypatch.setenv("FSS_INNER_TILE", "2")
+    f_s, _, _, _ = _inputs(device, 4, 1, 6, 25, 16)
+    label = torch.randint(0, 2, (4, 1, 25, 25), device=device)
+    w0 = torch.randn(4, 2, 16, device=device) * 0.1
+    before = dict(cuda_inner_loop.LAUNCHES)
+    w = adapt_binary_batch(f_s, label, w0, 10, 0.1)
+    torch.cuda.synchronize()
+    assert cuda_inner_loop.LAUNCHES["adapt_binary_tiled"] == before["adapt_binary_tiled"] + 1
+    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == before["adapt_binary"]
+    w_cpu = adapt_binary_batch(f_s.cpu(), label.cpu(), w0.cpu(), 10, 0.1)
+    torch.testing.assert_close(w.cpu(), w_cpu, rtol=1e-4, atol=1e-6)
 
 
 def test_batched_dispatch_on_cuda_goes_through_the_kernel(device):

@@ -1,11 +1,12 @@
 """PyTorch port vs the JAX package: the episodic inner loop (CPU).
 
-On the CPU the port's ``adapt_binary`` runs its plain version; here it is
-held against the JAX closed form (the XLA scan of ``_adapt_binary``) and
-against the Pallas kernel itself in interpret mode, run as
-``tests/test_inner_loop.py`` runs it. Tolerances are the JAX suite's for the
-inner loop: rtol 1e-4, atol 1e-6 (fp32 sums in another order over the
-steps).
+On the CPU the port's ``adapt_binary`` and ``adapt_binary_tiled`` run their
+plain version; here they are held against the JAX closed form (the XLA scan
+of ``_adapt_binary``) and against the Pallas kernels themselves (K1 and the
+episode-tiled K2) in interpret mode, run as ``tests/test_inner_loop.py``
+runs them. Tolerances are the JAX suite's for the inner loop: rtol 1e-4,
+atol 1e-6 (fp32 sums in another order over the steps). The tile dispatch
+(``pick_tile``) is held against the JAX ``_pick_tile``.
 """
 
 import numpy as np
@@ -17,12 +18,16 @@ import jax.numpy as jnp
 from few_shot_seg_cwt_tpu.episodic.inner_loop import adapt_classifier as jax_adapt
 from few_shot_seg_cwt_tpu.episodic.inner_loop import support_loss as jax_support_loss
 from few_shot_seg_cwt_tpu.ops.losses import class_balance_weights as jax_cbw
-from few_shot_seg_cwt_tpu.ops.pallas_inner_loop import adapt_binary_pallas
+from few_shot_seg_cwt_tpu.ops.pallas_inner_loop import (_pick_tile, _vmem_need_tiled,
+                                                       adapt_binary_pallas,
+                                                       adapt_binary_pallas_tiled)
+from few_shot_seg_cwt_tpu_torch.episodic import inner_loop as port_inner_loop
 from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import (
     adapt_binary_batch,
     adapt_classifier,
     adapt_classifier_batch,
     binary_pixel_weights,
+    pick_tile,
     support_loss,
 )
 from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_inner_loop
@@ -206,3 +211,108 @@ def test_profile_phase_work_is_the_dense_product_count():
     fma = sum(p["fma"] for p in phase_work(h, w, c, big_h, big_w))
     assert fma == (2 * h * w * c + h * big_w * w + big_h * big_w * h
                    + big_h * big_w * w + big_h * h * w)
+
+
+# --------------------------------------------------------------------------- #
+# K2: the episode-tiled kernel and its dispatch
+# --------------------------------------------------------------------------- #
+
+
+def _tiled_episodes():
+    """Four 1-shot episodes that differ in label layout and u0 (the shapes
+    of tests/test_inner_loop.py's tiled-kernel test), so that a swap of two
+    episodes inside a tile changes the result."""
+    rng = np.random.default_rng(80)
+    eps = []
+    for i in range(4):
+        f_s, s_label, _ = _episode(np.random.default_rng(50 + i), shot=1)
+        s_label[0, : 2 + 3 * i, :] = 255
+        cw = np.asarray(jax_cbw(jnp.asarray(s_label)))
+        y = (s_label == 1).astype(np.float32)
+        pw = (np.where(s_label == 1, cw[1], cw[0]) * (s_label != 255)).astype(np.float32)
+        pw = (pw / pw.sum()).astype(np.float32)
+        u0 = rng.standard_normal(16).astype(np.float32)
+        eps.append((f_s, pw, (pw * y).astype(np.float32), u0))
+    return [np.stack([e[k] for e in eps]) for k in range(4)]
+
+
+def test_plain_adapt_binary_tiled_matches_pallas_tiled_kernel_interpret():
+    """The port's adapt_binary_tiled (plain on the CPU) equals the TPU kernel
+    it replaces, ``adapt_binary_pallas_tiled`` at tile 2 in interpret mode,
+    episode for episode; the episodes' results all differ."""
+    f_s, pw, pwy, u0 = _tiled_episodes()
+    ref = np.asarray(adapt_binary_pallas_tiled(
+        jnp.asarray(f_s), jnp.asarray(pw), jnp.asarray(pwy), jnp.asarray(u0),
+        num_steps=25, lr=0.1, tile=2, interpret=True))
+    before = dict(cuda_inner_loop.LAUNCHES)
+    got = cuda_inner_loop.adapt_binary_tiled(
+        *(torch.from_numpy(a) for a in (f_s, pw, pwy, u0)), 25, 0.1, 2).numpy()
+    assert cuda_inner_loop.LAUNCHES == before  # plain path: no launch
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    for i in range(4):
+        for j in range(i):
+            assert np.abs(ref[i] - ref[j]).max() > 100 * ATOL, (i, j)
+
+
+def test_adapt_binary_tiled_refuses_what_k2_does_not_take():
+    f_s, pw, pwy, u0 = (torch.from_numpy(a) for a in _tiled_episodes())
+    with pytest.raises(ValueError, match="E % tile"):
+        cuda_inner_loop.adapt_binary_tiled(f_s[:3], pw[:3], pwy[:3], u0[:3], 2, 0.1, 2)
+    two_shot = f_s.reshape(2, 2, *f_s.shape[2:])
+    with pytest.raises(ValueError, match="shot 1"):
+        cuda_inner_loop.adapt_binary_tiled(two_shot, pw.reshape(2, 2, 25, 25),
+                                           pwy.reshape(2, 2, 25, 25), u0[:2], 2, 0.1, 2)
+    with pytest.raises(TypeError):
+        cuda_inner_loop.adapt_binary_tiled(f_s.double(), pw, pwy, u0, 2, 0.1, 2)
+
+
+@pytest.mark.parametrize("want", ["1", "2", "3", "4"])
+def test_pick_tile_matches_jax_where_both_budgets_admit_the_tile(monkeypatch, want):
+    """At small shapes every tile fits both Hopper's 232,448 B block and the
+    TPU's 127 MiB of VMEM, and the port picks what the JAX package picks."""
+    monkeypatch.setenv("FSS_INNER_TILE", want)
+    for e in (1, 2, 3, 4, 6, 8, 12):
+        for shot in (1, 2):
+            got = pick_tile(e, shot, 6, 6, 16, 25)
+            assert got == _pick_tile(e, shot, 6, 6, 16, 25, 25), (want, e, shot)
+
+
+def test_pick_tile_at_473_px_fits_two_where_the_tpu_fits_four(monkeypatch):
+    """At 473 px (60x60x512 features) tile 4 needs 304,640 B of shared
+    memory, over a block's 232,448 B, where the TPU's VMEM holds it; the port
+    falls back to tile 2, as the JAX rule does when 4 does not fit."""
+    shape = (1, 60, 60, 512, 473)
+    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 1) == 103_616
+    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 2) == 170_624
+    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 4) == 304_640
+    assert _vmem_need_tiled(4, 60, 60, 512, 473, 473) < 127 * 1024 * 1024
+    for want, port, jax_tile in (("2", 2, 2), ("4", 2, 4)):
+        monkeypatch.setenv("FSS_INNER_TILE", want)
+        assert pick_tile(8, *shape) == port
+        assert _pick_tile(8, 1, 60, 60, 512, 473, 473) == jax_tile
+    monkeypatch.delenv("FSS_INNER_TILE")
+    assert pick_tile(8, *shape) == 1
+
+
+@pytest.mark.parametrize("want,tiled_calls", [("1", 0), ("2", 1)])
+def test_batched_dispatch_takes_k2_only_when_the_tile_is_above_one(monkeypatch, want,
+                                                                   tiled_calls):
+    """adapt_binary_batch calls adapt_binary_tiled with the picked tile under
+    FSS_INNER_TILE=2 (K1 otherwise, and always for a batch of one), and both
+    give the same weights."""
+    monkeypatch.setenv("FSS_INNER_TILE", want)
+    calls = []
+    real = port_inner_loop.adapt_binary_tiled
+    monkeypatch.setattr(port_inner_loop, "adapt_binary_tiled",
+                        lambda *a: calls.append(a[-1]) or real(*a))
+    rng = np.random.default_rng(90)
+    eps = [_episode(rng, shot=1) for _ in range(4)]
+    args = [torch.from_numpy(np.stack([e[k] for e in eps])) for k in range(3)]
+    got = adapt_binary_batch(*args, num_steps=10, lr=0.1)
+    assert calls == [2] * tiled_calls
+    one = adapt_binary_batch(*(a[:1] for a in args), num_steps=10, lr=0.1)
+    assert calls == [2] * tiled_calls
+    monkeypatch.setenv("FSS_INNER_TILE", "1")
+    ref = adapt_binary_batch(*args, num_steps=10, lr=0.1)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(one[0], ref[0], rtol=RTOL, atol=ATOL)

@@ -63,6 +63,7 @@ heads = HeadEngine(mcfg, "mmn", device="cpu")
 mmn_masks = heads.serve_batch(make_episode_batch(1, 2, size=33), torch.Generator().manual_seed(0))
 assert tuple(mmn_masks.shape) == (2, 33, 33)
 import few_shot_seg_cwt_tpu_torch.train.train_head  # noqa: F401
+import few_shot_seg_cwt_tpu_torch.train.train_cwt  # noqa: F401
 forbidden = sorted(m for m in sys.modules
                    if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "orbax"}
                    or m == "few_shot_seg_cwt_tpu" or m.startswith("few_shot_seg_cwt_tpu."))

@@ -83,7 +83,14 @@ def test_cwt_dropout_is_off_in_eval_and_on_in_train():
     with torch.no_grad():
         assert torch.equal(port(q, k, k), port(q, k, k))
         port.train()
-        assert not torch.equal(port(q, k, k), port(q, k, k))
+        gen = torch.Generator().manual_seed(0)
+        assert not torch.equal(port(q, k, k, generator=gen), port(q, k, k, generator=gen))
+        # the masks come from the generator passed in, not torch's global one
+        a = port(q, k, k, generator=torch.Generator().manual_seed(1))
+        torch.manual_seed(123)
+        assert torch.equal(a, port(q, k, k, generator=torch.Generator().manual_seed(1)))
+        with pytest.raises(ValueError, match="Generator"):
+            port(q, k, k)
 
 
 @pytest.mark.parametrize("stride,dilation", [(1, 1), (2, 1), (1, 2)])
