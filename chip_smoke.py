@@ -11,9 +11,14 @@ Phases (any failure raises and the script exits non-zero):
 3. Kernel phase: each kernel at the main paths' shapes against its plain
    PyTorch version on the same inputs, with its tolerance; times by CUDA
    events (median after a warm-up) beside the bound for the same work.
-   K1 (the inner loop); K2 (the same function, 2 episodes per CTA) on K1's
-   inputs, against the plain version and against K1, with its shared memory
-   and the tile ``pick_tile`` gives for FSS_INNER_TILE 2 and 4 (3c); then the
+   K1 (the inner loop) at E = 8, then at E = 1, 2, 4 and 8 (the batches of
+   MMN ``serve_episode``, the MMN train step, MMN eval and CWT; each
+   partitions an episode differently), each held against the plain version
+   and against the E = 8 launch's bits, and timed, with the work plan it
+   launched (grid, CTAs per episode); K2 (the same function, 2
+   episodes per CTA) on K1's inputs, against the plain version and against
+   K1, with its shared memory and the tile ``pick_tile`` gives for
+   FSS_INNER_TILE 2 and 4 (3c); then the
    centre-pivot pair (pivot_fwd, pivot_dw) for each consensus block at 473 px
    (2->10, 10->10, 10->1), its gradients held against an fp64 run, beside the
    rank-4 route's cuDNN time (3b).
@@ -25,7 +30,8 @@ Phases (any failure raises and the script exits non-zero):
    Then the BN statistics are calibrated on other synthetic episodes. The
    launch counts are set to 0 just before ``serve_batch`` +
    ``eval_metrics_batch`` and read just after; every kernel must have
-   launched. The same episodes
+   launched, and K1's launched plan must spread an episode over more than
+   one CTA. The same episodes
    and classifier inits then go through the plain inner loop and the masks
    must agree on >= 99.5% of pixels. Episodes/s for serve and eval.
 5. The evaluation entry point ``train.test.main`` on configs/pascal.yaml
@@ -594,30 +600,35 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
 
 def k2_phase(cuda_inner_loop, pick_tile, cuda_ms, inputs, acc_k1, acc_plain, tol, card):
     """K2 at tile 2 on the K1 phase's inputs (E = 8, 200 steps): against the
-    plain version and against K1 with K1's tolerance, its time, and its
-    shared memory from the library against the dispatch's formula."""
+    plain version and against K1 with K1's tolerance (it gives K1's bits),
+    its time, and its shared memory from the library against the formula."""
     f_s, pw, pwy, u0 = inputs
     acc = cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, STEPS, CLS_LR, TILE)
     torch.cuda.synchronize()
     err = float((acc - acc_plain).abs().max())
     vs_k1 = float((acc - acc_k1).abs().max())
     lib = cuda_inner_loop.load_library()
-    smem = lib.fss_adapt_binary_tiled_smem_bytes(FEAT, FEAT, CH, IMG, TILE)
+    plan = cuda_inner_loop.LAST_PLAN["adapt_binary_tiled"]
+    smem = lib.fss_adapt_binary_smem_bytes(FEAT, FEAT, CH, IMG, IMG, SHOT, TILE, plan.rows,
+                                           plan.pin)
+    formula = cuda_inner_loop.smem_bytes(FEAT, FEAT, CH, IMG, TILE, big_h=IMG, rows=plan.rows,
+                                         pin=plan.pin)
     tiles = {}
     for want in ("2", "4"):
         with env_var("FSS_INNER_TILE", want):
             tiles[want] = pick_tile(E, SHOT, FEAT, FEAT, CH, IMG)
     print(f"K2 adapt_binary_tiled (tile {TILE}): max|acc_k2 - acc_p| = {err:.3e}, "
-          f"max|acc_k2 - acc_k1| = {vs_k1:.3e} (tolerance 1e-4 * max|acc_p| = {tol:.3e}); "
-          f"shared memory {smem} B per CTA (formula "
-          f"{cuda_inner_loop.smem_bytes(FEAT, FEAT, CH, IMG, TILE)}; tile 4 would need "
+          f"max|acc_k2 - acc_k1| = {vs_k1:.3e} (tolerance 1e-4 * max|acc_p| = {tol:.3e}; "
+          f"equal bits: {bool(torch.equal(acc, acc_k1))}); plan {json.dumps(plan.summary())}; "
+          f"shared memory {smem} B per CTA (formula {formula}; least layout at tile 4 "
           f"{cuda_inner_loop.smem_bytes(FEAT, FEAT, CH, IMG, 4)} of "
           f"{cuda_inner_loop.MAX_SMEM_BYTES}); pick_tile at E = {E}, 473 px for "
           f"FSS_INNER_TILE 2 / 4: {tiles['2']} / {tiles['4']}")
     if not np.isfinite(err) or err > tol or vs_k1 > tol:
         raise AssertionError(f"K2 disagrees with the plain version or K1: {err}, {vs_k1}")
-    if smem != cuda_inner_loop.smem_bytes(FEAT, FEAT, CH, IMG, TILE) or tiles != {"2": 2, "4": 2}:
-        raise AssertionError(f"K2's shared memory or the tile dispatch: {smem}, {tiles}")
+    if smem != formula or smem != plan.smem or tiles != {"2": 2, "4": 4}:
+        raise AssertionError(f"K2's shared memory or the tile dispatch: {smem}, {formula}, "
+                             f"{tiles}")
     ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, STEPS, CLS_LR,
                                                             TILE), 5)
     return err, ms
@@ -825,14 +836,36 @@ def main() -> int:
           f"(tolerance 1e-4 * max|acc_p| = {k1_tol:.3e})")
     if not np.isfinite(k1_err) or k1_err > k1_tol:
         raise AssertionError(f"K1 disagrees with its plain version: {k1_err} > {k1_tol}")
-    k1_ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary(f_s, pw, pwy, u0, STEPS, CLS_LR), 5)
-    k1_plain_ms = cuda_ms(
-        lambda: cuda_inner_loop.adapt_binary_reference(f_s, pw, pwy, u0, STEPS, CLS_LR), 5)
-    flops, nbytes = inner_loop_work(E, SHOT, FEAT, FEAT, CH, IMG, IMG, STEPS)
-    k1_bound, k1_bound_by = bound(flops, nbytes)
-    print(f"K1 adapt_binary: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
-          f"bound {k1_bound:.3f} ms ({k1_bound_by}: {flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB), library_ms null [{card}]")
+    k1_rows = {}
+    for e in (1, 2, 4, E):
+        # each batch size partitions an episode differently (one row a CTA,
+        # uneven slices, part of f streamed): held against the plain version,
+        # and against the E = 8 launch's bits (the partition does not change
+        # an episode's acc)
+        args = [t[:e].contiguous() for t in (f_s, pw, pwy, u0)]
+        acc_ke = cuda_inner_loop.adapt_binary(*args, STEPS, CLS_LR)
+        plan = cuda_inner_loop.LAST_PLAN["adapt_binary"]
+        err_e = float((acc_ke - acc_p[:e]).abs().max())
+        same_e = bool(torch.equal(acc_ke, acc_k[:e]))
+        print(f"K1 adapt_binary at E = {e}: max|acc_k - acc_p| = {err_e:.3e} (tolerance "
+              f"{k1_tol:.3e}); equal bits to the E = {E} launch: {same_e}")
+        if not np.isfinite(err_e) or err_e > k1_tol or not same_e:
+            raise AssertionError(f"K1 at E = {e}: error {err_e} > {k1_tol} or bits differ "
+                                 f"from E = {E} ({same_e})")
+        ms = cuda_ms(lambda a=args: cuda_inner_loop.adapt_binary(*a, STEPS, CLS_LR), 5)
+        plain_ms = cuda_ms(
+            lambda a=args: cuda_inner_loop.adapt_binary_reference(*a, STEPS, CLS_LR), 5)
+        flops, nbytes = inner_loop_work(e, SHOT, FEAT, FEAT, CH, IMG, IMG, STEPS)
+        b_ms, b_by = bound(flops, nbytes)
+        k1_rows[e] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"K1 adapt_binary at E = {e}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+              f"grid {plan.grid} CTAs, {plan.ctas_per_group} CTAs per episode, plan "
+              f"{json.dumps(plan.summary())}, library_ms null [{card}]")
+        if plan.ctas_per_group < 2:
+            raise AssertionError(f"K1 runs an episode on one CTA at E = {e}: {plan.summary()}")
+    k1_ms, k1_plain_ms = k1_rows[E]["ms"], k1_rows[E]["plain_ms"]
+    k1_bound, k1_bound_by = k1_rows[E]["bound_ms"], k1_rows[E]["bound_by"]
 
     # ---- 3c. K2 on the same inputs ----
     k2_err, k2_ms = k2_phase(cuda_inner_loop, pick_tile, cuda_ms, (f_s, pw, pwy, u0),
@@ -866,9 +899,13 @@ def main() -> int:
     metrics = engine.eval_metrics_batch(episodes, w0=w0)
     torch.cuda.synchronize()
     launches = dict(cuda_inner_loop.LAUNCHES)
-    print(f"main path launches: {launches}")
-    if launches["adapt_binary"] < 1:
+    main_plan = cuda_inner_loop.LAST_PLAN["adapt_binary"]
+    if launches["adapt_binary"] < 1 or main_plan is None:
         raise AssertionError("the main path did not launch the K1 kernel")
+    print(f"main path launches: {launches}; the plan of K1's last launch on the main "
+          f"path: grid {main_plan.grid} CTAs, {main_plan.ctas_per_group} CTAs per episode")
+    if main_plan.ctas_per_group < 2:
+        raise AssertionError(f"the main path's K1 runs an episode on one CTA: {main_plan}")
     if tuple(masks.shape) != (E, IMG, IMG):
         raise AssertionError(f"mask shape {tuple(masks.shape)}")
     if not set(masks.unique().tolist()) <= {0, 1}:

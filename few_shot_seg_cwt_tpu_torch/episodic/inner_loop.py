@@ -103,12 +103,12 @@ def pick_tile(e: int, shot: int, h: int, w: int, c: int, big_w: int) -> int:
     (``ops/pallas_inner_loop.py``), with the same switch and rule:
     ``FSS_INNER_TILE`` (default 1) asks for a tile; 1-shot only; try the
     tile asked for, then 2; the batch must divide by the tile. The budget is
-    Hopper's 232,448 B of shared memory per block (the kernel's layout,
-    ``smem_bytes``) in place of the TPU's 127 MiB of VMEM, and the tile one
-    the kernel is built for (2, 3 or 4). So the grouping can differ from the
-    JAX package's for the same function: at 473 px (60x60x512 features)
-    tile 2 needs 170,624 B and tile 4 304,640 B, so ``FSS_INNER_TILE=4``
-    gives tile 2 here where the TPU fits 4.
+    Hopper's 232,448 B of shared memory per block in place of the TPU's
+    127 MiB of VMEM: a tile is admitted when the kernel's least layout for
+    it (one feature row a CTA, no pinned features: ``smem_bytes``) fits,
+    and the tile is one the kernel is built for (2, 3 or 4). The kernel
+    streams what it cannot pin, so at 473 px (60x60x512 features) tile 4
+    needs 70,016 B and fits, and the port picks what the JAX package picks.
     """
     want = int(os.environ.get("FSS_INNER_TILE", "1"))
     if shot != 1 or want <= 1:

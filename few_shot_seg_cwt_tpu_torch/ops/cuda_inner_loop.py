@@ -3,9 +3,11 @@
 ``adapt_binary`` is the port of the TPU kernel ``adapt_binary_pallas`` (K1)
 and ``adapt_binary_tiled`` the port of ``adapt_binary_pallas_tiled`` (K2),
 both in ``few_shot_seg_cwt_tpu/ops/pallas_inner_loop.py``. Their kernels are
-``csrc/inner_loop.cu`` (CUDA C++ for sm_90a; K2 is K1's body carrying
-``tile`` episodes per CTA), built with ``nvcc`` into a shared library with a
-plain C interface at first use and loaded with ``ctypes``.
+``csrc/inner_loop.cu`` (CUDA C++ for sm_90a; one body that spreads each
+group of ``tile`` episodes over many CTAs of a persistent cooperative grid),
+built with ``nvcc`` into a shared library with a plain C interface at first
+use and loaded with ``ctypes``. The partition (``inner_loop_plan.work_plan``)
+is decided here from the card's SM count and the kernel's occupancy.
 ``adapt_binary_reference`` is the function both compute, as a torch loop
 (the XLA scan of ``episodic/inner_loop.py:_adapt_binary``), batched over the
 episode axis.
@@ -18,33 +20,37 @@ fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from . import cuda_build
+from .inner_loop_plan import (MAX_CHANNELS, MAX_SMEM_BYTES, Plan, packed_taps,
+                              smem_bytes, work_plan)
 from .resize import interp_matrix_align_corners
 
 _SOURCE = cuda_build.CSRC / "inner_loop.cu"
-# shared memory one block may use on Hopper (bytes)
-MAX_SMEM_BYTES = 232_448
 # episodes per CTA that the tiled kernel is instantiated for
 TILES = (2, 3, 4)
-# kernel constants (csrc/inner_loop.cu): H-rows per block, gB thread groups
-# and the columns of each
-_ROWS, _GROUPS, _GROUP_W = 16, 8, 64
 
 # Kernel launches by name; a wrapper adds one where it launches its kernel
 # and nowhere else, so a run can show that its path went through the kernel.
 LAUNCHES: Dict[str, int] = {"adapt_binary": 0, "adapt_binary_tiled": 0}
+# The plan of each kernel's last launch, set where LAUNCHES counts it.
+LAST_PLAN: Dict[str, Optional[Plan]] = {"adapt_binary": None, "adapt_binary_tiled": None}
 
 # loaded libraries by their extra nvcc defines
 _libs: Dict[tuple, ctypes.CDLL] = {}
+# tap tables on the card by (H, W, h, w, device)
+_taps: Dict[tuple, torch.Tensor] = {}
+# SM counts by device
+_sms: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAST_PLAN[k] = None
 
 
 def build_spec(defines: Sequence[str] = ()) -> cuda_build.Spec:
@@ -59,35 +65,46 @@ def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     if key not in _libs:
         lib = ctypes.CDLL(str(cuda_build.build([build_spec(key)])[0]))
         lib.fss_adapt_binary.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.fss_adapt_binary.restype = ctypes.c_int
-        lib.fss_adapt_binary_tiled.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.fss_adapt_binary_tiled.restype = ctypes.c_int
-        lib.fss_adapt_binary_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.fss_adapt_binary_smem_bytes.argtypes = [ctypes.c_int] * 9
         lib.fss_adapt_binary_smem_bytes.restype = ctypes.c_size_t
-        lib.fss_adapt_binary_tiled_smem_bytes.argtypes = [ctypes.c_int] * 5
-        lib.fss_adapt_binary_tiled_smem_bytes.restype = ctypes.c_size_t
+        lib.fss_sm_count.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.fss_sm_count.restype = ctypes.c_int
+        lib.fss_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_size_t,
+                                          ctypes.POINTER(ctypes.c_int)]
+        lib.fss_blocks_per_sm.restype = ctypes.c_int
         lib.fss_error_string.argtypes = [ctypes.c_int]
         lib.fss_error_string.restype = ctypes.c_char_p
         _libs[key] = lib
     return _libs[key]
 
 
-def smem_bytes(h: int, w: int, c: int, big_w: int, tile: int = 1) -> int:
-    """Shared memory of one CTA carrying ``tile`` episodes, in bytes: the
-    kernel's own layout (``make_layout`` in csrc/inner_loop.cu, which the
-    library's ``fss_adapt_binary_tiled_smem_bytes`` reports on the card),
-    computed here so that the dispatch can be decided without the library.
-    Per episode u, acc (C each), d, G (h*w each), the row block's g (W*16)
-    and gB (16*w); shared by the tile the block's A rows (h*16) and the gB
-    partial sums (8*16*64). Segments are padded to 4 floats."""
-    def r4(n):
-        return (n + 3) & ~3
-    per_episode = 2 * r4(c) + 2 * r4(h * w) + r4(big_w * _ROWS) + r4(_ROWS * w)
-    return 4 * (tile * per_episode + r4(h * _ROWS) + _GROUPS * _ROWS * _GROUP_W)
+def _cuda_call(lib: ctypes.CDLL, name: str, *args) -> None:
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: {lib.fss_error_string(err).decode()} ({err})")
+
+
+def card_plan(lib: ctypes.CDLL, shape: tuple, big_h: int, big_w: int, tile: int,
+              device) -> Plan:
+    """The work plan on ``device`` for features of ``shape`` (E, shot, h, w,
+    C): its SM count and the kernel's occupancy, from the library."""
+    e, shot, h, w, c = shape
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        if str(device) not in _sms:
+            n = ctypes.c_int(0)
+            _cuda_call(lib, "fss_sm_count", ctypes.byref(n))
+            _sms[str(device)] = n.value
+
+        def occupancy(smem):
+            n = ctypes.c_int(0)
+            _cuda_call(lib, "fss_blocks_per_sm", tile, smem, ctypes.byref(n))
+            return n.value
+
+        return work_plan(e, shot, h, w, c, big_h, big_w, tile, _sms[str(device)], occupancy)
 
 
 def interp_matrices(big_h: int, big_w: int, h: int, w: int, device,
@@ -194,37 +211,49 @@ def adapt_binary_tiled(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
     return launch(load_library(), f_s, pw, pwy, u0, num_steps, lr, tile)
 
 
+def _taps_on(big_h: int, big_w: int, h: int, w: int, device) -> torch.Tensor:
+    key = (big_h, big_w, h, w, str(device))
+    if key not in _taps:
+        _taps[key] = torch.as_tensor(packed_taps(big_h, big_w, h, w), device=device)
+    return _taps[key]
+
+
 def launch(lib: ctypes.CDLL, f_s: torch.Tensor, pw: torch.Tensor,
            pwy: torch.Tensor, u0: torch.Tensor, num_steps: int,
-           lr: float, tile: int = 1) -> torch.Tensor:
+           lr: float, tile: int = 1, plan: Optional[Plan] = None) -> torch.Tensor:
     """Launch the kernel of ``lib`` on CUDA tensors that ``adapt_binary`` or
     ``adapt_binary_tiled`` has checked: K1 for ``tile`` 1, else K2 with
-    ``tile`` episodes per CTA; returns acc (E, C)."""
+    ``tile`` episodes per CTA; returns acc (E, C). ``plan`` defaults to the
+    card's (``card_plan``); a plan whose grid the card cannot hold at once
+    makes the launch fail, and the call raise."""
     e, shot, h, w, c = f_s.shape
     big_h, big_w = pw.shape[-2:]
     device = f_s.device
     name = "adapt_binary" if tile == 1 else "adapt_binary_tiled"
-    smem = (lib.fss_adapt_binary_smem_bytes(h, w, c, big_w) if tile == 1
-            else lib.fss_adapt_binary_tiled_smem_bytes(h, w, c, big_w, tile))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: {smem} B of shared memory needed for h={h} w={w} "
-                         f"C={c} W={big_w} tile={tile}; a block has {MAX_SMEM_BYTES}")
-    a, b = interp_matrices(big_h, big_w, h, w, device)
-    bt = b.T.contiguous()
+    if c % 4 or c > MAX_CHANNELS:
+        raise ValueError(f"{name}: C = {c}; the kernel takes a multiple of 4 up to "
+                         f"{MAX_CHANNELS}")
+    if plan is None:
+        plan = card_plan(lib, tuple(f_s.shape), big_h, big_w, tile, device)
     pws = (pw - 2.0 * pwy).contiguous()       # pw where y=0, -pw where y=1
-    scratch = torch.empty((e, h, big_w), dtype=torch.float32, device=device)
+    taps = _taps_on(big_h, big_w, h, w, device)
+    d_halo = torch.empty((e * shot, h, w), dtype=torch.float32, device=device)
+    at_g_halo = torch.empty((e * shot, h, big_w), dtype=torch.float32, device=device)
+    parts = torch.empty((e, h, c), dtype=torch.float32, device=device)
+    counters = torch.zeros(plan.groups_in_flight, dtype=torch.int32, device=device)
     acc = torch.empty((e, c), dtype=torch.float32, device=device)
-    args = (f_s.data_ptr(), pws.data_ptr(), u0.data_ptr(), a.data_ptr(),
-            b.data_ptr(), bt.data_ptr(), scratch.data_ptr(), acc.data_ptr(),
-            e, shot, h, w, c, big_h, big_w, int(num_steps), float(lr))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if tile == 1:
-            err = lib.fss_adapt_binary(*args, stream)
-        else:
-            err = lib.fss_adapt_binary_tiled(*args, int(tile), stream)
+        err = lib.fss_adapt_binary(
+            f_s.data_ptr(), pws.data_ptr(), u0.data_ptr(), taps.data_ptr(),
+            d_halo.data_ptr(), at_g_halo.data_ptr(), parts.data_ptr(), counters.data_ptr(),
+            acc.data_ptr(), e, shot, h, w, c, big_h, big_w, int(num_steps), float(lr),
+            int(tile), plan.ctas_per_group, plan.groups_in_flight, plan.rows, plan.pin,
+            stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.fss_error_string(err).decode()} ({err})")
+                           f"{lib.fss_error_string(err).decode()} ({err}); plan "
+                           f"{plan.summary()}")
     LAUNCHES[name] += 1
+    LAST_PLAN[name] = plan
     return acc

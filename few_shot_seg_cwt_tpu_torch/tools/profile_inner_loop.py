@@ -3,17 +3,20 @@
     python -m few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop [--episodes 8] [--steps 200] [--tile 1]
 
 Builds ``csrc/inner_loop.cu`` twice: as the main path runs it, and with
-``-DFSS_PHASE_CLOCKS``, where thread 0 of each CTA adds the cycles between
-block-wide barriers to one device counter per phase. On the main path's
-shapes (1-shot, 60x60x512 features, 473x473 pixel weights) it prints:
+``-DFSS_PHASE_CLOCKS``, where thread 0 of each CTA adds the cycles of each
+phase (up to the block-wide barrier that closes it) to one device counter
+per phase; the waits at the three group barriers a step are phases of
+their own. On the main path's shapes (1-shot, 60x60x512 features, 473x473
+pixel weights) it prints:
 
+* the work plan (grid, CTAs per group of ``tile`` episodes, rows per slice,
+  pixels of f pinned in shared memory per chain);
 * the kernel's time by CUDA events in both builds (the instrumentation's
   cost) and the effective SM clock (cycles per CTA over milliseconds);
-* per phase: cycles per step, share, the FMAs the kernel executes there per
-  cycle (an SM executes at most 128 fp32 FMAs a cycle), the global bytes its
-  loads ask for per cycle, and the cycles per iteration of its serial loop;
-  with ``--tile`` T > 1 (K2) a CTA carries T episodes, so its cycles cover T
-  episodes' work and its serial loops run as K1's do;
+* per phase: cycles per step and CTA, share, and per SM cycle (one CTA an
+  SM) the FMAs of the function done there (an SM issues at most 128 fp32
+  FMAs a cycle) and the bytes of f and pws it reads (L1, L2 or HBM; the
+  pinned share of f from shared memory);
 * the kernel's device time as ``torch.profiler`` (CUPTI) records it, or
   that the trace held none.
 
@@ -25,7 +28,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -37,34 +39,32 @@ import torch
 from ..data.synthetic import make_episode_batch
 from ..episodic.inner_loop import binary_pixel_weights
 from ..ops import cuda_inner_loop
+from ..ops.inner_loop_plan import tap_table
 
 PHASE_DEFINES = ("-DFSS_PHASE_CLOCKS",)
-PHASES = ("u + d = f.u", "T = d B^T", "A slice load", "D = A T, g",
-          "gB = g B", "G += A^T gB", "acc += G.f")
-# kernel constants (csrc/inner_loop.cu): threads per CTA, H-rows per block
-THREADS, ROWS = 512, 16
+PHASES = ("d = f.u", "barrier 1 (d halo)", "T = d B^T", "D, g, A^T g", "A^T g halo out",
+          "barrier 2 (A^T g halo)", "G = (A^T g) B", "acc partials = G.f",
+          "barrier 3 (partials)", "acc reduce, u")
 
 
 def phase_work(h: int, w: int, c: int, big_h: int, big_w: int) -> List[Dict]:
-    """Per phase, for one shot and one step of the kernel as written (dense
-    A and B): the FMAs it executes, the global bytes its loads ask for (L1, L2
-    or HBM), and ``serial``, the iterations of its innermost loop that one
-    thread runs one after another."""
-    hw, blocks = h * w, math.ceil(big_h / ROWS)
-    rows = blocks * ROWS  # the last block's padded rows are computed too
-    per_thread = lambda n: math.ceil(n / THREADS)  # noqa: E731
+    """Per phase, for one chain (episode shot) and one step of the function
+    in its two-tap form: the FMAs and the global bytes the phase's loads of
+    f and pws stand for. T and D take two taps an element (the second
+    weight may be 0), A^T g and (A^T g) B one FMA per non-zero of A and B.
+    The halo T rows a slice recomputes, the compensation of the acc sums
+    and the reduction's adds are not counted."""
+    nnz_a = int(np.count_nonzero(tap_table(big_h, h).dense()))
+    nnz_b = int(np.count_nonzero(tap_table(big_w, w).dense()))
+    hwc = h * w * c
+    zero = {"fma": 0, "bytes": 0}
     return [
-        {"fma": hw * c, "bytes": 4 * hw * c,
-         "serial": math.ceil(hw / (THREADS // 32)) * math.ceil(c / 32)},
-        {"fma": h * big_w * w, "bytes": 4 * h * big_w * w,
-         "serial": per_thread(h * big_w) * w},
-        {"fma": 0, "bytes": 4 * big_h * h, "serial": blocks * per_thread(h * ROWS)},
-        {"fma": rows * big_w * h, "bytes": 4 * (blocks * h * big_w + big_h * big_w),
-         "serial": blocks * per_thread(big_w) * h},
-        {"fma": rows * big_w * w, "bytes": 4 * blocks * big_w * w,
-         "serial": blocks * math.ceil(big_w / (THREADS // 64))},
-        {"fma": rows * hw, "bytes": 0, "serial": blocks * per_thread(hw)},
-        {"fma": hw * c, "bytes": 4 * hw * c, "serial": per_thread(c) * hw // 4},
+        {"fma": hwc, "bytes": 4 * hwc}, zero,
+        {"fma": 2 * h * big_w, "bytes": 0},
+        {"fma": 2 * big_h * big_w + nnz_a * big_w, "bytes": 4 * big_h * big_w},
+        zero, zero,
+        {"fma": h * nnz_b, "bytes": 0},
+        {"fma": hwc, "bytes": 4 * hwc}, zero, zero,
     ]
 
 
@@ -135,9 +135,10 @@ def main(argv=None) -> int:
     clock_lib.fss_phase_cycles.restype = ctypes.c_int
 
     tile = args.tile
+    plan = cuda_inner_loop.card_plan(plain_lib, tuple(f_s.shape), big, big, tile, dev)
 
     def run(lib):
-        return cuda_inner_loop.launch(lib, f_s, pw, pwy, u0, steps, lr, tile)
+        return cuda_inner_loop.launch(lib, f_s, pw, pwy, u0, steps, lr, tile, plan)
 
     acc_plain = run(plain_lib)
     acc_clock = run(clock_lib)
@@ -153,34 +154,34 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     if clock_lib.fss_phase_cycles(cycles) != 0:
         raise RuntimeError("fss_phase_cycles failed")
-    per_cta = cycles.astype(np.float64) / (e // tile)
+    all_ctas = cycles.astype(np.float64)
+    per_cta = all_ctas / plan.grid   # a CTA's phases over all its waves
     total = float(per_cta.sum())
     clock_ghz = total / (ms_clock * 1e-3) / 1e9
     phases = []
-    for name, cyc, work in zip(PHASES, per_cta, phase_work(h, h, c, big, big)):
-        per_step = float(cyc) / steps
+    for name, cyc, cyc_all, work in zip(PHASES, per_cta, all_ctas,
+                                        phase_work(h, h, c, big, big)):
         phases.append({
-            "phase": name, "cycles_per_step": per_step, "share": float(cyc) / total,
-            "ms": ms_clock * float(cyc) / total,
-            "fma_per_cycle": tile * work["fma"] / per_step,
-            "bytes_per_cycle": tile * work["bytes"] / per_step,
-            "cycles_per_serial_iter": per_step / work["serial"],
+            "phase": name, "cycles_per_step": float(cyc) / steps,
+            "share": float(cyc) / total, "ms": ms_clock * float(cyc) / total,
+            "fma_per_cycle": e * steps * work["fma"] / max(float(cyc_all), 1.0),
+            "bytes_per_cycle": e * steps * work["bytes"] / max(float(cyc_all), 1.0),
         })
     prof = profiler_device_ms(lambda: run(plain_lib), "adapt_binary_kernel" if tile == 1
                               else "adapt_binary_tiled_kernel")
 
     print(f"card: {card}")
     print(f"{'K1' if tile == 1 else f'K2 (tile {tile})'}, E={e}, 1-shot, {h}x{h}x{c} -> "
-          f"{big}x{big}, {steps} steps: "
+          f"{big}x{big}, {steps} steps, plan {plan.summary()}: "
           f"{ms:.3f} ms; with phase clocks {ms_clock:.3f} ms (same acc: {same}); "
           f"{total:.4g} cycles per CTA, effective clock {clock_ghz:.3f} GHz")
     for p in phases:
-        print(f"  {p['phase']:<14} {p['share']:6.1%} {p['ms']:8.2f} ms  "
-              f"{p['cycles_per_step']:10.0f} cyc/step  {p['fma_per_cycle']:6.2f} FMA/cyc  "
-              f"{p['bytes_per_cycle']:6.2f} B/cyc  {p['cycles_per_serial_iter']:7.1f} cyc/iter")
+        print(f"  {p['phase']:<22} {p['share']:6.1%} {p['ms']:8.3f} ms  "
+              f"{p['cycles_per_step']:9.0f} cyc/step  {p['fma_per_cycle']:6.2f} FMA/cyc  "
+              f"{p['bytes_per_cycle']:7.2f} B/cyc")
     print(f"torch.profiler: {prof}")
     print(json.dumps({"card": card, "episodes": e, "tile": tile, "steps": steps, "ms": ms,
-                      "ms_with_clocks": ms_clock, "same_acc": same,
+                      "ms_with_clocks": ms_clock, "same_acc": same, "plan": plan.summary(),
                       "cycles_per_cta": total, "clock_ghz": clock_ghz,
                       "phases": phases, "profiler": prof}))
     return 0

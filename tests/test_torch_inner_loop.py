@@ -32,6 +32,7 @@ from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import (
 )
 from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_inner_loop
 from few_shot_seg_cwt_tpu_torch.ops.losses import class_balance_weights
+from few_shot_seg_cwt_tpu_torch.ops.resize import interp_matrix_align_corners
 
 torch.set_num_threads(1)
 
@@ -203,14 +204,22 @@ def test_phase_clock_build_is_a_separate_library():
 
 
 def test_profile_phase_work_is_the_dense_product_count():
-    """The profile tool's per-phase FMAs add up to the dense step count:
-    d and acc (hwC each), T (h W w), D (H W h), gB (H W w), G (H h w)."""
-    from few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop import phase_work
+    """The profile tool's per-phase FMAs add up to the two-tap step count:
+    d and acc (hwC each), T = d B^T and D = A T (two taps an element: 2hW,
+    2HW), A^T g (nnz(A) x W) and G = (A^T g) B (h x nnz(B)); no dense
+    product is left."""
+    from few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop import PHASES, phase_work
 
-    h, w, c, big_h, big_w = 5, 6, 16, 32, 48       # H a multiple of the row block
-    fma = sum(p["fma"] for p in phase_work(h, w, c, big_h, big_w))
-    assert fma == (2 * h * w * c + h * big_w * w + big_h * big_w * h
-                   + big_h * big_w * w + big_h * h * w)
+    h, w, c, big_h, big_w = 5, 6, 16, 32, 48
+    work = phase_work(h, w, c, big_h, big_w)
+    assert len(work) == len(PHASES)
+    nnz_a = np.count_nonzero(interp_matrix_align_corners(big_h, h))
+    nnz_b = np.count_nonzero(interp_matrix_align_corners(big_w, w))
+    fma = sum(p["fma"] for p in work)
+    assert fma == (2 * h * w * c + 2 * h * big_w + 2 * big_h * big_w
+                   + nnz_a * big_w + h * nnz_b)
+    assert nnz_a < 2 * big_h and nnz_b < 2 * big_w      # exact samples have one tap
+    assert fma < 2 * h * w * c + h * big_w * w + big_h * big_w * (h + w) + big_h * h * w
 
 
 # --------------------------------------------------------------------------- #
@@ -278,15 +287,17 @@ def test_pick_tile_matches_jax_where_both_budgets_admit_the_tile(monkeypatch, wa
 
 
 def test_pick_tile_at_473_px_fits_two_where_the_tpu_fits_four(monkeypatch):
-    """At 473 px (60x60x512 features) tile 4 needs 304,640 B of shared
-    memory, over a block's 232,448 B, where the TPU's VMEM holds it; the port
-    falls back to tile 2, as the JAX rule does when 4 does not fit."""
+    """At 473 px (60x60x512 features) the kernel's least layout (one feature
+    row a CTA, nothing pinned) needs 27,104 B at tile 1, 41,408 B at tile 2
+    and 70,016 B at tile 4: every tile fits a block's 232,448 B (the kernel
+    streams the features it cannot pin), as the TPU's VMEM holds tile 4. So
+    the port now picks what the JAX package picks, 2 and 4."""
     shape = (1, 60, 60, 512, 473)
-    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 1) == 103_616
-    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 2) == 170_624
-    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 4) == 304_640
+    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 1) == 27_104
+    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 2) == 41_408
+    assert cuda_inner_loop.smem_bytes(60, 60, 512, 473, 4) == 70_016
     assert _vmem_need_tiled(4, 60, 60, 512, 473, 473) < 127 * 1024 * 1024
-    for want, port, jax_tile in (("2", 2, 2), ("4", 2, 4)):
+    for want, port, jax_tile in (("2", 2, 2), ("4", 4, 4)):
         monkeypatch.setenv("FSS_INNER_TILE", want)
         assert pick_tile(8, *shape) == port
         assert _pick_tile(8, 1, 60, 60, 512, 473, 473) == jax_tile
