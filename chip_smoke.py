@@ -21,7 +21,10 @@ Phases (any failure raises and the script exits non-zero):
    FSS_INNER_TILE 2 and 4 (3c); then the
    centre-pivot pair (pivot_fwd, pivot_dw) for each consensus block at 473 px
    (2->10, 10->10, 10->1), its gradients held against an fp64 run, beside the
-   rank-4 route's cuDNN time (3b).
+   rank-4 route's cuDNN time, with pivot_dw's time over the plain version's
+   (cuDNN's weight gradient) and the bound and its kind: the bytes, or the
+   operations at the lesser of fp32 on the CUDA cores and 3xTF32 on the
+   tensor cores (3b).
 4. CWT main path at full width: ResNet-50 PSPNet + CWT with a seeded random
    init, 8 synthetic 1-shot episodes at 473 px, adapt_iter 200. First, at
    the raw init, the kernel and the plain loop in fp32 (card and host) are
@@ -79,8 +82,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, HBM3.
+# H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, TF32 on
+# them, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 E, SHOT, IMG, FEAT, CH, STEPS, CLS_LR = 8, 1, 473, 60, 512, 200, 0.1
@@ -127,8 +132,14 @@ def inner_loop_work(e, shot, h, w, c, big_h, big_w, steps):
     return flops, nbytes
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, tensor_cores=False):
+    """(ms, kind): the larger of the bytes over HBM's rate and the operations
+    over the fp32 rate. With ``tensor_cores`` the operations may also run
+    fp32-accurate on the tensor cores as 3xTF32 (three TF32 products for
+    each fp32 one), and the lesser of the two operation times applies."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    if tensor_cores:
+        t_ops = min(t_ops, 3 * flops / PEAK_TF32_FLOPS * 1e3)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -334,14 +345,18 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card):
         del xr, x, t
         torch.cuda.empty_cache()
         flops, nbytes = pivot_work(ci, co, q, s)
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, tensor_cores=True)
         print(f"pivot {ci}->{co}: pivot_fwd {fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f} ms), "
               f"pivot_dw {dw_ms:.3f} ms (plain {dw_plain_ms:.3f} ms), rank-4 route "
               f"forward (2 cuDNN conv2d + permute) {r4_ms:.3f} ms; bound {b_ms:.3f} ms "
               f"({b_by}: {flops / 1e9:.2f} GFLOP / 67 TFLOP/s = "
-              f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms, {nbytes / 1e9:.3f} GB / "
+              f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms or as 3xTF32 / 495 TFLOP/s = "
+              f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.3f} ms, {nbytes / 1e9:.3f} GB / "
               f"3.35 TB/s = {nbytes / PEAK_HBM_BYTES * 1e3:.3f} ms) for each kernel; "
               f"library_ms null [{card}]")
+        print(f"pivot {ci}->{co}: pivot_dw / cuDNN wgrad (the plain version, TF32 off) = "
+              f"{dw_ms:.3f} / {dw_plain_ms:.3f} ms = {dw_ms / dw_plain_ms:.3f}; "
+              f"{b_ms / dw_ms:.1%} of the {b_by} bound [{card}]")
         out[(ci, co)] = dict(fwd_err=fwd_err, dw_err=dw_err, fwd_ms=fwd_ms,
                              fwd_plain_ms=fwd_plain_ms, dw_ms=dw_ms, dw_plain_ms=dw_plain_ms,
                              r4_ms=r4_ms, bound_ms=b_ms, bound_by=b_by)
@@ -779,8 +794,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
+
+    fp32_parity()
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     card = card_line()

@@ -12,7 +12,8 @@ S = hs*ws support positions,
 with wa, wb (3, 3, Ci, Co) and zero padding. Two hand-written kernels
 (``csrc/pivot.cu``, CUDA C++ for sm_90a, built with nvcc at first use and
 bound with ctypes) take the place of the four Pallas kernels: ``pivot_fwd``
-(K3a and K4a) and ``pivot_dw`` (K3b and K4b, the weight and bias gradient).
+(K3a and K4a) and ``pivot_dw`` (K3b and K4b, the weight and bias gradient,
+on the tensor cores in 3xTF32 form).
 ``pivot_conv_flat`` wraps them in a ``torch.autograd.Function``: dx is
 ``pivot_fwd`` of the ReLU-masked cotangent with spatially flipped,
 (ci, co)-transposed weights, and (dwa, dwb, db) come from ``pivot_dw``.
@@ -41,7 +42,8 @@ MAX_GRID_YZ = 65_535              # the forward grids over (S tiles, Q, B)
 # Kernel launches by name; a wrapper adds one where it launches its kernel.
 LAUNCHES: Dict[str, int] = {"pivot_fwd": 0, "pivot_dw": 0}
 
-_lib: Optional[ctypes.CDLL] = None
+# kernel libraries by extra nvcc flags (() for the main path's build)
+_libs: Dict[tuple, ctypes.CDLL] = {}
 
 Dims = Tuple[int, int, int, int]
 
@@ -145,32 +147,36 @@ def pivot_dw_reference(x: torch.Tensor, g: torch.Tensor, dims: Dims
 # --------------------------------------------------------------------------- #
 
 
-def build_spec() -> cuda_build.Spec:
-    return (_SOURCE, "libfss_pivot", ())
+def build_spec(defines: Sequence[str] = ()) -> cuda_build.Spec:
+    """The kernels' library for ``cuda_build.build``; ``defines`` are extra
+    nvcc flags such as ``-DFSS_PHASE_CLOCKS``."""
+    return (_SOURCE, "libfss_pivot", tuple(defines))
 
 
-def load_library() -> ctypes.CDLL:
+def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(cuda_build.build([build_spec()])[0]))
+    key = tuple(defines)
+    if key not in _libs:
+        lib = ctypes.CDLL(str(cuda_build.build([build_spec(key)])[0]))
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.fss_pivot_fwd.argtypes = [p] * 4 + [i] * 8 + [p]
         lib.fss_pivot_fwd.restype = i
-        lib.fss_pivot_dw.argtypes = [p] * 4 + [i] * 6 + [p]
+        lib.fss_pivot_dw.argtypes = [p] * 4 + [i] * 8 + [p]
         lib.fss_pivot_dw.restype = i
-        lib.fss_pivot_dw_blocks.argtypes = [i] * 5
+        lib.fss_pivot_dw_blocks.argtypes = [i] * 7
         lib.fss_pivot_dw_blocks.restype = i
         lib.fss_pivot_fwd_smem_bytes.argtypes = [i] * 3
         lib.fss_pivot_fwd_smem_bytes.restype = ctypes.c_size_t
-        lib.fss_pivot_dw_smem_bytes.argtypes = [i] * 2
+        lib.fss_pivot_dw_smem_bytes.argtypes = [i] * 3
         lib.fss_pivot_dw_smem_bytes.restype = ctypes.c_size_t
         lib.fss_pivot_max_co.argtypes = []
         lib.fss_pivot_max_co.restype = i
+        lib.fss_pivot_dw_max_ci.argtypes = []
+        lib.fss_pivot_dw_max_ci.restype = i
         lib.fss_pivot_error_string.argtypes = [i]
         lib.fss_pivot_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[key] = lib
+    return _libs[key]
 
 
 def _check_volume(name: str, t: torch.Tensor, dims: Dims) -> None:
@@ -249,10 +255,20 @@ def pivot_dw(x: torch.Tensor, g: torch.Tensor, dims: Dims
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dwa, dwb, db) of the pivot pair for input x (B, Ci, Q, S) and
     cotangent g (B, Co, Q, S), summed over the batch: the two-pass kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors (a persistent grid of tensor-core CTAs, then their partials
+    summed in order), the plain version on CPU tensors."""
     dims = tuple(int(d) for d in dims)
     if x.device.type == "cpu":
         return pivot_dw_reference(x, g, dims)
+    out = launch_dw(load_library(), x, g, dims)
+    LAUNCHES["pivot_dw"] += 1
+    return out
+
+
+def launch_dw(lib: ctypes.CDLL, x: torch.Tensor, g: torch.Tensor, dims: Dims
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Check CUDA tensors for the weight-gradient kernel of ``lib`` and
+    launch it; ``pivot_dw`` is the counted entry point."""
     _check_volume("x", x, dims)
     _check_volume("g", g, dims)
     if g.shape[0] != x.shape[0] or g.device != x.device:
@@ -260,22 +276,24 @@ def pivot_dw(x: torch.Tensor, g: torch.Tensor, dims: Dims
                          f"x {tuple(x.shape)} on {x.device}")
     b, ci = x.shape[:2]
     co = g.shape[1]
-    lib = load_library()
-    _check_channels(lib, co, b, dims)
-    smem = lib.fss_pivot_dw_smem_bytes(ci, co)
+    if not 1 <= co <= lib.fss_pivot_max_co() or not 1 <= ci <= lib.fss_pivot_dw_max_ci():
+        raise ValueError(f"pivot_dw takes 1..{lib.fss_pivot_dw_max_ci()} input and "
+                         f"1..{lib.fss_pivot_max_co()} output channels, got {ci}, {co}")
+    smem = lib.fss_pivot_dw_smem_bytes(ci, co, dims[3])
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"pivot_dw: {smem} B of shared memory for Ci={ci}; "
-                         f"a block has {MAX_SMEM_BYTES}")
+        raise ValueError(f"pivot_dw: {smem} B of shared memory for Ci={ci} Co={co} "
+                         f"ws={dims[3]}; a block has {MAX_SMEM_BYTES}")
     n_out = 18 * ci * co + co
-    blocks = lib.fss_pivot_dw_blocks(b, *dims)
-    partial = torch.empty((blocks, n_out), dtype=torch.float32, device=x.device)
-    out = torch.empty((n_out,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        blocks = lib.fss_pivot_dw_blocks(b, ci, co, *dims)
+        if blocks < 1:
+            raise RuntimeError(f"pivot_dw: the card holds no CTA of {smem} B")
+        partial = torch.empty((blocks, n_out), dtype=torch.float32, device=x.device)
+        out = torch.empty((n_out,), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fss_pivot_dw(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                               out.data_ptr(), b, ci, co, *dims, stream)
+                               out.data_ptr(), b, ci, co, *dims, blocks, stream)
     _raise_on(lib, "pivot_dw", err)
-    LAUNCHES["pivot_dw"] += 1
     taps = out[:18 * ci * co].reshape(2, 3, 3, ci, co)
     return taps[0], taps[1], out[18 * ci * co:]
 

@@ -40,6 +40,7 @@ from ..data.synthetic import make_episode_batch
 from ..episodic.inner_loop import binary_pixel_weights
 from ..ops import cuda_inner_loop
 from ..ops.inner_loop_plan import tap_table
+from ..train.common import fp32_parity
 
 PHASE_DEFINES = ("-DFSS_PHASE_CLOCKS",)
 PHASES = ("d = f.u", "barrier 1 (d halo)", "T = d B^T", "D, g, A^T g", "A^T g halo out",
@@ -114,7 +115,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_inner_loop: needs a CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32_parity()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()

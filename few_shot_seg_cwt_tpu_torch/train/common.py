@@ -1,5 +1,6 @@
-"""Shared trainer plumbing: seeds, debug limits, episode loaders, backbone
-and transformer inits, checkpoint directory and auto-resume.
+"""Shared trainer plumbing: fp32 parity, seeds, debug limits, episode
+loaders, backbone (with the stage-1 weights) and transformer inits,
+checkpoint directory and auto-resume.
 
 Counterpart of ``few_shot_seg_cwt_tpu.train.common`` on one process.
 Episodes are synthetic only: the real-data loader and transforms are not
@@ -18,7 +19,15 @@ import torch
 from ..data.synthetic import SequentialBatches, ShuffledBatches, SyntheticEpisodicDataset
 from ..models.cwt import MultiHeadAttentionOne, build_cwt
 from ..models.pspnet import PSPNet, build_pspnet
+from ..utils.convert import load_torch_checkpoint
 from ..utils.dirs import get_model_dir_trans
+
+
+def fp32_parity() -> None:
+    """Run float32 convolutions and matmuls in full float32 on the card: the
+    reference is fp32, and PyTorch's default lets cuDNN use TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def set_seeds(cfg) -> None:
@@ -52,11 +61,48 @@ def episodic_loaders(cfg) -> Tuple[ShuffledBatches, SequentialBatches]:
             SequentialBatches(val, e))
 
 
-def init_backbone(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
-    """The frozen backbone: a seeded random PSPNet (``manual_seed``). Loading
-    the stage-1 ``.pth`` by the reference's directory schema waits for the
-    real-data path (ROADMAP queue 1 item 5)."""
-    return build_pspnet(cfg, generator)
+def stage1_weights_path(cfg) -> str:
+    """The stage-1 PSPNet checkpoint under the reference's directory schema:
+    <resume_weights>/<train_name>/split=<s>/pspnet_<arch><layers>/best.pth,
+    or best1.pth with ``wt_file 1`` (src/train.py:57-59, src/train_aug.py:60)."""
+    leaf = "best1.pth" if cfg.get("wt_file", 0) == 1 else "best.pth"
+    return os.path.join(str(cfg.resume_weights), cfg.train_name, f"split={cfg.train_split}",
+                        f"pspnet_{cfg.arch}{cfg.layers}", leaf)
+
+
+def load_backbone_weights(backbone: PSPNet, path: str, skip_gamma: bool) -> None:
+    """Overlay a reference PSPNet ``.pth`` onto ``backbone``, without the
+    stage-1 classifier (and without ``gamma`` when ``skip_gamma``), as the
+    reference's stage-2 filter does (src/train.py:65-71). Every other
+    backbone tensor must be in the file."""
+    skip = ("classifier.",) + (("gamma",) if skip_gamma else ())
+    sd = {k: v for k, v in load_torch_checkpoint(path).items() if not k.startswith(skip)}
+    missing, unexpected = backbone.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.startswith(skip)]
+    if missing or unexpected:
+        raise ValueError(f"{path}: missing {missing[:5]}, unexpected {unexpected[:5]}")
+
+
+def load_stage1_weights(cfg, backbone: PSPNet, log=print) -> None:
+    """Overlay the stage-1 weights at ``stage1_weights_path`` if the file
+    exists (``classifier.*`` and ``gamma`` dropped), with the reference's
+    log lines."""
+    path = stage1_weights_path(cfg)
+    if os.path.isfile(path):
+        log(f"=> loading weight '{path}'")
+        load_backbone_weights(backbone, path, skip_gamma=True)
+        log(f"=> loaded weight '{path}'")
+    else:
+        log(f"=> no weight found at '{path}'")
+
+
+def init_backbone(cfg, generator: Optional[torch.Generator] = None, log=print) -> PSPNet:
+    """The frozen backbone: a seeded random PSPNet (``manual_seed``), with
+    the stage-1 weights overlaid when ``resume_weights`` is set."""
+    backbone = build_pspnet(cfg, generator)
+    if cfg.get("resume_weights"):
+        load_stage1_weights(cfg, backbone, log)
+    return backbone
 
 
 def init_cwt(cfg, generator: Optional[torch.Generator] = None) -> MultiHeadAttentionOne:

@@ -6,7 +6,9 @@ Counterpart of ``few_shot_seg_cwt_tpu.train.test``:
         --opts synthetic_data True test_num 16 n_runs 1
 
 Backbone weights load from ``resume_weights`` when it names a reference
-``.pth`` file; transformer weights from ``<ckpt_used>.pth`` under the
+``.pth`` file (``classifier.*`` dropped), else by the stage-1 directory
+schema (``train.common.load_stage1_weights``; ``classifier.*`` and ``gamma``
+dropped); transformer weights from ``<ckpt_used>.pth`` under the
 reference's transformer directory schema. Without them the run evaluates the
 seeded random init (plumbing mode). Only synthetic episodes are supported so
 far; real datasets need the data loader and transforms, not yet ported.
@@ -21,20 +23,21 @@ from ..data.synthetic import SequentialBatches, SyntheticEpisodicDataset
 from ..episodic.engine import EpisodicEngine
 from ..eval.validate import validate_transformer
 from ..utils.convert import load_torch_checkpoint
-from .common import apply_debug, set_seeds, trans_ckpt_dir
+from .common import (apply_debug, fp32_parity, load_backbone_weights, load_stage1_weights,
+                     set_seeds, trans_ckpt_dir)
 
 
 def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
-    """Overlay reference ``.pth`` weights onto the engine's modules, if any."""
+    """Overlay reference ``.pth`` weights onto the engine's modules, if any:
+    the backbone from a file named by ``resume_weights`` (``gamma`` kept),
+    else by the stage-1 schema (``gamma`` dropped), as the JAX package's
+    ``load_backbone_weights`` does."""
     path = str(cfg.resume_weights or "")
     if os.path.isfile(path):
-        sd = {k: v for k, v in load_torch_checkpoint(path).items()
-              if not k.startswith("classifier.")}  # stage-2 filter
-        missing, unexpected = engine.backbone.load_state_dict(sd, strict=False)
-        missing = [k for k in missing if not k.startswith("classifier.")]
-        if missing or unexpected:
-            raise ValueError(f"{path}: missing {missing[:5]}, unexpected {unexpected[:5]}")
+        load_backbone_weights(engine.backbone, path, skip_gamma=False)
         log(f"=> loaded weight '{path}'")
+    elif path:
+        load_stage1_weights(cfg, engine.backbone, log)
     if cfg.ckpt_used is None:
         log("=> Not loading anything")
         return
@@ -47,6 +50,7 @@ def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
 
 
 def main(cfg, device="cuda", log=print) -> float:
+    fp32_parity()
     if not cfg.get("synthetic_data"):
         raise NotImplementedError(
             "the PyTorch port evaluates synthetic episodes only: real datasets "

@@ -36,7 +36,7 @@ from ..episodic.engine import EpisodicEngine
 from ..eval.validate import validate_transformer
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
 from ..utils.meters import AverageMeter
-from .common import (apply_debug, episodic_loaders, init_backbone, init_cwt,
+from .common import (apply_debug, episodic_loaders, fp32_parity, init_backbone, init_cwt,
                      maybe_auto_resume, set_seeds, trans_ckpt_dir)
 from .optim import build_optimizer
 
@@ -44,11 +44,12 @@ from .optim import build_optimizer
 def main(cfg, device="cuda", log=print) -> float:
     """Meta-train the transformer for ``epochs`` epochs; returns the best
     validation mIoU."""
+    fp32_parity()
     log(cfg)
     set_seeds(cfg)
     apply_debug(cfg)
     train_loader, val_loader = episodic_loaders(cfg)
-    engine = EpisodicEngine(cfg, backbone=init_backbone(cfg), cwt=init_cwt(cfg),
+    engine = EpisodicEngine(cfg, backbone=init_backbone(cfg, log=log), cwt=init_cwt(cfg),
                             device=device)
     # reference: one param group at trans_lr * scale_lr, no scheduler in stage 2
     optimizer, _ = build_optimizer(engine.cwt.parameters(), cfg,

@@ -37,7 +37,8 @@ from ..episodic.heads import HeadEngine
 from ..eval.validate import accumulate_fg_iou, batch_generator, exact_batch_sizes, fg_miou
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
 from ..utils.meters import AverageMeter, CompareMeter
-from .common import apply_debug, episodic_loaders, init_backbone, maybe_auto_resume, set_seeds
+from .common import (apply_debug, episodic_loaders, fp32_parity, init_backbone,
+                     maybe_auto_resume, set_seeds)
 from .optim import build_optimizer
 
 
@@ -81,12 +82,13 @@ def set_dropout_rng_state(device: torch.device, state: torch.Tensor) -> None:
 
 def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
     """Train the head for ``epochs`` epochs; returns the best validation mIoU."""
+    fp32_parity()
     log(cfg)
     set_seeds(cfg)
     apply_debug(cfg)
     head_type = head_type or cfg.get("head", "mmn")
     train_loader, val_loader = episodic_loaders(cfg)
-    engine = HeadEngine(cfg, head_type, backbone=init_backbone(cfg), device=device)
+    engine = HeadEngine(cfg, head_type, backbone=init_backbone(cfg, log=log), device=device)
     trainables = init_head_trainables(engine)
     optimizer, scheduler = build_optimizer(
         trainables.values(), cfg, base_lr=cfg.trans_lr * cfg.scale_lr,

@@ -14,7 +14,9 @@ at 1, and two launches: equal bits (each element has one formula and every
 sum a fixed order whatever the partition). Pivot pair: forward within
 1e-5 * max|y_plain|; gradients held against an fp64 run, at most 4x as far
 from it as the plain fp32 version plus 2e-6 of the scale (the weight
-gradients sum up to 13 M terms, where fp32 order matters).
+gradients sum up to 13 M terms, where fp32 order matters; pivot_dw does
+its products on the tensor cores in 3xTF32 form). pivot_dw: two launches
+give equal bits, and the shapes its tiling can get wrong are held too.
 """
 
 import numpy as np
@@ -251,7 +253,15 @@ def _pivot_grads(fn, x, wa, wb, bias, t, dims, relu, dtype=torch.float32):
     (1, 2, 10, (60, 60, 60, 60)),   # main-path blocks at 473 px
     (1, 10, 10, (60, 60, 60, 60)),
     (1, 10, 1, (60, 60, 60, 60)),
-])
+    # shapes pivot_dw's tiling (2 support rows a step, K padded to 8) can get wrong
+    (1, 3, 4, (4, 5, 5, 60)),       # ws = 60, odd hs
+    (1, 3, 4, (3, 4, 3, 10)),       # ws not a multiple of 8, odd hs
+    (1, 3, 4, (5, 6, 1, 9)),        # hs = 1
+    (1, 3, 4, (5, 1, 4, 7)),        # wq = 1
+    (1, 3, 4, (1, 6, 4, 7)),        # hq = 1
+    (1, 1, 4, (5, 6, 4, 7)),        # Ci = 1
+    (2, 2, 3, (4, 3, 5, 13)),       # B = 2, odd everything
+] + [(1, 2, co, (3, 4, 3, 9)) for co in range(1, 11)])   # every Co
 @pytest.mark.parametrize("relu", [True, False])
 def test_pivot_kernels_match_plain(device, b, ci, co, dims, relu):
     """Forward within 1e-5 * max|y| of the plain version. With the ReLU off,
@@ -286,6 +296,54 @@ def test_pivot_kernels_match_plain(device, b, ci, co, dims, relu):
         err_k = float((k.double() - w).abs().max())
         err_p = float((p.double() - w).abs().max())
         assert err_k <= 4 * err_p + 2e-6 * float(w.abs().max()), (name, err_k, err_p)
+
+
+def test_pivot_dw_gives_the_same_bits_every_launch(device):
+    """No atomics: a fixed grid, fixed work per CTA and fixed summation
+    orders give equal bits from launch to launch."""
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+
+    for ci, co, dims in ((10, 10, (60, 60, 60, 60)), (3, 4, (5, 6, 4, 7))):
+        x, _, _, _, t = _pivot_inputs(device, 1, ci, co, dims, seed=3)
+        first = cuda_pivot.pivot_dw(x, t, dims)
+        second = cuda_pivot.pivot_dw(x, t, dims)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_pivot_dw_smem_query_agrees_with_the_wrappers_refusal(device):
+    """The library's shared-memory query decides: a shape over a block's
+    shared memory is refused before launch, one under it runs. The query
+    grows with ws and Ci; Ci over the library's limit is refused too."""
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+
+    lib = cuda_pivot.load_library()
+    seen = set()
+    for ci, co, ws in ((10, 10, 60), (10, 10, 200), (10, 10, 230), (2, 10, 500),
+                       (10, 1, 1000), (21, 1, 60)):
+        dims = (1, 1, 1, ws)
+        smem = lib.fss_pivot_dw_smem_bytes(ci, co, ws)
+        x, _, _, _, t = _pivot_inputs(device, 1, ci, co, dims)
+        over = smem > cuda_pivot.MAX_SMEM_BYTES
+        seen.add(over)
+        before = cuda_pivot.LAUNCHES["pivot_dw"]
+        if over:
+            with pytest.raises(ValueError, match="shared memory"):
+                cuda_pivot.pivot_dw(x, t, dims)
+            assert cuda_pivot.LAUNCHES["pivot_dw"] == before
+        else:
+            got = cuda_pivot.pivot_dw(x, t, dims)
+            want = cuda_pivot.pivot_dw_reference(x, t, dims)
+            for a, b in zip(got, want):
+                assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6
+            assert cuda_pivot.LAUNCHES["pivot_dw"] == before + 1
+    assert seen == {True, False}
+    assert lib.fss_pivot_dw_smem_bytes(10, 10, 60) < lib.fss_pivot_dw_smem_bytes(10, 10, 200)
+    ci = lib.fss_pivot_dw_max_ci() + 1
+    x, _, _, _, t = _pivot_inputs(device, 1, ci, 1, (1, 1, 1, 8))
+    with pytest.raises(ValueError, match="input"):
+        cuda_pivot.pivot_dw(x, t, (1, 1, 1, 8))
 
 
 def test_pivot_wrappers_refuse_what_the_kernels_do_not_take(device):

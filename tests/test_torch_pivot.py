@@ -11,11 +11,18 @@ held against ``pallas_pivot.pivot_conv_flat`` (VPU form) and
 DIMS (5, 6, 4, 7), Ci 3, Co 4, B 2. Tolerances (fp32, sums in another
 order): forward rtol 1e-5 with atol 1e-5 for entries near zero; gradients
 rtol 1e-4, atol 1e-5.
+
+The card's weight-gradient kernel does its products on the tensor cores in
+3xTF32 form; ``emulate_3xtf32_dw`` below repeats that arithmetic (operands
+rounded as ``cvt.rna.tf32.f32`` rounds, three products, a step's tile of
+positions summed in fp32, the tiles' partials in double) to check the
+numerical design on the CPU. It does not run or check the kernel.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +35,7 @@ torch.set_num_threads(1)
 
 DIMS = (5, 6, 4, 7)
 CI, CO, B = 3, 4, 2
+DW_ROWS = 2   # support rows in one step of the card's pivot_dw (csrc/pivot.cu)
 JAX_FORMS = {"vpu": jax_pivot_vpu, "mxu": jax_pivot_mxu}
 
 
@@ -160,8 +168,97 @@ def test_kernel_source_and_build():
     src = cuda_build.CSRC.joinpath("pivot.cu").read_text()
     for sym in ("fss_pivot_fwd(", "fss_pivot_dw(", "fss_pivot_dw_blocks(",
                 "fss_pivot_fwd_smem_bytes(", "fss_pivot_dw_smem_bytes(",
-                "fss_pivot_max_co(", "fss_pivot_error_string("):
+                "fss_pivot_max_co(", "fss_pivot_dw_max_ci(", "fss_pivot_error_string("):
         assert sym in src, sym
     assert "atomicAdd" not in src and "atomicCAS" not in src
+    # the weight gradient runs on the tensor cores, split in 3xTF32 form
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "cvt.rna.tf32.f32" in src
+    assert "wgmma.mma_async" not in src and "cp.async.bulk" not in src   # no wgmma, no TMA
     path = cuda_build.library_path(*cuda_pivot.build_spec())
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
+
+
+# --------------------------------------------------------------------------- #
+# the card kernel's 3xTF32 arithmetic, emulated
+# --------------------------------------------------------------------------- #
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away
+    from zero), on the int32 view: add 0x1000, clear the low 13 bits."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(a: torch.Tensor):
+    big = tf32_round(a)
+    return big, tf32_round(a - big)
+
+
+def emulate_3xtf32_dw(x: torch.Tensor, g: torch.Tensor, dims):
+    """(dwa, dwb, db) as the card kernel forms them: A (the 18*Ci shifted
+    copies of x, then a row of ones for db) and g split into TF32 big and
+    small parts; big.big + big.small + small.big summed in fp32 over each
+    step's tile (one (b, q) and DW_ROWS whole support rows); the tiles'
+    partials summed in double."""
+    hq, wq, hs, ws = dims
+    b, ci = x.shape[:2]
+    co = g.shape[1]
+    v = x.reshape(b, ci, hq, wq, hs, ws)
+    vq = F.pad(v, (0, 0, 0, 0, 1, 1, 1, 1))     # zero border of the query plane
+    vs = F.pad(v, (1, 1, 1, 1))                 # and of the support plane
+    rows = [vq[:, :, dh:dh + hq, dw:dw + wq] for dh in range(3) for dw in range(3)]
+    rows += [vs[..., du:du + hs, dv:dv + ws] for du in range(3) for dv in range(3)]
+    a = torch.stack(rows, 0).permute(0, 2, 1, 3, 4, 5, 6).reshape(18 * ci, b, hq * wq, hs, ws)
+    a = torch.cat([a, torch.ones_like(a[:1])], 0)            # the db row
+    gt = g.reshape(b, co, hq * wq, hs, ws).permute(1, 0, 2, 3, 4)
+    tiles = -(-hs // DW_ROWS)
+    pad = (0, 0, 0, tiles * DW_ROWS - hs)
+    a = F.pad(a, pad).reshape(a.shape[0], b, hq * wq, tiles, DW_ROWS * ws)
+    gt = F.pad(gt, pad).reshape(co, b, hq * wq, tiles, DW_ROWS * ws)
+    (ab, as_), (gb, gs) = split_tf32(a), split_tf32(gt)
+    per_tile = sum(torch.einsum("mbqtp,nbqtp->mnbqt", l, r)
+                   for l, r in ((as_, gb), (ab, gs), (ab, gb)))
+    out = per_tile.double().sum(dim=(2, 3, 4)).float()       # (18*Ci + 1, Co)
+    taps = out[:18 * ci].reshape(2, 3, 3, ci, co)
+    return taps[0], taps[1], out[18 * ci]
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                      # the first TF32 step above 1
+    a = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      -(1.0 + 2.0 ** -11), 3.0e-3, 0.0], dtype=torch.float32)
+    got = tf32_round(a)
+    assert got[:4].tolist() == [1.0, one, 1.0, -one]
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    big, small = split_tf32(a)
+    assert float((a - big - small).abs().max()) <= 2.0 ** -21 * float(a.abs().max())
+
+
+def test_3xtf32_dw_is_within_the_chip_limit_of_fp64(inputs):
+    """The card's accuracy limit on the pivot gradients (``chip_smoke.py``,
+    the card tests): at most 4x as far from fp64 as the plain fp32 version,
+    plus 2e-6 of the largest entry."""
+    x, g = torch.from_numpy(inputs[0]), torch.from_numpy(inputs[4])
+    emu = emulate_3xtf32_dw(x, g, DIMS)
+    plain = cuda_pivot.pivot_dw_reference(x, g, DIMS)
+    wide = cuda_pivot.pivot_dw_reference(x.double(), g.double(), DIMS)
+    for name, e, p, w in zip(("dwa", "dwb", "db"), emu, plain, wide):
+        err_e = float((e.double() - w).abs().max())
+        err_p = float((p.double() - w).abs().max())
+        assert err_e <= 4 * err_p + 2e-6 * float(w.abs().max()), (name, err_e, err_p)
+        # and it keeps fp32's accuracy: a TF32 product alone would be ~1e-3 off
+        assert err_e <= 1e-5 * float(w.abs().max()), (name, err_e)
+
+
+@pytest.mark.parametrize("form", sorted(JAX_FORMS))
+def test_3xtf32_dw_matches_jax_kernels(inputs, jax_results, form):
+    """Against the JAX custom-VJP weight gradients of sum(relu(y) * t): the
+    cotangent the kernel sees is t masked by the ReLU."""
+    x, wa, wb, bias = _torch(inputs)
+    y = cuda_pivot.pivot_conv_flat_reference(x, wa, wb, bias, DIMS)
+    g = torch.from_numpy(inputs[4]) * (y > 0)
+    emu = emulate_3xtf32_dw(x, g, DIMS)
+    for name, got, want in zip(("dwa", "dwb", "db"), emu, jax_results[form, "grads"][1:]):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5, err_msg=name)
