@@ -21,7 +21,8 @@ Phases (any failure raises and the script exits non-zero):
    FSS_INNER_TILE 2 and 4 (3c); then the
    centre-pivot pair (pivot_fwd, pivot_dw) for each consensus block at 473 px
    (2->10, 10->10, 10->1), its gradients held against an fp64 run, beside the
-   rank-4 route's cuDNN time, with pivot_dw's time over the plain version's
+   rank-4 route's cuDNN time, pivot_fwd also timed at each block's dx shape
+   (10->2, 10->10, 1->10), with pivot_dw's time over the plain version's
    (cuDNN's weight gradient) and the bound and its kind: the bytes, or the
    operations at the lesser of fp32 on the CUDA cores and 3xTF32 on the
    tensor cores (3b).
@@ -290,7 +291,8 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card):
     short sums: dx adds 18*Co <= 180 products per output in one fp32 chain,
     good to ~1e-6 relative, while cuDNN's tree sums come closer; for the
     13 M-term dW sums it is far below the plain version's own error.
-    Returns per-block numbers."""
+    Times pivot_fwd at the forward shape and at the block's dx shape (Ci and
+    Co swapped). Returns per-block numbers."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
     q = s = FEAT * FEAT
@@ -342,6 +344,12 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card):
             blk.conv2.bias.zero_()
             xr = x.permute(0, 2, 3, 1).contiguous()         # (1, Q, S, Ci)
             r4_ms = cuda_ms(lambda: blk(xr, False, True, PIVOT_DIMS, bqsc=True), 5)
+        # dx in the backward: pivot_fwd of the cotangent with the flipped,
+        # transposed weights, Ci and Co swapped, a zero bias, no ReLU
+        fwa, fwb = cuda_pivot.flip_t(wa), cuda_pivot.flip_t(wb)
+        zeros = torch.zeros(ci, device=dev)
+        dx_ms = cuda_ms(lambda: cuda_pivot.pivot_fwd(t, fwa, fwb, zeros, PIVOT_DIMS), 5)
+        dx_plain_ms = cuda_ms(lambda: ref(t, fwa, fwb, zeros, PIVOT_DIMS), 5)
         del xr, x, t
         torch.cuda.empty_cache()
         flops, nbytes = pivot_work(ci, co, q, s)
@@ -354,11 +362,16 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card):
               f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.3f} ms, {nbytes / 1e9:.3f} GB / "
               f"3.35 TB/s = {nbytes / PEAK_HBM_BYTES * 1e3:.3f} ms) for each kernel; "
               f"library_ms null [{card}]")
+        print(f"pivot {ci}->{co}: dx, pivot_fwd {co}->{ci} (flipped weights, no ReLU) "
+              f"{dx_ms:.3f} ms (plain {dx_plain_ms:.3f} ms); bound {b_ms:.3f} ms ({b_by}, "
+              f"the forward's counts), fp32 FMA floor {flops / PEAK_FP32_FLOPS * 1e3:.3f} "
+              f"ms [{card}]")
         print(f"pivot {ci}->{co}: pivot_dw / cuDNN wgrad (the plain version, TF32 off) = "
               f"{dw_ms:.3f} / {dw_plain_ms:.3f} ms = {dw_ms / dw_plain_ms:.3f}; "
               f"{b_ms / dw_ms:.1%} of the {b_by} bound [{card}]")
         out[(ci, co)] = dict(fwd_err=fwd_err, dw_err=dw_err, fwd_ms=fwd_ms,
                              fwd_plain_ms=fwd_plain_ms, dw_ms=dw_ms, dw_plain_ms=dw_plain_ms,
+                             dx_ms=dx_ms, dx_plain_ms=dx_plain_ms,
                              r4_ms=r4_ms, bound_ms=b_ms, bound_by=b_by)
     return out
 

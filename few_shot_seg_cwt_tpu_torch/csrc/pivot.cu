@@ -12,21 +12,10 @@
 // Layout: a volume is channels-major (B, C, Q, S) fp32, Q = hq*wq query
 // positions, S = hs*ws support positions (get_corr's natural layout).
 //
-// pivot_fwd, per batch b:
-//
-//   y[co,q,s] = bias[co] + sum_ci sum_{3x3 d} wa[d,ci,co] x[ci, q+d, s]
-//                        + sum_ci sum_{3x3 d} wb[d,ci,co] x[ci, q, s+d]
-//
-// with zero padding at the hq/wq (query plane) and hs/ws (support plane)
-// edges, then an optional ReLU. The weights arrive flattened as
-// w[ci][tap][co], taps 0-8 the query-plane 3x3 (row-major), 9-17 the
-// support-plane 3x3. One thread per (q, s): a block is one query position q
-// and FWD_THREADS consecutive support positions, so the query-plane taps
-// (same s, neighbouring q rows) are coalesced global reads that neighbouring
-// blocks share through L2, and the support-plane taps come from a strip of
-// x[ci, q, s0-ws-1 : s0+FWD_THREADS+ws+1] staged in shared memory. Each
-// thread holds all CO accumulators in registers; the weights (at most
-// 18*10*10 floats) sit in shared memory and are read as broadcasts.
+// pivot_fwd (pivot_fwd.cuh, with its own note): y = the 3x3 conv over the
+// query plane + the 3x3 conv over the support plane + bias [+ ReLU], on the
+// CUDA cores in fp32, from a staged query window with P positions and all
+// Co outputs a thread.
 //
 // pivot_dw: the weight and bias gradients of the pair, summed over every
 // (b, q, s), at most 18*Ci*Co + Co = 1810 outputs from a 13 M-long
@@ -90,19 +79,12 @@
 // with N padded to 8 or 16 on mma.sync, well under the wgmma rate the
 // 495 TFLOP/s assumes.
 
-// pivot_fwd's bound (the same counts): 2->10 is 9.33 GFLOP / 0.622 GB,
-// 0.186 ms (bytes); 10->10 is 46.66 GFLOP / 1.037 GB, 0.696 ms (operations
-// on the CUDA cores, where it runs: one FMA per weight from a broadcast
-// shared-memory read, issue-bound above the bound); 10->1 is 4.67 GFLOP /
-// 0.570 GB, 0.170 ms (bytes).
-
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int FWD_THREADS = 256;   // support positions per forward block
 constexpr int DW_THREADS = 512;    // 16 warps, one CTA an SM
 constexpr int DW_WARPS = DW_THREADS / 32;
 constexpr int DW_ROWS = 2;         // support rows per step
@@ -112,69 +94,6 @@ constexpr int DW_LEAD = 4;         // a staged row's data starts 16-byte aligned
 constexpr int MAX_CO = 10;
 constexpr int DW_MAX_CI = 42;      // 18*42+1 rows: 48 m-tiles, 16 warp groups
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
-
-template <int CO>
-__global__ void __launch_bounds__(FWD_THREADS)
-pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ y,
-                 int ci_n, int hq, int wq, int hs, int ws, int relu) {
-  extern __shared__ float smem[];
-  const int S = hs * ws;
-  const int halo = ws + 1;
-  const int strip = FWD_THREADS + 2 * halo;
-  const size_t plane = (size_t)hq * wq * S;
-  float* w_s = smem;                    // ci_n * 18 * CO
-  float* x_s = smem + ci_n * 18 * CO;   // ci_n * strip
-
-  const int tid = threadIdx.x;
-  const int s0 = blockIdx.x * FWD_THREADS;
-  const int q = blockIdx.y;
-  const float* xb = x + (size_t)blockIdx.z * ci_n * plane;
-
-  for (int i = tid; i < ci_n * 18 * CO; i += FWD_THREADS) w_s[i] = w[i];
-  for (int i = tid; i < ci_n * strip; i += FWD_THREADS) {
-    const int c = i / strip;
-    const int s = s0 - halo + (i - c * strip);
-    x_s[i] = (s >= 0 && s < S) ? xb[c * plane + (size_t)q * S + s] : 0.f;
-  }
-  __syncthreads();
-
-  const int s = s0 + tid;
-  if (s >= S) return;  // after the block's only barrier
-  const int qi = q / wq, qj = q - qi * wq;
-  const int u = s / ws, v = s - u * ws;
-
-  float acc[CO];
-#pragma unroll
-  for (int co = 0; co < CO; ++co) acc[co] = bias[co];
-
-  for (int c = 0; c < ci_n; ++c) {
-    const float* xc = xb + c * plane;
-    const float* wc = w_s + c * 18 * CO;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {       // query plane: rows q +- (1, wq)
-      const int ii = qi + t / 3 - 1, jj = qj + t % 3 - 1;
-      if (ii < 0 || ii >= hq || jj < 0 || jj >= wq) continue;  // whole block
-      const float val = __ldg(xc + (size_t)(ii * wq + jj) * S + s);
-#pragma unroll
-      for (int co = 0; co < CO; ++co) acc[co] = fmaf(wc[t * CO + co], val, acc[co]);
-    }
-    const float* xs = x_s + c * strip + halo + tid;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {       // support plane: the staged strip
-      const int du = t / 3 - 1, dv = t % 3 - 1;
-      if (u + du < 0 || u + du >= hs || v + dv < 0 || v + dv >= ws) continue;
-      const float val = xs[du * ws + dv];
-#pragma unroll
-      for (int co = 0; co < CO; ++co)
-        acc[co] = fmaf(wc[(9 + t) * CO + co], val, acc[co]);
-    }
-  }
-
-  float* yb = y + (size_t)blockIdx.z * CO * plane + (size_t)q * S + s;
-#pragma unroll
-  for (int co = 0; co < CO; ++co) yb[co * plane] = relu ? fmaxf(acc[co], 0.f) : acc[co];
-}
 
 // ---- pivot_dw ------------------------------------------------------------
 
@@ -267,6 +186,48 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// ---- pivot_fwd -----------------------------------------------------------
+
+#ifdef FSS_PHASE_CLOCKS
+// Built with -DFSS_PHASE_CLOCKS, thread 0 of each CTA reads clock64() at the
+// end of every phase of a step (after the barrier that closes it) and adds
+// the cycles to its CTA's row, read by fss_pivot_fwd_phase_cycles(): issuing
+// the next step's copies, waiting for this step's, computing, staging a
+// fresh run's window.
+constexpr int kFwdPhases = 4;
+constexpr int kFwdMaxCtas = 1024;
+__device__ unsigned long long fss_fwd_phase_cycles_dev[kFwdMaxCtas][kFwdPhases];
+#define FWD_PHASE_START()                      \
+  unsigned long long ph[kFwdPhases] = {};      \
+  long long t_last = clock64()
+#define FWD_PHASE(i)                                 \
+  do {                                               \
+    if (tid == 0) {                                  \
+      const long long now = clock64();               \
+      ph[i] += (unsigned long long)(now - t_last);   \
+      t_last = now;                                  \
+    }                                                \
+  } while (0)
+#define FWD_PHASE_END()                                                           \
+  if (tid == 0 && blockIdx.x < kFwdMaxCtas)                                       \
+    for (int i = 0; i < kFwdPhases; ++i) fss_fwd_phase_cycles_dev[blockIdx.x][i] += ph[i]
+#else
+#define FWD_PHASE_START() \
+  do {                    \
+  } while (0)
+#define FWD_PHASE(i) \
+  do {               \
+  } while (0)
+#define FWD_PHASE_END() \
+  do {                  \
+  } while (0)
+#endif
+
+#define FSS_SHARED(name) extern __shared__ float name[]
+#include "pivot_fwd.cuh"
+
+// ---- pivot_dw: staging ---------------------------------------------------
 
 // What one step stages: its query columns c_lo..c_hi and g's tile.
 struct DwStep {
@@ -634,8 +595,13 @@ __global__ void pivot_dw_reduce_kernel(const float* __restrict__ partial,
   out[j] = (float)sum;
 }
 
-size_t fwd_smem_bytes(int ci, int co, int ws) {
-  return sizeof(float) * ((size_t)ci * 18 * co + (size_t)ci * (FWD_THREADS + 2 * (ws + 1)));
+// pivot_fwd's layout for a shape: its support rows a tile and shared bytes.
+FwdLayout fwd_plan_layout(int ci, int co, int hs, int ws) {
+  return fwd_layout(ci, co, ws, fwd_rows(ci, co, hs, ws));
+}
+
+size_t fwd_smem_bytes(int ci, int co, int hs, int ws) {
+  return sizeof(float) * (size_t)fwd_plan_layout(ci, co, hs, ws).floats;
 }
 
 size_t dw_smem_bytes(int ci, int co, int ws) {
@@ -689,19 +655,47 @@ cudaError_t launch_dw(const float* x, const float* g, float* partial, float* out
   return cudaGetLastError();
 }
 
+// pivot_fwd's persistent grid: every CTA the card holds at once, at most
+// one a step. Fills out[4] = {P, support rows a tile, threads, blocks}.
+template <int CO>
+cudaError_t fwd_plan(int batch, int ci, int hq, int wq, int hs, int ws, int* out) {
+  const FwdLayout L = fwd_plan_layout(ci, CO, hs, ws);
+  const size_t smem = sizeof(float) * (size_t)L.floats;
+  if (ci < 1 || smem > (size_t)FWD_MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (smem > DEFAULT_SMEM)
+    err = cudaFuncSetAttribute(pivot_fwd_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  int dev, sms, per_sm;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pivot_fwd_kernel<CO>, L.threads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long steps = (long long)batch * ((hs + L.rows - 1) / L.rows) * hq * wq;
+  const long long grid = (long long)sms * per_sm;
+  out[0] = L.p;
+  out[1] = L.rows;
+  out[2] = L.threads;
+  out[3] = (int)(steps < grid ? steps : grid);
+  return cudaSuccess;
+}
+
 template <int CO>
 cudaError_t launch_fwd(const float* x, const float* w, const float* bias, float* y,
                        int batch, int ci, int hq, int wq, int hs, int ws, int relu,
                        cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(ci, CO, ws);
-  if (smem > DEFAULT_SMEM) {
-    cudaError_t err = cudaFuncSetAttribute(
-        pivot_fwd_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((hs * ws + FWD_THREADS - 1) / FWD_THREADS, hq * wq, batch);
-  pivot_fwd_kernel<CO><<<grid, FWD_THREADS, smem, stream>>>(x, w, bias, y, ci, hq, wq,
-                                                            hs, ws, relu);
+  int plan[4];
+  cudaError_t err = fwd_plan<CO>(batch, ci, hq, wq, hs, ws, plan);
+  if (err != cudaSuccess) return err;
+  if (plan[3] < 1) return cudaSuccess;  // an empty batch
+  const size_t smem = sizeof(float) * (size_t)fwd_layout(ci, CO, ws, plan[1]).floats;
+  // 16-byte copies and vector stores where every row starts 16-byte aligned
+  const int vec = ws % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
+  pivot_fwd_kernel<CO><<<plan[3], plan[2], smem, stream>>>(x, w, bias, y, ci, hq, wq, hs, ws,
+                                                           batch, plan[1], relu, vec);
   return cudaGetLastError();
 }
 
@@ -732,7 +726,9 @@ int fss_pivot_dw_max_ci() { return DW_MAX_CI; }
 
 // Dynamic shared memory per block, in bytes (the wrapper refuses what a
 // Hopper block cannot hold).
-size_t fss_pivot_fwd_smem_bytes(int ci, int co, int ws) { return fwd_smem_bytes(ci, co, ws); }
+size_t fss_pivot_fwd_smem_bytes(int ci, int co, int hs, int ws) {
+  return fwd_smem_bytes(ci, co, hs, ws);
+}
 size_t fss_pivot_dw_smem_bytes(int ci, int co, int ws) { return dw_smem_bytes(ci, co, ws); }
 
 // pivot_dw's grid on the current device (-1 if the card holds no CTA): the
@@ -753,6 +749,14 @@ int fss_pivot_dw_blocks(int batch, int ci, int co, int hq, int wq, int hs, int w
     default: return -1;
   }
 #undef FSS_BLOCKS
+}
+
+// pivot_fwd's launch on the current device into out[4]: positions a thread,
+// support rows a tile, threads a CTA, CTAs. Returns the cudaError_t.
+int fss_pivot_fwd_plan(int batch, int ci, int co, int hq, int wq, int hs, int ws, int* out) {
+#define FSS_PLAN(CO) fwd_plan<CO>(batch, ci, hq, wq, hs, ws, out)
+  FSS_CO_SWITCH(co, FSS_PLAN)
+#undef FSS_PLAN
 }
 
 // y (B, co, Q, S) from x (B, ci, Q, S), w (ci, 18, co), bias (co).
@@ -776,6 +780,21 @@ int fss_pivot_dw(const float* x, const float* g, float* partial, float* out, int
 }
 
 #ifdef FSS_PHASE_CLOCKS
+// pivot_fwd's cycles per phase, summed over the CTAs of the launches since
+// the last call, into out[4]; zeroes them. Returns the cudaError_t.
+int fss_pivot_fwd_phase_cycles(unsigned long long* out) {
+  static unsigned long long rows[kFwdMaxCtas][kFwdPhases];
+  cudaError_t err = cudaMemcpyFromSymbol(rows, fss_fwd_phase_cycles_dev, sizeof(rows));
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < kFwdPhases; ++i) {
+    out[i] = 0;
+    for (int c = 0; c < kFwdMaxCtas; ++c) out[i] += rows[c][i];
+  }
+  for (int c = 0; c < kFwdMaxCtas; ++c)
+    for (int i = 0; i < kFwdPhases; ++i) rows[c][i] = 0;
+  return (int)cudaMemcpyToSymbol(fss_fwd_phase_cycles_dev, rows, sizeof(rows));
+}
+
 // pivot_dw's cycles per phase, summed over the CTAs of the launches since
 // the last call, into out[5]; zeroes them. Returns the cudaError_t.
 int fss_pivot_dw_phase_cycles(unsigned long long* out) {

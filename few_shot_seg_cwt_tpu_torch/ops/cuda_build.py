@@ -3,8 +3,9 @@
 Each kernel source in ``csrc/`` has a plain C interface and is compiled on
 the machine with the card, at first use, into ``build/torch_kernels/``
 (gitignored), then loaded with ``ctypes``. A library's file name carries a
-hash of its source and flags, so a changed source is never served by a
-stale build. ``build`` starts one nvcc per missing library, all at once.
+hash of its source, the ``.cuh`` headers beside it and its flags, so a
+changed source or header is never served by a stale build. ``build``
+starts one nvcc per missing library, all at once.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ def nvcc() -> str:
 def library_path(source: Path, stem: str, defines: Sequence[str] = ()) -> Path:
     flags = " ".join((*NVCC_FLAGS, *defines))
     digest = hashlib.sha256(source.read_bytes() + flags.encode())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{stem}_{digest.hexdigest()[:12]}.so"
 
 

@@ -12,8 +12,9 @@ S = hs*ws support positions,
 with wa, wb (3, 3, Ci, Co) and zero padding. Two hand-written kernels
 (``csrc/pivot.cu``, CUDA C++ for sm_90a, built with nvcc at first use and
 bound with ctypes) take the place of the four Pallas kernels: ``pivot_fwd``
-(K3a and K4a) and ``pivot_dw`` (K3b and K4b, the weight and bias gradient,
-on the tensor cores in 3xTF32 form).
+(K3a and K4a; fp32 on the CUDA cores from a staged query window, a
+persistent grid, ``csrc/pivot_fwd.cuh``) and ``pivot_dw`` (K3b and K4b, the
+weight and bias gradient, on the tensor cores in 3xTF32 form).
 ``pivot_conv_flat`` wraps them in a ``torch.autograd.Function``: dx is
 ``pivot_fwd`` of the ReLU-masked cotangent with spatially flipped,
 (ci, co)-transposed weights, and (dwa, dwb, db) come from ``pivot_dw``.
@@ -37,7 +38,6 @@ from . import cuda_build
 
 _SOURCE = cuda_build.CSRC / "pivot.cu"
 MAX_SMEM_BYTES = 232_448          # shared memory one Hopper block may use
-MAX_GRID_YZ = 65_535              # the forward grids over (S tiles, Q, B)
 
 # Kernel launches by name; a wrapper adds one where it launches its kernel.
 LAUNCHES: Dict[str, int] = {"pivot_fwd": 0, "pivot_dw": 0}
@@ -165,8 +165,10 @@ def load_library(defines: Sequence[str] = ()) -> ctypes.CDLL:
         lib.fss_pivot_dw.restype = i
         lib.fss_pivot_dw_blocks.argtypes = [i] * 7
         lib.fss_pivot_dw_blocks.restype = i
-        lib.fss_pivot_fwd_smem_bytes.argtypes = [i] * 3
+        lib.fss_pivot_fwd_smem_bytes.argtypes = [i] * 4
         lib.fss_pivot_fwd_smem_bytes.restype = ctypes.c_size_t
+        lib.fss_pivot_fwd_plan.argtypes = [i] * 7 + [p]
+        lib.fss_pivot_fwd_plan.restype = i
         lib.fss_pivot_dw_smem_bytes.argtypes = [i] * 3
         lib.fss_pivot_dw_smem_bytes.restype = ctypes.c_size_t
         lib.fss_pivot_max_co.argtypes = []
@@ -192,14 +194,6 @@ def _check_volume(name: str, t: torch.Tensor, dims: Dims) -> None:
         raise ValueError(f"{name}: CUDA tensor expected, got {t.device}")
 
 
-def _check_channels(lib: ctypes.CDLL, co: int, batch: int, dims: Dims) -> None:
-    if not 1 <= co <= lib.fss_pivot_max_co():
-        raise ValueError(f"pivot kernels take 1..{lib.fss_pivot_max_co()} output "
-                         f"channels, got {co}")
-    if batch > MAX_GRID_YZ or dims[0] * dims[1] > MAX_GRID_YZ:
-        raise ValueError(f"batch {batch} / Q {dims[0] * dims[1]} over {MAX_GRID_YZ}")
-
-
 def _raise_on(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
@@ -217,10 +211,20 @@ def flatten_weights(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
 def pivot_fwd(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
               bias: torch.Tensor, dims: Dims, relu: bool = False) -> torch.Tensor:
     """y (B, Co, Q, S) from x (B, Ci, Q, S): the forward kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (any batch; Ci while one support row of its staged window fits
+    a block's shared memory), the plain version on CPU tensors."""
     dims = tuple(int(d) for d in dims)
     if x.device.type == "cpu":
         return pivot_conv_flat_reference(x, wa, wb, bias, dims, relu)
+    y = launch_fwd(load_library(), x, wa, wb, bias, dims, relu)
+    LAUNCHES["pivot_fwd"] += 1
+    return y
+
+
+def launch_fwd(lib: ctypes.CDLL, x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
+               bias: torch.Tensor, dims: Dims, relu: bool = False) -> torch.Tensor:
+    """Check CUDA tensors for the forward kernel of ``lib`` and launch it;
+    ``pivot_fwd`` is the counted entry point."""
     _check_volume("x", x, dims)
     b, ci = x.shape[:2]
     co = wa.shape[-1]
@@ -233,11 +237,12 @@ def pivot_fwd(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
                          f"{tuple(bias.shape)}")
     if {t.device for t in (x, wa, wb, bias)} != {x.device}:
         raise ValueError("pivot_fwd: inputs on several devices")
-    lib = load_library()
-    _check_channels(lib, co, b, dims)
-    smem = lib.fss_pivot_fwd_smem_bytes(ci, co, dims[3])
+    if not 1 <= co <= lib.fss_pivot_max_co():
+        raise ValueError(f"pivot kernels take 1..{lib.fss_pivot_max_co()} output "
+                         f"channels, got {co}")
+    smem = lib.fss_pivot_fwd_smem_bytes(ci, co, dims[2], dims[3])
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"pivot_fwd: {smem} B of shared memory for Ci={ci} "
+        raise ValueError(f"pivot_fwd: {smem} B of shared memory for Ci={ci} Co={co} "
                          f"ws={dims[3]}; a block has {MAX_SMEM_BYTES}")
     w = flatten_weights(wa, wb)
     bias = bias.contiguous()
@@ -247,8 +252,21 @@ def pivot_fwd(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
         err = lib.fss_pivot_fwd(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                                 y.data_ptr(), b, ci, co, *dims, int(bool(relu)), stream)
     _raise_on(lib, "pivot_fwd", err)
-    LAUNCHES["pivot_fwd"] += 1
     return y
+
+
+def fwd_plan(x: torch.Tensor, co: int, dims: Dims) -> Dict[str, int]:
+    """The forward kernel's launch for x (B, Ci, Q, S) on its card: positions
+    a thread, support rows a tile, threads a CTA, CTAs (the persistent
+    grid), shared bytes a CTA."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    b, ci = x.shape[:2]
+    with torch.cuda.device(x.device):
+        _raise_on(lib, "pivot_fwd plan",
+                  lib.fss_pivot_fwd_plan(b, ci, co, *dims, ctypes.addressof(out)))
+    return {"positions": out[0], "rows": out[1], "threads": out[2], "blocks": out[3],
+            "smem": lib.fss_pivot_fwd_smem_bytes(ci, co, dims[2], dims[3])}
 
 
 def pivot_dw(x: torch.Tensor, g: torch.Tensor, dims: Dims

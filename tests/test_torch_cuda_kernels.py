@@ -15,8 +15,9 @@ sum a fixed order whatever the partition). Pivot pair: forward within
 1e-5 * max|y_plain|; gradients held against an fp64 run, at most 4x as far
 from it as the plain fp32 version plus 2e-6 of the scale (the weight
 gradients sum up to 13 M terms, where fp32 order matters; pivot_dw does
-its products on the tensor cores in 3xTF32 form). pivot_dw: two launches
-give equal bits, and the shapes its tiling can get wrong are held too.
+its products on the tensor cores in 3xTF32 form). pivot_dw and pivot_fwd:
+two launches give equal bits, and the shapes their tiling and staging can
+get wrong are held too.
 """
 
 import numpy as np
@@ -261,6 +262,10 @@ def _pivot_grads(fn, x, wa, wb, bias, t, dims, relu, dtype=torch.float32):
     (1, 3, 4, (1, 6, 4, 7)),        # hq = 1
     (1, 1, 4, (5, 6, 4, 7)),        # Ci = 1
     (2, 2, 3, (4, 3, 5, 13)),       # B = 2, odd everything
+    # shapes pivot_fwd's staging and persistent grid can get wrong
+    (2, 10, 10, (60, 60, 60, 60)),  # a batch wider than one at full size
+    (3, 3, 4, (4, 5, 6, 13)),       # ws % 4 != 0 (4-byte copies) with B > 1
+    (1, 1, 10, (5, 7, 6, 11)),      # Ci = 1, Co = 10, ragged
 ] + [(1, 2, co, (3, 4, 3, 9)) for co in range(1, 11)])   # every Co
 @pytest.mark.parametrize("relu", [True, False])
 def test_pivot_kernels_match_plain(device, b, ci, co, dims, relu):
@@ -310,6 +315,20 @@ def test_pivot_dw_gives_the_same_bits_every_launch(device):
         torch.cuda.synchronize()
         for a, b in zip(first, second):
             assert torch.equal(a, b)
+
+
+def test_pivot_fwd_gives_the_same_bits_every_launch(device):
+    """No atomics, a fixed grid and one fmaf chain per output: two launches
+    give equal bits, at 10->10 (P = 2) and 1->10 (one channel)."""
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+
+    dims = (60, 60, 60, 60)
+    for ci, co in ((10, 10), (1, 10)):
+        x, wa, wb, bias, _ = _pivot_inputs(device, 1, ci, co, dims, seed=5)
+        first = cuda_pivot.pivot_fwd(x, wa, wb, bias, dims, True)
+        second = cuda_pivot.pivot_fwd(x, wa, wb, bias, dims, True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 def test_pivot_dw_smem_query_agrees_with_the_wrappers_refusal(device):
@@ -365,6 +384,23 @@ def test_pivot_wrappers_refuse_what_the_kernels_do_not_take(device):
         cuda_pivot.pivot_fwd(x, w11, w11, torch.zeros(11, device=device), dims)
     with pytest.raises(ValueError):
         cuda_pivot.pivot_dw(x, t[:, :, :, :-1].contiguous(), dims)
+    # the forward's staging: one support row of Ci = 41 channels at ws = 60
+    # is over a block's shared memory; Ci = 40 fits and runs
+    lib = cuda_pivot.load_library()
+    for ci, over in ((41, True), (40, False)):
+        small = (1, 2, 1, 60)
+        assert (lib.fss_pivot_fwd_smem_bytes(ci, 4, 1, 60) > cuda_pivot.MAX_SMEM_BYTES) == over
+        x, wa, wb, bias, _ = _pivot_inputs(device, 1, ci, 4, small)
+        before = cuda_pivot.LAUNCHES["pivot_fwd"]
+        if over:
+            with pytest.raises(ValueError, match="shared memory"):
+                cuda_pivot.pivot_fwd(x, wa, wb, bias, small)
+            assert cuda_pivot.LAUNCHES["pivot_fwd"] == before
+        else:
+            y = cuda_pivot.pivot_fwd(x, wa, wb, bias, small)
+            want = cuda_pivot.pivot_conv_flat_reference(x, wa, wb, bias, small)
+            assert float((y - want).abs().max()) <= 1e-5 * float(want.abs().max())
+            assert cuda_pivot.LAUNCHES["pivot_fwd"] == before + 1
 
 
 def test_flat_route_on_cuda_launches_the_pivot_kernels(device, monkeypatch):

@@ -167,10 +167,14 @@ def test_kernel_source_and_build():
 
     src = cuda_build.CSRC.joinpath("pivot.cu").read_text()
     for sym in ("fss_pivot_fwd(", "fss_pivot_dw(", "fss_pivot_dw_blocks(",
-                "fss_pivot_fwd_smem_bytes(", "fss_pivot_dw_smem_bytes(",
+                "fss_pivot_fwd_smem_bytes(", "fss_pivot_dw_smem_bytes(", "fss_pivot_fwd_plan(",
                 "fss_pivot_max_co(", "fss_pivot_dw_max_ci(", "fss_pivot_error_string("):
         assert sym in src, sym
-    assert "atomicAdd" not in src and "atomicCAS" not in src
+    # the forward's body is a header of its own, which the build hash covers
+    assert '#include "pivot_fwd.cuh"' in src
+    fwd = cuda_build.CSRC.joinpath("pivot_fwd.cuh").read_text()
+    for text in (src, fwd):
+        assert "atomicAdd" not in text and "atomicCAS" not in text
     # the weight gradient runs on the tensor cores, split in 3xTF32 form
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
     assert "cvt.rna.tf32.f32" in src
