@@ -1,18 +1,25 @@
 // Runs a CUDA kernel's body on the CPU, so that a test can check its
 // indexing with g++ where there is no card: each CTA's threads run as
-// std::threads, __syncthreads is a std::barrier, and cp.async is a plain
-// copy. It cannot see races between asynchronous copies, nor anything of
-// the card's timing. Compile with -std=c++20 -pthread.
+// std::threads, __syncthreads is a std::barrier, a TMA bulk copy is a plain
+// copy, and an mbarrier counts its arrivals and bytes as the card does. It
+// cannot see races between asynchronous copies and the threads, nor
+// anything of the card's timing. Compile with -std=c++20 -pthread.
 
 #pragma once
 
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
 #include <limits>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -37,6 +44,7 @@ inline thread_local Dim3 thread_idx, block_idx;
 inline Dim3 block_dim, grid_dim;
 inline thread_local std::barrier<>* cta_barrier = nullptr;
 inline thread_local float* cta_smem = nullptr;
+inline void check_bars();
 
 // Run body() as `blocks` CTAs of `threads` threads, one CTA after another,
 // each with `smem_floats` of shared memory filled with NaN (a read of
@@ -60,6 +68,7 @@ void launch(int blocks, int threads, size_t smem_floats, F body) {
         body();
       });
     for (auto& th : pool) th.join();
+    check_bars();
   }
 }
 }  // namespace fss_emu
@@ -86,11 +95,68 @@ inline void __syncthreads() { fss_emu::cta_barrier->arrive_and_wait(); }
 using std::fmaf;
 using std::fmaxf;
 
-// cp.async as a plain copy, zero-filled when !valid.
-inline void cp_async4(float* dst, const float* src, bool valid) { *dst = valid ? *src : 0.f; }
-inline void cp_async16(float* dst, const float* src, bool valid) {
-  for (int i = 0; i < 4; ++i) dst[i] = valid ? src[i] : 0.f;
+// mbarriers with a transaction count, kept beside the emulated shared
+// memory by address: a phase completes when its arrivals are in and the
+// bytes it expects have been copied. A wait that does not end within 10 s,
+// or a launch that ends with bytes outstanding, aborts: the card would hang
+// or race there.
+namespace fss_emu {
+struct Bar {
+  int count = 0, pending = 0;
+  long long tx = 0;
+  unsigned phase = 0;
+};
+inline std::mutex bar_mutex;
+inline std::map<const void*, Bar> bars;
+
+inline void bar_complete(Bar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1;
+    b.pending = b.count;
+  }
 }
-inline void cp_async_commit() {}
-template <int N>
-inline void cp_async_wait() {}
+inline void check_bars() {
+  for (auto& kv : bars)
+    if (kv.second.tx != 0 || kv.second.pending != kv.second.count) {
+      std::fprintf(stderr, "emulated mbarrier left %lld bytes, %d arrivals outstanding\n",
+                   kv.second.tx, kv.second.pending);
+      std::abort();
+    }
+  bars.clear();
+}
+}  // namespace fss_emu
+
+inline void mbar_init(unsigned long long* bar, unsigned count) {
+  std::lock_guard<std::mutex> g(fss_emu::bar_mutex);
+  fss_emu::bars[bar] = {(int)count, (int)count, 0, 0};
+}
+inline void fence_mbar_init() {}
+inline void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> g(fss_emu::bar_mutex);
+  fss_emu::Bar& b = fss_emu::bars.at(bar);
+  b.tx += bytes;
+  --b.pending;
+  fss_emu::bar_complete(b);
+}
+inline void bulk_copy_g2s(float* dst, const float* src, unsigned bytes, unsigned long long* bar) {
+  std::memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> g(fss_emu::bar_mutex);
+  fss_emu::Bar& b = fss_emu::bars.at(bar);
+  b.tx -= bytes;
+  fss_emu::bar_complete(b);
+}
+inline void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const auto until = std::chrono::steady_clock::now() + std::chrono::seconds(10);
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> g(fss_emu::bar_mutex);
+      if (fss_emu::bars.at(bar).phase != parity) return;
+    }
+    if (std::chrono::steady_clock::now() > until) {
+      std::fprintf(stderr, "emulated mbarrier wait timed out (a byte count is wrong)\n");
+      std::abort();
+    }
+    std::this_thread::yield();
+  }
+}
+inline void fence_proxy_async() {}

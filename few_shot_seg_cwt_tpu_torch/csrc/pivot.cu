@@ -224,6 +224,49 @@ __device__ unsigned long long fss_fwd_phase_cycles_dev[kFwdMaxCtas][kFwdPhases];
   } while (0)
 #endif
 
+// TMA bulk copies from global to shared memory that complete on an mbarrier
+// (its transaction count), and the barrier's operations.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Spins until the phase of `parity` completes; traps after ~10 s (a byte
+// count that never completes would otherwise hang the card).
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const long long start = clock64();
+  unsigned done;
+  do {
+    if (clock64() - start > 20000000000LL) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_copy_g2s(float* dst, const float* src, unsigned bytes,
+                                              unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 #define FSS_SHARED(name) extern __shared__ float name[]
 #include "pivot_fwd.cuh"
 
@@ -692,10 +735,10 @@ cudaError_t launch_fwd(const float* x, const float* w, const float* bias, float*
   if (err != cudaSuccess) return err;
   if (plan[3] < 1) return cudaSuccess;  // an empty batch
   const size_t smem = sizeof(float) * (size_t)fwd_layout(ci, CO, ws, plan[1]).floats;
-  // 16-byte copies and vector stores where every row starts 16-byte aligned
-  const int vec = ws % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
+  // bulk copies and vector stores where every row starts 16-byte aligned
+  const int bulk = ws % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
   pivot_fwd_kernel<CO><<<plan[3], plan[2], smem, stream>>>(x, w, bias, y, ci, hq, wq, hs, ws,
-                                                           batch, plan[1], relu, vec);
+                                                           batch, plan[1], relu, bulk);
   return cudaGetLastError();
 }
 

@@ -37,14 +37,24 @@
 //    evenly, step by step, over all CTAs.
 //  - Query window staged once: a ring of FWD_SLOTS query columns in shared
 //    memory, each 3 query rows (qi-1, qi, qi+1) x ci x the tile's support
-//    rows. A step stages only the new column qj+2 for the next step (16-byte
-//    cp.async, 4-byte where ws or the pointers are not aligned), from a
-//    per-CTA row table, while this step computes. So each x value is read
-//    from L2 about 3 times (as rows qi-1, qi, qi+1), never 9.
-//  - The centre row qi is staged with a one-row support halo and zero
-//    columns beside each row, so a support tap is a constant offset with no
-//    edge test. A query row or column outside the plane is never staged:
-//    its taps read a zero region (channel stride 0).
+//    rows. A step stages only the new column qj+2 for the next step, while
+//    this step computes. So each x value is read from L2 about 3 times (as
+//    rows qi-1, qi, qi+1), never 9.
+//  - Staging by TMA: the tile's support rows of one (channel, query row)
+//    are contiguous in x, so each is one bulk copy (cp.async.bulk, ~30 a
+//    column at Ci = 10) that completes on the slot's mbarrier; thread 0
+//    arms it with the column's bytes. The first version issued 16-byte
+//    cp.async per lane (~3,000 a column): issuing them took 9.5-16.6 K
+//    cycles of a 21-25 K-cycle step at Ci = 10 (tools/profile_pivot.py
+//    --fwd --phases), the issue rate growing with the CTA's warps. Where ws
+//    % 4 != 0 or a pointer is not 16-byte aligned, the threads copy rows
+//    themselves.
+//  - Rows are staged without gaps (stride ws rounded up to 4); the centre
+//    row qi carries a one-row support halo, and the taps dv = -1 and +1 at
+//    a row's ends take 0 by a select, so a support tap needs no edge test
+//    in memory. Support rows outside the plane are stored as zeros; a query
+//    row or column outside the plane is never staged: its taps read a zero
+//    region (channel stride 0).
 //  - Outputs blocked in registers: a thread owns P consecutive support
 //    positions of one row (P = 2 for Co > 4, else 4) and all CO accumulators.
 //    Weights sit in shared memory as w[ci][tap][co], co padded to 4, read as
@@ -57,16 +67,15 @@
 //  - y is written once, with the ReLU at the store (float2/float4 stores
 //    where ws % 4 == 0 and y is 16-byte aligned).
 //
-// This header is included by pivot.cu (inside its namespace, after the
-// cp.async helpers) and by pivot_fwd_emulated.cpp, which runs the same
-// kernel on the CPU through cuda_emulation.h. Device intrinsics come from
-// the includer: cp_async16, cp_async4, cp_async_commit, cp_async_wait<N>,
+// This header is included by pivot.cu (inside its namespace) and by
+// pivot_fwd_emulated.cpp, which runs the same kernel on the CPU through
+// cuda_emulation.h. Device intrinsics come from the includer: bulk_copy_g2s,
+// mbar_init, mbar_expect_tx, mbar_wait, fence_mbar_init, fence_proxy_async,
 // __syncthreads, FSS_SHARED, and FWD_PHASE(i) (pivot.cu's -DFSS_PHASE_CLOCKS
 // build adds thread 0's cycles since the last mark to phase i).
 
 constexpr int FWD_THREADS = 256;       // most threads a forward CTA runs
 constexpr int FWD_SLOTS = 4;           // columns staged: the window's 3 and the next
-constexpr int FWD_LEAD = 4;            // a staged row's data starts 16-byte aligned
 constexpr int FWD_MAX_SMEM = 232448;   // shared memory one Hopper block may use
 
 // Support positions a thread owns (consecutive along a support row).
@@ -78,17 +87,15 @@ struct FwdLayout {
   int p, tpr;     // positions a thread; threads' groups a support row
   int rows;       // support rows a tile
   int threads;    // the CTA's threads (a multiple of 32, at most FWD_THREADS)
-  int ldw;        // staged row stride: data at [FWD_LEAD, FWD_LEAD + ws),
-                  // zeros at FWD_LEAD - 1 and from FWD_LEAD + ws to ldw
+  int ld;         // staged row stride: ws rounded up to 4, the tail zero
   int csq, csc;   // channel strides: rows qi -+ 1 (rows rows), the centre
                   // row qi (rows + 2, with the support halo)
   int slot;       // one staged query column: ci * (2 csq + csc)
-  int cop;        // co padded to 4; the weights w[ci][tap][cop] sit at 0
-  int zr;         // the zero region, rows * ldw floats
+  int cop;        // co padded to 4
+  int w;          // the weights w[ci][tap][cop], after the slots' barriers
+  int zr;         // the zero region, rows * ld floats
   int xs;         // the ring of FWD_SLOTS columns
-  int rows_x;     // rows staged for one column: ci * (3 rows + 2)
-  int rowtab;     // the staging table: 3 ints a row
-  int floats;     // all of it
+  int floats;     // all of it, and 4 floats that a row's last tap may read
 };
 
 __host__ __device__ inline FwdLayout fwd_layout(int ci, int co, int ws, int rows) {
@@ -98,16 +105,15 @@ __host__ __device__ inline FwdLayout fwd_layout(int ci, int co, int ws, int rows
   l.rows = rows;
   const int groups = rows * l.tpr;
   l.threads = groups < FWD_THREADS ? (groups + 31) / 32 * 32 : FWD_THREADS;
-  l.ldw = (FWD_LEAD + l.tpr * l.p + 1 + 3) / 4 * 4;
-  l.csq = rows * l.ldw;
-  l.csc = (rows + 2) * l.ldw;
+  l.ld = (ws + 3) / 4 * 4;
+  l.csq = rows * l.ld;
+  l.csc = (rows + 2) * l.ld;
   l.slot = ci * (2 * l.csq + l.csc);
   l.cop = (co + 3) / 4 * 4;
-  l.zr = ci * 18 * l.cop;
-  l.xs = l.zr + rows * l.ldw;
-  l.rows_x = ci * (3 * rows + 2);
-  l.rowtab = l.xs + FWD_SLOTS * l.slot;
-  l.floats = l.rowtab + 3 * l.rows_x;
+  l.w = 2 * FWD_SLOTS;  // FWD_SLOTS 8-byte mbarriers
+  l.zr = l.w + ci * 18 * l.cop;
+  l.xs = l.zr + rows * l.ld;
+  l.floats = l.xs + FWD_SLOTS * l.slot + 4;
   return l;
 }
 
@@ -159,32 +165,56 @@ struct FwdStep {
   int b, qi, qj, u0;
 };
 
-// Stage query column qc of step st (3 query rows x ci channels x the tile's
-// rows, the centre row with its halo) into its ring slot: half a warp a row,
-// each row's source and destination from the CTA's table. Query rows outside
-// the plane are skipped (never read); support rows outside it are zero-filled.
-__device__ __forceinline__ void fwd_stage(const FwdLayout& L, float* smem, const float* x,
+// Stage query column qc of step st into its ring slot: for each channel,
+// query row qi (with the one-row support halo) and rows qi -+ 1, the tile's
+// support rows that lie in the plane. With `bulk` (ws % 4 == 0 and 16-byte
+// aligned pointers) each (channel, query row) is one contiguous run of
+// support rows, copied by one TMA bulk copy (cp.async.bulk) that completes
+// on the slot's mbarrier, armed by thread 0 with the column's bytes;
+// otherwise threads copy whole rows themselves. Rows outside the support
+// plane are written as zeros; query rows outside the plane are skipped
+// (their taps read the zero region).
+__device__ __forceinline__ void fwd_stage(const FwdLayout& L, float* smem,
+                                          unsigned long long* bar, const float* x,
                                           const FwdStep& st, int qc, int ci_n, int hq,
-                                          int wq, int hs, int ws, bool vec) {
-  const int* tab = reinterpret_cast<const int*>(smem + L.rowtab);
-  const int half = (int)threadIdx.x >> 4, l16 = (int)threadIdx.x & 15;
+                                          int wq, int hs, int ws, bool bulk) {
+  const int tid = (int)threadIdx.x, rows = L.rows, u0 = st.u0;
   const long long S = (long long)hs * ws, QS = (long long)hq * wq * S;
   float* slot = smem + L.xs + (qc % FWD_SLOTS) * L.slot;
-  const float* col =
-      x + (st.b * (long long)ci_n * hq * wq + (long long)st.qi * wq + qc) * S + (long long)st.u0 * ws;
-  for (int j = half; j < L.rows_x; j += L.threads >> 4) {
-    const int* e = tab + 3 * j;
-    const int rr = e[2] & 3, uu = (e[2] >> 2) - 1;
-    const int qrow = st.qi + rr - 1, u = st.u0 + uu;
-    if (qrow < 0 || qrow >= hq) continue;
-    const bool in = u >= 0 && u < hs;
-    const float* src = in ? col + e[1] * QS + (rr - 1) * (long long)wq * S + (long long)uu * ws : x;
-    float* dst = slot + e[0];
-    if (vec) {
-      for (int v = 4 * l16; v < ws; v += 64) cp_async16(dst + v, in ? src + v : x, in);
-    } else {
-      for (int v = l16; v < ws; v += 16) cp_async4(dst + v, in ? src + v : x, in);
+  const float* col = x + (st.b * (long long)ci_n * hq * wq + (long long)st.qi * wq + qc) * S;
+  const int lo_o = u0, hi_o = u0 + rows < hs ? u0 + rows : hs;          // rows in the plane
+  const int lo_c = u0 > 0 ? u0 - 1 : 0, hi_c = u0 + rows + 1 < hs ? u0 + rows + 1 : hs;
+  const int rr_lo = st.qi > 0 ? 0 : 1, rr_hi = st.qi + 1 < hq ? 2 : 1;   // query rows in the plane
+  if (bulk) {
+    if (tid == 0) {
+      const int n = (rr_hi - rr_lo) * (hi_o - lo_o) + (hi_c - lo_c);  // rows, all channels
+      mbar_expect_tx(bar + qc % FWD_SLOTS, (unsigned)(n * ci_n * ws * 4));
     }
+    fence_proxy_async();
+    for (int j = tid; j < 3 * ci_n; j += L.threads) {
+      const int c = j / 3, rr = j - 3 * c;
+      if (rr < rr_lo || rr > rr_hi) continue;
+      const bool centre = rr == 1;
+      const int lo = centre ? lo_c : lo_o, hi = centre ? hi_c : hi_o;
+      float* dst = slot + (rr == 0 ? 0 : (centre ? ci_n * L.csq : ci_n * (L.csq + L.csc))) +
+                   c * (centre ? L.csc : L.csq) + (lo - (centre ? u0 - 1 : u0)) * L.ld;
+      bulk_copy_g2s(dst, col + c * QS + (rr - 1) * (long long)wq * S + (long long)lo * ws,
+                    (unsigned)((hi - lo) * ws * 4), bar + qc % FWD_SLOTS);
+    }
+  }
+  // row by row: every row without `bulk`; only the rows outside the plane with it
+  const int per = 3 * (rows + 2);
+  for (int j = tid; j < ci_n * per; j += L.threads) {
+    const int c = j / per, rr = (j - c * per) / (rows + 2), ur = j - c * per - rr * (rows + 2);
+    const bool centre = rr == 1;
+    if (rr < rr_lo || rr > rr_hi || (!centre && ur >= rows)) continue;
+    const int u = (centre ? u0 - 1 : u0) + ur;
+    const bool in = u >= 0 && u < hs;
+    if (bulk && in) continue;
+    float* dst = slot + (rr == 0 ? 0 : (centre ? ci_n * L.csq : ci_n * (L.csq + L.csc))) +
+                 c * (centre ? L.csc : L.csq) + ur * L.ld;
+    const float* src = col + c * QS + (rr - 1) * (long long)wq * S + (long long)u * ws;
+    for (int v = 0; v < ws; ++v) dst[v] = in ? src[v] : 0.f;
   }
 }
 
@@ -192,11 +222,12 @@ template <int CO>
 __global__ void __launch_bounds__(FWD_THREADS)
 pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ y, int ci_n, int hq,
-                 int wq, int hs, int ws, int batch, int rows, int relu, int vec) {
+                 int wq, int hs, int ws, int batch, int rows, int relu, int bulk) {
   constexpr int P = fwd_p(CO);
   constexpr int COP = (CO + 3) / 4 * 4;
   FSS_SHARED(smem);
   const FwdLayout L = fwd_layout(ci_n, CO, ws, rows);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
   const int tid = (int)threadIdx.x;
   const long long S = (long long)hs * ws, Q = (long long)hq * wq;
   const int tiles = (hs + rows - 1) / rows;
@@ -219,29 +250,29 @@ pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     st.b = (int)(r / tiles);
     return st;
   };
+  // Every bulk staging of a slot is waited on once, at the start of the
+  // step that first reads it: `pend` holds the slots with copies in flight,
+  // `parity` each slot barrier's phase to wait for (the same in all threads).
+  unsigned pend = 0, parity = 0;
+  auto stage = [&](const FwdStep& st, int qc) {
+    fwd_stage(L, smem, bar, x, st, qc, ci_n, hq, wq, hs, ws, bulk);
+    if (bulk) pend |= 1u << (qc % FWD_SLOTS);
+  };
   auto stage_window = [&](const FwdStep& st) {  // a fresh run's first step
-    for (int qc = st.qj > 0 ? st.qj - 1 : 0; qc <= st.qj + 1 && qc < wq; ++qc)
-      fwd_stage(L, smem, x, st, qc, ci_n, hq, wq, hs, ws, vec);
+    for (int qc = st.qj > 0 ? st.qj - 1 : 0; qc <= st.qj + 1 && qc < wq; ++qc) stage(st, qc);
   };
 
-  // the weights (co padded with zeros), the zero region and the ring (halo
-  // columns and padding stay zero), and the staging table: destination in
-  // the slot, channel, (query row 0-2, support row + 1)
-  for (int i = tid; i < L.zr; i += L.threads) {
+  // the slots' barriers, the weights (co padded with zeros), the zero
+  // region and the ring (row tails stay zero)
+  if (tid == 0) {
+    for (int i = 0; i < FWD_SLOTS; ++i) mbar_init(bar + i, 1);
+    fence_mbar_init();
+  }
+  for (int i = tid; i < L.zr - L.w; i += L.threads) {
     const int co = i % COP;
-    smem[i] = co < CO ? w[(i / COP) * CO + co] : 0.f;
+    smem[L.w + i] = co < CO ? w[(i / COP) * CO + co] : 0.f;
   }
-  for (int i = L.zr + tid; i < L.rowtab; i += L.threads) smem[i] = 0.f;
-  int* tab = reinterpret_cast<int*>(smem + L.rowtab);
-  for (int j = tid; j < L.rows_x; j += L.threads) {
-    const int c = j / (3 * rows + 2), kk = j - c * (3 * rows + 2);
-    const int rr = kk < rows ? 0 : (kk < 2 * rows + 2 ? 1 : 2);
-    const int uu = rr == 0 ? kk : (rr == 1 ? kk - rows - 1 : kk - 2 * rows - 2);
-    const int roff = rr == 0 ? 0 : (rr == 1 ? ci_n * L.csq : ci_n * (L.csq + L.csc));
-    tab[3 * j] = roff + c * (rr == 1 ? L.csc : L.csq) + (rr == 1 ? uu + 1 : uu) * L.ldw + FWD_LEAD;
-    tab[3 * j + 1] = c;
-    tab[3 * j + 2] = rr | ((uu + 1) << 2);
-  }
+  for (int i = L.zr + tid; i < L.floats; i += L.threads) smem[i] = 0.f;
   float bv[CO];
 #pragma unroll
   for (int co = 0; co < CO; ++co) bv[co] = bias[co];
@@ -253,23 +284,24 @@ pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // step i's compute, whose slots it may reuse.
   FWD_PHASE_START();
   FwdStep cur = step_at(0);
-  if (n_steps > 0) {
-    stage_window(cur);
-    cp_async_commit();
-  }
+  if (n_steps > 0) stage_window(cur);
   for (long long i = 0; i < n_steps; ++i) {
     const bool has_next = i + 1 < n_steps;
     const FwdStep nxt = has_next ? step_at(i + 1) : cur;
     const bool fresh = has_next && (i + 1 == n_full || nxt.qj == 0);
-    if (has_next && !fresh) {
-      if (nxt.qj + 1 < wq) fwd_stage(L, smem, x, nxt, nxt.qj + 1, ci_n, hq, wq, hs, ws, vec);
-      cp_async_commit();
-      FWD_PHASE(0);
-      cp_async_wait<1>();
-    } else {
-      FWD_PHASE(0);
-      cp_async_wait<0>();
+    unsigned ahead = 0;  // the slot staged for the next step: not waited on now
+    if (has_next && !fresh && nxt.qj + 1 < wq) {
+      stage(nxt, nxt.qj + 1);
+      ahead = 1u << ((nxt.qj + 1) % FWD_SLOTS);
     }
+    FWD_PHASE(0);
+#pragma unroll
+    for (int sl = 0; sl < FWD_SLOTS; ++sl)
+      if ((pend & ~ahead) >> sl & 1) {
+        mbar_wait(bar + sl, parity >> sl & 1);
+        parity ^= 1u << sl;
+      }
+    pend &= ahead;
     __syncthreads();
     FWD_PHASE(1);
 
@@ -281,20 +313,21 @@ pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int ii = cur.qi + dh, jj = cur.qj + dw;
       if (ii >= 0 && ii < hq && jj >= 0 && jj < wq) {
         qb[t] = L.xs + (jj % FWD_SLOTS) * L.slot +
-                (dh < 0 ? 0 : (dh == 0 ? ci_n * L.csq + L.ldw : ci_n * (L.csq + L.csc)));
+                (dh < 0 ? 0 : (dh == 0 ? ci_n * L.csq + L.ld : ci_n * (L.csq + L.csc)));
         qcs[t] = dh == 0 ? L.csc : L.csq;
       } else {
         qb[t] = L.zr;
         qcs[t] = 0;
       }
     }
-    const int cb = L.xs + (cur.qj % FWD_SLOTS) * L.slot + ci_n * L.csq + L.ldw;
+    const int cb = L.xs + (cur.qj % FWD_SLOTS) * L.slot + ci_n * L.csq + L.ld;
 
     for (int grp = tid; grp < rows * L.tpr; grp += L.threads) {
       const int ul = grp / L.tpr, v0 = (grp - ul * L.tpr) * P;
       const int u = cur.u0 + ul;
       if (u >= hs) break;
-      const int toff = ul * L.ldw + FWD_LEAD + v0;
+      const int toff = ul * L.ld + v0;
+      const bool left = v0 > 0, right = v0 + P < ws;  // support neighbours in the plane
       float acc[P][CO];
 #pragma unroll
       for (int p = 0; p < P; ++p)
@@ -302,7 +335,7 @@ pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int co = 0; co < CO; ++co) acc[p][co] = bv[co];
 
       for (int c = 0; c < ci_n; ++c) {
-        const float* wc = smem + c * 18 * COP;
+        const float* wc = smem + L.w + c * 18 * COP;
 #pragma unroll
         for (int t = 0; t < 9; ++t) {  // query plane: the staged window
           float xv[P], wv[COP];
@@ -317,11 +350,11 @@ pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const float* cr = smem + cb + c * L.csc + toff;
 #pragma unroll
         for (int du = 0; du < 3; ++du) {  // support plane: the centre row's halo
-          const float* r = cr + (du - 1) * L.ldw;
+          const float* r = cr + (du - 1) * L.ld;
           float xv[P + 2];
-          xv[0] = r[-1];
+          xv[0] = left ? r[-1] : 0.f;
           fwd_load<P>(r, xv + 1);
-          xv[P + 1] = r[P];
+          xv[P + 1] = right ? r[P] : 0.f;
 #pragma unroll
           for (int dv = 0; dv < 3; ++dv) {
             float wv[COP];
@@ -343,7 +376,7 @@ pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int p = 0; p < P; ++p) out[p] = relu ? fmaxf(acc[p][co], 0.f) : acc[p][co];
         float* yo = yb + co * Q * S;
-        if (vec) {
+        if (bulk) {
           fwd_store<P>(yo, out);
         } else {
 #pragma unroll
@@ -354,10 +387,7 @@ pivot_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
     __syncthreads();  // the next step's copy overwrites this step's oldest column
     FWD_PHASE(2);
-    if (fresh) {
-      stage_window(nxt);
-      cp_async_commit();
-    }
+    if (fresh) stage_window(nxt);
     FWD_PHASE(3);
     cur = nxt;
   }

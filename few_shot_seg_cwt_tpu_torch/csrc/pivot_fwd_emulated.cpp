@@ -15,9 +15,9 @@ void run(const float* x, const float* w, const float* bias, float* y, int batch,
          int hq, int wq, int hs, int ws, int relu, int blocks) {
   const int rows = fwd_rows(ci, CO, hs, ws);
   const FwdLayout L = fwd_layout(ci, CO, ws, rows);
-  const int vec = ws % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
+  const int bulk = ws % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
   fss_emu::launch(blocks, L.threads, L.floats, [&] {
-    pivot_fwd_kernel<CO>(x, w, bias, y, ci, hq, wq, hs, ws, batch, rows, relu, vec);
+    pivot_fwd_kernel<CO>(x, w, bias, y, ci, hq, wq, hs, ws, batch, rows, relu, bulk);
   });
 }
 

@@ -264,7 +264,7 @@ def _pivot_grads(fn, x, wa, wb, bias, t, dims, relu, dtype=torch.float32):
     (2, 2, 3, (4, 3, 5, 13)),       # B = 2, odd everything
     # shapes pivot_fwd's staging and persistent grid can get wrong
     (2, 10, 10, (60, 60, 60, 60)),  # a batch wider than one at full size
-    (3, 3, 4, (4, 5, 6, 13)),       # ws % 4 != 0 (4-byte copies) with B > 1
+    (3, 3, 4, (4, 5, 6, 13)),       # ws % 4 != 0 (rows copied by the threads), B > 1
     (1, 1, 10, (5, 7, 6, 11)),      # Ci = 1, Co = 10, ragged
 ] + [(1, 2, co, (3, 4, 3, 9)) for co in range(1, 11)])   # every Co
 @pytest.mark.parametrize("relu", [True, False])
@@ -384,10 +384,10 @@ def test_pivot_wrappers_refuse_what_the_kernels_do_not_take(device):
         cuda_pivot.pivot_fwd(x, w11, w11, torch.zeros(11, device=device), dims)
     with pytest.raises(ValueError):
         cuda_pivot.pivot_dw(x, t[:, :, :, :-1].contiguous(), dims)
-    # the forward's staging: one support row of Ci = 41 channels at ws = 60
-    # is over a block's shared memory; Ci = 40 fits and runs
+    # the forward's staging: one support row of Ci = 46 channels at ws = 60
+    # is over a block's shared memory; Ci = 45 fits and runs
     lib = cuda_pivot.load_library()
-    for ci, over in ((41, True), (40, False)):
+    for ci, over in ((46, True), (45, False)):
         small = (1, 2, 1, 60)
         assert (lib.fss_pivot_fwd_smem_bytes(ci, 4, 1, 60) > cuda_pivot.MAX_SMEM_BYTES) == over
         x, wa, wb, bias, _ = _pivot_inputs(device, 1, ci, 4, small)

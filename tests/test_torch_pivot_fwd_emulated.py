@@ -2,7 +2,8 @@
 
 ``csrc/pivot_fwd.cuh`` (the kernel the card runs) is compiled with g++
 through ``csrc/cuda_emulation.h``: each CTA's threads run as std::threads,
-``__syncthreads`` is a std::barrier and ``cp.async`` a plain copy. At tiny
+``__syncthreads`` is a std::barrier, a TMA bulk copy a plain copy, and each
+mbarrier counts arrivals and bytes (a wrong byte count aborts). At tiny
 ragged shapes, on a few CTAs (so that the persistent grid's round-robin
 units and the even split of the rest both occur), its output must equal
 the per-output fmaf chain it keeps (``fss_pivot_fwd_chain``, the order of
@@ -56,9 +57,10 @@ def _plan(lib, ci, co, hs, ws):
 
 @pytest.mark.parametrize("b,ci,co,dims,blocks,relu", [
     (2, 3, 4, (5, 6, 4, 7), 3, True),      # every plane edge distinct; rest split mid-row
-    (1, 10, 1, (3, 4, 13, 60), 5, False),  # rows cut by shared memory: 3 tiles; 16-byte copies
-    (1, 2, 10, (3, 3, 11, 60), 4, True),   # P = 2, 256 threads, a partial last tile
-    (2, 1, 10, (3, 4, 5, 13), 2, False),   # Ci = 1, B = 2, 4-byte copies
+    (2, 10, 1, (2, 3, 13, 60), 9, False),  # rows cut by shared memory: 2 tiles; bulk copies;
+                                           # 9 CTAs, 8 units: runs cross qi, tile and b
+    (1, 2, 10, (3, 3, 23, 60), 4, True),   # Co = 10, 256 threads, a partial last tile
+    (2, 1, 10, (3, 4, 5, 13), 2, False),   # Ci = 1, B = 2, rows copied by the threads
 ])
 def test_emulated_kernel_gives_the_chain_and_the_plain_values(lib, b, ci, co, dims, blocks,
                                                               relu):
@@ -82,13 +84,13 @@ def test_emulated_kernel_gives_the_chain_and_the_plain_values(lib, b, ci, co, di
 
 def test_layout_fits_the_main_path_and_refuses_what_a_block_cannot_hold(lib):
     """At 473 px every call of the MMN path fits a block, with the rows a
-    tile, positions a thread and CTA size the design gives; Ci = 41 at
+    tile, positions a thread and CTA size the design gives; Ci = 46 at
     ws = 60 does not fit even one support row (the wrapper refuses it)."""
-    want = {(2, 10): (2, 8, 256), (10, 10): (2, 6, 192), (10, 1): (4, 6, 96),
-            (10, 2): (4, 6, 96), (1, 10): (2, 8, 256)}
+    want = {(2, 10): (2, 8, 256), (10, 10): (2, 7, 224), (10, 1): (4, 7, 128),
+            (10, 2): (4, 7, 128), (1, 10): (2, 8, 256)}
     for (ci, co), (p, rows, threads) in want.items():
         plan = _plan(lib, ci, co, 60, 60)
         assert plan["smem"] <= MAX_SMEM_BYTES
         assert (plan["positions"], plan["rows"], plan["threads"]) == (p, rows, threads)
-    assert _plan(lib, 40, 4, 1, 60)["smem"] <= MAX_SMEM_BYTES < _plan(lib, 41, 4, 1, 60)["smem"]
+    assert _plan(lib, 45, 4, 1, 60)["smem"] <= MAX_SMEM_BYTES < _plan(lib, 46, 4, 1, 60)["smem"]
     assert _plan(lib, 3, 4, 2, 7)["rows"] == 2     # at most hs rows a tile
