@@ -255,20 +255,6 @@ def launch_fwd(lib: ctypes.CDLL, x: torch.Tensor, wa: torch.Tensor, wb: torch.Te
     return y
 
 
-def fwd_plan(x: torch.Tensor, co: int, dims: Dims) -> Dict[str, int]:
-    """The forward kernel's launch for x (B, Ci, Q, S) on its card: positions
-    a thread, support rows a tile, threads a CTA, CTAs (the persistent
-    grid), shared bytes a CTA."""
-    lib = load_library()
-    out = (ctypes.c_int * 4)()
-    b, ci = x.shape[:2]
-    with torch.cuda.device(x.device):
-        _raise_on(lib, "pivot_fwd plan",
-                  lib.fss_pivot_fwd_plan(b, ci, co, *dims, ctypes.addressof(out)))
-    return {"positions": out[0], "rows": out[1], "threads": out[2], "blocks": out[3],
-            "smem": lib.fss_pivot_fwd_smem_bytes(ci, co, dims[2], dims[3])}
-
-
 def pivot_dw(x: torch.Tensor, g: torch.Tensor, dims: Dims
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dwa, dwb, db) of the pivot pair for input x (B, Ci, Q, S) and

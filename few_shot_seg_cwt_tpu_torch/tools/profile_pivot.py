@@ -23,12 +23,14 @@ zero bias, no ReLU), against its plain version (two cuDNN conv2d, TF32
 off), with each time's share of the bound (the larger of bytes over
 3.35 TB/s and the operations at the lesser of fp32 and 3xTF32, as in
 ``chip_smoke.py``) and of the fp32 FMA floor on the CUDA cores, and the
-launch plan (``--phases``: its cycles a step and CTA per phase, from a
-``-DFSS_PHASE_CLOCKS`` build). ``--against PATH`` (a ``pivot.cu``, built here with the same
-flags, or a built library) also runs that library's ``fss_pivot_fwd`` on
-the same inputs: its time, and whether it gives the same values
-(``torch.equal``). The last line is one JSON object with all of it. Needs
-one CUDA card.
+launch plan; with ``--phases``, its cycles a step and CTA per phase from a
+``-DFSS_PHASE_CLOCKS`` build: issuing the next column's copies, waiting for
+this step's, computing and storing, staging a fresh run's window.
+``--against PATH`` (a ``pivot.cu``, built here with the same flags, or a
+built library) also runs that library's ``fss_pivot_fwd`` on the same
+inputs, in turns with this one: its time, and whether it gives the same
+values (``torch.equal``). The last line is one JSON object with all of it.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -114,6 +116,20 @@ def load_against(path: str) -> ctypes.CDLL:
     return lib
 
 
+def fwd_plan(x: torch.Tensor, co: int) -> dict:
+    """pivot_fwd's launch for x (B, Ci, Q, S) at DIMS on its card: positions
+    a thread, support rows a tile, threads a CTA, CTAs, shared bytes a CTA."""
+    lib = cuda_pivot.load_library()
+    out = (ctypes.c_int * 4)()
+    b, ci = x.shape[:2]
+    with torch.cuda.device(x.device):
+        err = lib.fss_pivot_fwd_plan(b, ci, co, *DIMS, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fss_pivot_fwd_plan failed ({err})")
+    return {"positions": out[0], "rows": out[1], "threads": out[2], "blocks": out[3],
+            "smem": lib.fss_pivot_fwd_smem_bytes(ci, co, DIMS[2], DIMS[3])}
+
+
 def fwd_phase_cycles(x, wa, wb, bias, relu: bool, co: int, reps: int, y):
     """pivot_fwd's cycles a step and CTA per phase, from the instrumented
     build; and whether it gives the main build's values ``y``."""
@@ -129,7 +145,7 @@ def fwd_phase_cycles(x, wa, wb, bias, relu: bool, co: int, reps: int, y):
                  warmup=0)
     if lib.fss_pivot_fwd_phase_cycles(cycles) != 0:
         raise RuntimeError("fss_pivot_fwd_phase_cycles failed")
-    rows = cuda_pivot.fwd_plan(x, co, DIMS)["rows"]
+    rows = fwd_plan(x, co)["rows"]
     steps = x.shape[0] * DIMS[0] * DIMS[1] * -(-DIMS[2] // rows)   # (b, tile, qi, qj)
     per_step = cycles.astype(np.float64) / reps / steps
     total = per_step.sum()
@@ -163,7 +179,7 @@ def profile_fwd(reps: int, card: str, against, phases: bool = False) -> list:
         b_ms, b_by, fp32_ms = fwd_bounds(ci, co, q, s)
         row = {"call": name, "ci": ci, "co": co, "bound_ms": b_ms, "bound_by": b_by,
                "fp32_floor_ms": fp32_ms, "max_abs_diff_vs_plain": err,
-               "scale": float(y.abs().max()), "plan": cuda_pivot.fwd_plan(x, co, DIMS)}
+               "scale": float(y.abs().max()), "plan": fwd_plan(x, co)}
         if against is None:
             row["ms_runs"] = [cuda_ms(fwd, reps)]
         else:   # in turns: the second library, this one, this one, the second

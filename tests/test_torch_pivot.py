@@ -178,9 +178,27 @@ def test_kernel_source_and_build():
     # the weight gradient runs on the tensor cores, split in 3xTF32 form
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
     assert "cvt.rna.tf32.f32" in src
-    assert "wgmma.mma_async" not in src and "cp.async.bulk" not in src   # no wgmma, no TMA
+    assert "wgmma.mma_async" not in src                                 # no wgmma
+    # the forward stages its query window by TMA bulk copies on mbarriers
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
     path = cuda_build.library_path(*cuda_pivot.build_spec())
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
+
+
+def test_library_path_covers_the_headers_beside_a_source(tmp_path):
+    """A kernel source includes ``.cuh`` headers from its directory (pivot.cu
+    includes pivot_fwd.cuh): editing one must change the library's name, so
+    a stale build is never loaded."""
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_build
+
+    src = tmp_path / "k.cu"
+    src.write_text('#include "k_body.cuh"\n')
+    header = tmp_path / "k_body.cuh"
+    header.write_text("// one body\n")
+    first = cuda_build.library_path(src, "libk")
+    assert cuda_build.library_path(src, "libk") == first
+    header.write_text("// another body\n")
+    assert cuda_build.library_path(src, "libk") != first
 
 
 # --------------------------------------------------------------------------- #
