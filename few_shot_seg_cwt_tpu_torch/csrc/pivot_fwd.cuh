@@ -23,8 +23,9 @@
 // The others are bound by bytes: each x value should come from device
 // memory about once, and y be written once.
 //
-// The design (the PR 2 kernel read x about ten times through L1/L2, nine
-// query taps straight from global memory, and did one shared load per FMA):
+// The design (the previous forward kernel read x about ten times through
+// L1/L2, nine query taps straight from global memory, and did one shared
+// load per FMA):
 //  - Work: a step is (b, support tile of `rows` whole support rows, query row
 //    qi, query column qj); the CTA computes y at q = (qi, qj) for the tile's
 //    rows * ws support positions. Steps are numbered with qj fastest, then
@@ -60,7 +61,7 @@
 //    Weights sit in shared memory as w[ci][tap][co], co padded to 4, read as
 //    float4 broadcasts, each feeding P FMAs; the P + 2 x values of a support
 //    row feed its three taps dv = -1, 0, +1.
-//  - The per-output chain is the PR 2 kernel's: acc = bias, then for each ci
+//  - The per-output chain is the previous kernel's: acc = bias, then for each ci
 //    the 9 query taps and then the 9 support taps, with fmaf. A tap outside
 //    the plane adds w * 0, so the values equal that kernel's up to the sign
 //    of zero, and every launch gives the same bits (no atomics).

@@ -7,10 +7,11 @@ mbarrier counts arrivals and bytes (a wrong byte count aborts). At tiny
 ragged shapes, on a few CTAs (so that the persistent grid's round-robin
 units and the even split of the rest both occur), its output must equal
 the per-output fmaf chain it keeps (``fss_pivot_fwd_chain``, the order of
-the PR 2 kernel) up to the sign of zero, and lie within 1e-5 * max|y| of
-the plain version (``pivot_conv_flat_reference``, two conv2d; another
-summation order). The emulation cannot see races between the card's
-asynchronous copies, nor its timing. Skips only where g++ is missing.
+the previous forward kernel) up to the sign of zero, and lie within
+1e-5 * max|y| of the plain version (``pivot_conv_flat_reference``, two
+conv2d; another summation order). The emulation cannot see races between
+the card's asynchronous copies, nor its timing. Skips only where g++ is
+missing.
 """
 
 import ctypes
