@@ -102,26 +102,23 @@ _DEFAULTS: Dict[str, Any] = {
     "adapt_iter": 200,
     "inner_loss_type": "wt_ce",
     "loss_shot": "avg",        # k-shot loss aggregation: 'avg' | 'sum'
-    "shot_tile": 1,            # k-shot MMN scan chunk: shots vmapped per
-                               # lax.map step (memory x tile, chain / tile);
-                               # must divide shot, else sequential
-    "shot_native": False,      # k-shot MMN: batch all shots through the
-                               # consensus route's native B axis (rank-4
-                               # tensors stay rank-4 — no vmap/rank-5
-                               # layouts, no per-shot remat recompute);
+    "shot_tile": 1,            # k-shot MMN: shots a chunk of the per-shot
+                               # map (memory x tile); must divide shot,
+                               # else one shot at a time
+    "shot_native": False,      # k-shot MMN: all shots through one head
+                               # apply (no per-shot map or recompute);
                                # costs shot x the volume activations
-    "shot_hoist_query": True,  # k-shot MMN: compute the shot-invariant
-                               # query-side rd/WeightAverage prep ONCE
-                               # outside the per-shot scan (vs 2 x shot
-                               # applies under the shot checkpoint). Exact
-                               # in deterministic mode; in training the
-                               # query branch shares one dropout draw
-                               # across shots (reference redraws per shot)
-    "shot_remat": True,        # checkpoint each mapped shot (activations
-                               # bounded to one shot; one recomputed fwd
-                               # per shot in the bwd). False: memory x shot
-                               # for ~26 ms/shot bf16 back (BENCH.md r5)
-    "use_amp": False,          # reference AMP flag; maps to bf16 compute here
+    "shot_hoist_query": True,  # k-shot MMN: the shot-invariant query-side
+                               # rd/WeightAverage prep runs ONCE outside the
+                               # per-shot map. Exact in deterministic mode;
+                               # in training the query branch shares one
+                               # dropout draw across shots (the reference
+                               # redraws per shot)
+    "shot_remat": True,        # checkpoint each chunk of the per-shot map
+                               # (activations bounded to one chunk; one
+                               # recomputed forward per chunk in the bwd)
+    "use_amp": False,          # reference AMP flag: bf16 backbone, and bf16
+                               # head compute in the head train step
     "tp": 1.0,                 # Adapt_SegLoss weight exponent
     # ---- model ----
     "arch": "resnet",
@@ -198,21 +195,14 @@ _DEFAULTS: Dict[str, Any] = {
     "episode_batch": 8,        # episodes vmapped per device step (eval)
     "compute_dtype": "float32",  # 'float32' | 'bfloat16'
     "bf16_stages": None,       # mixed policy: 'all' or e.g. 'stem,layer1,layer2'
-    "remat_head": None,        # recompute head activations in backward.
-                               # None = per-head default (episodic/heads.py):
-                               # the NeighConsensus heads' per-block remat
-                               # already bounds the ~2 GB/episode volume
-                               # activations, so the outer recompute is
-                               # redundant there (+36% measured when off);
-                               # CHM's 4D/6D convs still need it
+    "remat_head": None,        # recompute head activations in backward
+                               # (JAX package knob; the port's MMN head
+                               # bounds its volumes by the per-block and
+                               # per-shot checkpoints instead)
     "remat_blocks": None,      # per-block remat inside NeighConsensus.
                                # None = route default (models/matching.py
                                # block_remat_default): off on the rank-4
-                               # consensus route (the recompute costs ~25%
-                               # of the step; the 473px mmn train step fits
-                               # without it — 13.7 GB fp32 / 8.1 GB bf16
-                               # measured at batch 4, incl. wa), on for the
-                               # 6D fallback (historical bounding behavior)
+                               # consensus route, on for the flat route
     "eval_episode_tile": 1,    # head/CCA eval + serving: episodes vmapped
                                # per lax.map step (1 = fully sequential, the
                                # rank-4-route-safe default at 473px; rank-5

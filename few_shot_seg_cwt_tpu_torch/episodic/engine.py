@@ -23,6 +23,11 @@ transformer as ``nn.Module``s on its device, in eval mode. The meta-train
 step (``make_train_step``) trains the transformer alone: the backbone is
 frozen, and the transformer is in train mode (dropout live) only inside
 the step's loss, so evaluation between steps runs without dropout.
+
+Under a bf16 stage policy (``compute_dtype bfloat16``, ``use_amp`` or
+``bf16_stages``; ``models.pspnet.stage_dtype_policy``) the backbone runs in
+its stages' dtypes and the features come back to fp32: the inner loop, the
+CWT, the classifier and the tail stay fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ import numpy as np
 import torch
 
 from ..models.cwt import MultiHeadAttentionOne, build_cwt, dropout
-from ..models.pspnet import (PSPNet, apply_classifier, build_pspnet,
-                             init_classifier_weights)
+from ..models.pspnet import (PSPNet, apply_classifier, build_pspnet, cast_backbone,
+                             init_classifier_weights, stage_dtype_policy)
 from ..ops.losses import (binary_weighted_ce_from_diff, class_balance_weights,
                           weighted_cross_entropy)
 from ..ops.metrics import intersection_and_union
@@ -90,8 +95,11 @@ class EpisodicEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("EpisodicEngine: no CUDA device; pass device='cpu'")
-        self.backbone = (backbone if backbone is not None
-                         else build_pspnet(cfg)).to(self.device).eval()
+        # the stage policy casts a passed backbone in place, as build_pspnet
+        # casts its own
+        self.backbone = cast_backbone(backbone if backbone is not None
+                                      else build_pspnet(cfg), stage_dtype_policy(cfg))
+        self.backbone.to(self.device).eval()
         self.backbone.requires_grad_(False)
         self.cwt = (cwt if cwt is not None else build_cwt(cfg)).to(self.device).eval()
         self.num_classes = cfg.num_classes_tr
@@ -121,7 +129,8 @@ class EpisodicEngine:
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Backbone features: ONE pass over the E*(shot+1) images.
 
-        Returns f_s (E, shot, h, w, C) and f_q (E, h, w, C), fp32.
+        Returns f_s (E, shot, h, w, C) and f_q (E, h, w, C), fp32 whatever
+        the stage policy (the backbone casts the images to its stem's dtype).
 
         ``support_dropout`` (the train step): the reference extracts support
         features in train mode, where the bottleneck's channel dropout is
@@ -223,11 +232,25 @@ class EpisodicEngine:
                            w0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Per-episode I/U (transformed and raw classifier) and CE losses;
         classifier inits from ``generator`` or explicit ``w0``."""
+        return self._eval_metrics(episodes, generator, w0, with_pred=False)
+
+    @torch.no_grad()
+    def eval_metrics_batch_pred(self, episodes, generator: Optional[torch.Generator] = None,
+                                w0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """``eval_metrics_batch`` plus ``pred_lab``, the (E, h, w) int32 argmax
+        of the transformed prediction at feature resolution: one program gives
+        the metrics and the masks that the dtype A/B compares."""
+        return self._eval_metrics(episodes, generator, w0, with_pred=True)
+
+    def _eval_metrics(self, episodes, generator, w0, with_pred: bool):
         batch = self.to_device(episodes)
         e = batch["q_img"].shape[0]
         f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
         pred_q, pred_q0 = self._predict(f_q, w)
-        return self.metrics_from_predictions(pred_q, pred_q0, batch)
+        out = self.metrics_from_predictions(pred_q, pred_q0, batch)
+        if with_pred:
+            out["pred_lab"] = pred_q.argmax(-1).int()
+        return out
 
     @torch.no_grad()
     def serve_batch(self, episodes, generator: Optional[torch.Generator] = None,

@@ -6,29 +6,36 @@ Counterpart of ``few_shot_seg_cwt_tpu.episodic.heads.HeadEngine`` for
   frozen backbone features with block-level taps (one pass over the batch)
   -> inner-loop adaptation of the episodic classifier (CUDA kernel K1)
   -> MMN refinement of the query feature (consensus on the pivot kernels
-     on the flat route, cuDNN plane convs on the rank-4 route)
+     on the flat route, cuDNN plane convs on the rank-4 route), per shot
   -> classifier predictions upsampled to the image size
   -> the head's query loss (``seg_loss``) on the head's parameters only.
 
 The prologue (backbone + inner loop) is batched over the E episodes, as the
 JAX package's ``eval_split_prologue`` does; the head runs one episode at a
 time, as its ``lax.map`` does, and training accumulates per-episode
-gradients (``head_grad_accum``). Classifier inits come from a
-``torch.Generator`` or are injected (``w0=``, (E, K, C)). Episodes are the
-NHWC dicts of ``episodic.engine``. Not ported: the other heads (ROADMAP
-queue 1 items 7-10), shot > 1 (item 2), ``use_amp`` (item 3) and the
-``meta_aug`` support stream (item 7).
+gradients (``head_grad_accum``). At shot > 1 the head runs per shot
+(``_mmn_att_shots``) and the readouts are averaged over the valid shots;
+shots padded with all-255 labels take no part. Under ``use_amp`` (or
+another bf16 stage policy) the backbone runs bf16 and its features come
+back to fp32; the train step under ``use_amp`` also runs the head in bf16
+(``_amp_head``), while eval and serve keep the head in fp32, as the JAX
+package does. Classifier inits come from a ``torch.Generator`` or are
+injected (``w0=``, (E, K, C)). Episodes are the NHWC dicts of
+``episodic.engine``. Not ported: the other heads (ROADMAP queue 1 items
+7-10) and the ``meta_aug`` support stream (item 7).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models.mmn import build_mmn
-from ..models.pspnet import apply_classifier, build_pspnet
+from ..models.pspnet import apply_classifier, build_pspnet, cast_backbone, stage_dtype_policy
 from ..ops.losses import cross_entropy, seg_loss
 from ..ops.metrics import intersection_and_union
 from ..ops.resize import upsample_bilinear_ac
@@ -64,8 +71,11 @@ class HeadEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("HeadEngine: no CUDA device; pass device='cpu'")
-        self.backbone = (backbone if backbone is not None
-                         else build_pspnet(cfg)).to(self.device).eval()
+        # use_amp / compute_dtype / bf16_stages: the backbone's stage policy,
+        # cast in place on a passed backbone as build_pspnet casts its own
+        self.backbone = cast_backbone(backbone if backbone is not None
+                                      else build_pspnet(cfg), stage_dtype_policy(cfg))
+        self.backbone.to(self.device).eval()
         self.backbone.requires_grad_(False)
         self.head = (head if head is not None
                      else build_head(cfg, head_type)).to(self.device)
@@ -90,7 +100,8 @@ class HeadEngine:
         One backbone pass over the E*(shot+1) images, the inner loop for all
         E at once. Returns f_s (E, shot, h, w, C), f_q (E, h, w, C),
         fs_feats / fq_feats {stage: [(E, shot, ...) / (E, ...) NHWC]} for the
-        head's stages, w (E, K, C), pd_q0 (E, h, w, K), s_valid (E, shot).
+        head's stages, w (E, K, C), pd_q0 (E, h, w, K), s_valid (E, shot);
+        fp32 whatever the backbone's stage policy.
         """
         s_img, q_img = batch["s_img"], batch["q_img"]
         e, shot = s_img.shape[:2]
@@ -101,9 +112,10 @@ class HeadEngine:
         f_s = feat[:n_s].reshape((e, shot) + feat.shape[1:])
         f_q = feat[n_s:]
         stages = self.head.bids
-        fs_feats = {k: [t[:n_s].reshape((e, shot) + t.shape[1:]) for t in feats[k]]
-                    for k in stages}
-        fq_feats = {k: [t[n_s:] for t in feats[k]] for k in stages}
+        feats = {k: [t.float() for t in feats[k]] for k in stages}
+        fs_feats = {k: [t[:n_s].reshape((e, shot) + t.shape[1:]) for t in v]
+                    for k, v in feats.items()}
+        fq_feats = {k: [t[n_s:] for t in v] for k, v in feats.items()}
         w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.cfg.adapt_iter,
                                    self.cfg.cls_lr)
         # shots padded with all-255 labels take no part in the readout mean
@@ -123,6 +135,7 @@ class HeadEngine:
         return part, {k: v[i] for k, v in batch.items()}
 
     def _up(self, logits: torch.Tensor) -> torch.Tensor:
+        # fp32 here is the AMP boundary: upsample, losses and metrics in fp32
         return upsample_bilinear_ac(logits.float(), (self.image_size, self.image_size))
 
     def _cls_up(self, w: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
@@ -133,12 +146,45 @@ class HeadEngine:
     # ------------------------------------------------------------------ #
 
     def _mmn_att_shots(self, fq_feats, fs_feats, f_q, f_s, det: bool) -> torch.Tensor:
-        """Per-shot MMN attention readouts, (shot, h, w, C); shot 1 only."""
-        if f_s.shape[0] != 1:
-            raise NotImplementedError("MMN with shot > 1 is not ported (ROADMAP "
-                                      "queue 1 item 2)")
-        return self.head(fq_feats, fs_feats, f_q, f_s, ret_shots=True,
-                         deterministic=det)[2]
+        """Per-shot MMN attention readouts, (shot, h, w, C).
+
+        shot 1: one head apply. shot > 1, the JAX package's settings:
+        ``shot_hoist_query`` (default on) runs the query-side prep once
+        outside the per-shot map, one dropout draw shared by the shots in
+        training (the reference redraws it per shot); ``shot_native`` sends
+        every shot through one head apply; otherwise the map takes
+        ``shot_tile`` shots a chunk where the tile divides the shot count,
+        else one shot at a time, each chunk under ``torch.utils.checkpoint``
+        while ``shot_remat`` (default on), so the live activations are one
+        chunk's consensus stack. Dropout draws from torch's default
+        generator on the device, chunk after chunk in shot order (the
+        checkpoint replays a chunk's draws in its recompute), so a saved
+        generator state resumes exactly.
+        """
+        def apply(fs_k, f_s_k, fq_prepped=None):
+            return self.head(fq_feats, fs_k, f_q, f_s_k, ret_shots=True,
+                             deterministic=det, fq_prepped=fq_prepped)[2]
+
+        shot = f_s.shape[0]
+        if shot == 1:
+            return apply(fs_feats, f_s)
+        cfg = self.cfg
+        fq_prepped = (self.head.prep_query(fq_feats, deterministic=det)
+                      if cfg.get("shot_hoist_query", True) else None)
+        if cfg.get("shot_native", False):
+            return apply(fs_feats, f_s, fq_prepped)
+        tile = int(cfg.get("shot_tile", 1) or 1)
+        tile = tile if tile > 1 and shot % tile == 0 else 1
+        remat = cfg.get("shot_remat", True) and torch.is_grad_enabled()
+        outs = []
+        for k in range(0, shot, tile):
+            fs_k = {st: [t[k:k + tile] for t in v] for st, v in fs_feats.items()}
+            if remat:
+                outs.append(checkpoint(apply, fs_k, f_s[k:k + tile], fq_prepped,
+                                       use_reentrant=False))
+            else:
+                outs.append(apply(fs_k, f_s[k:k + tile], fq_prepped))
+        return torch.cat(outs, dim=0)
 
     def _loss_mmn(self, parts: Dict, episode: Dict, det: bool = False):
         """One episode: (loss, {"pred1", "pred"}) with (H, W, K) predictions."""
@@ -176,11 +222,41 @@ class HeadEngine:
     # training
     # ------------------------------------------------------------------ #
 
+    @contextlib.contextmanager
+    def _amp_head(self):
+        """``use_amp`` in the train step: for the enclosed forward AND
+        backward every floating parameter of the head is a bf16 cast of its
+        fp32 master, so the head computes in bf16 and the gradients flow
+        back through the casts to the masters (the per-shot and per-block
+        checkpoints recompute inside the backward, so they see the same
+        casts). bf16 has fp32's exponent range: no loss scaling."""
+        if not self.cfg.get("use_amp", False):
+            yield
+            return
+        masters = [(m, name, p) for m in self.head.modules()
+                   for name, p in m._parameters.items()
+                   if p is not None and p.is_floating_point()]
+        try:
+            for m, name, p in masters:
+                m._parameters[name] = p.to(torch.bfloat16)
+            yield
+        finally:
+            for m, name, p in masters:
+                m._parameters[name] = p
+
     def train_episode_loss(self, parts: Dict, episode: Dict,
                            deterministic: bool = False):
         """One episode's loss (differentiable in the head's parameters) and
-        its metrics: loss and I/U of pred0 (raw classifier), pred1 and pred."""
-        loss, preds = self._loss_mmn(parts, episode, det=deterministic)
+        its metrics: loss and I/U of pred0 (raw classifier), pred1 and pred.
+
+        Under ``use_amp`` the parts go to bf16 at the loss boundary (call it
+        inside ``_amp_head``); predictions are upsampled in fp32 (``_up``),
+        so the loss and the metrics keep full precision."""
+        loss_parts = parts
+        if self.cfg.get("use_amp", False):
+            loss_parts = _cast_floats(parts, torch.bfloat16)
+        loss, preds = self._loss_mmn(loss_parts, episode, det=deterministic)
+        loss = loss.float()
         metrics = {"loss": loss.detach()}
         with torch.no_grad():
             metrics.update(self._iou(preds, parts, episode))
@@ -202,16 +278,22 @@ class HeadEngine:
         self.head.zero_grad(set_to_none=True)
         accum = self.cfg.get("head_grad_accum", True)
         losses, metrics, total = [], [], 0.0
-        for i in range(e):
-            loss, m = self.train_episode_loss(*self._one(parts, batch, i), deterministic)
-            if accum:
-                (loss / e).backward()
-            else:
-                total = total + loss
-            losses.append(loss.detach())
-            metrics.append(m)
-        if not accum:
-            (total / e).backward()
+        # the bf16 head casts live through each backward: per episode, or
+        # around the whole batch when one backward runs at the end
+        per_episode = self._amp_head if accum else contextlib.nullcontext
+        with contextlib.nullcontext() if accum else self._amp_head():
+            for i in range(e):
+                with per_episode():
+                    loss, m = self.train_episode_loss(*self._one(parts, batch, i),
+                                                      deterministic)
+                    if accum:
+                        (loss / e).backward()
+                    else:
+                        total = total + loss
+                losses.append(loss.detach())
+                metrics.append(m)
+            if not accum:
+                (total / e).backward()
         out = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
         out["loss_mean"] = torch.stack(losses).mean()
         return out
@@ -284,3 +366,14 @@ class HeadEngine:
         if w0 is not None:
             w0 = torch.as_tensor(w0, dtype=torch.float32)[None]
         return self.serve_batch(one, generator, w0)[0]
+
+
+def _cast_floats(tree, dtype: torch.dtype):
+    """Every floating tensor of a nest of dicts and lists cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(v, dtype) for v in tree)
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree

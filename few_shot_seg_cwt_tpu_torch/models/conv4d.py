@@ -14,8 +14,11 @@ centre-pivot planes, i.e. a 2D conv over the query plane (``conv1``) plus a
 
 ``swap_roles=True`` applies the query kernel to the support plane and vice
 versa, which is ``swap(conv(swap(x)))`` without the two whole-volume swaps;
-the symmetric NeighConsensus runs on it. The 6D channels-last route, the
-true ``Conv4d`` (``conv4d cv4``) and the int8 modes are not ported.
+the symmetric NeighConsensus runs on it. On both routes the volume meets
+the weights by the JAX ``_promote`` rule: bf16 weights (the head under
+``use_amp``) cast the volume down and the block runs bf16, otherwise both
+meet at the promoted dtype. The 6D channels-last route, the true
+``Conv4d`` (``conv4d cv4``) and the int8 modes are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.cuda_pivot import pivot_conv_flat, pivot_kernel_available
 
@@ -51,8 +55,17 @@ def init_conv_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
 
 
-def _hwio(conv: nn.Conv2d) -> torch.Tensor:
-    return conv.weight.permute(2, 3, 1, 0)          # OIHW -> (3, 3, Ci, Co)
+def _hwio(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    return conv.weight.to(dtype).permute(2, 3, 1, 0)    # OIHW -> (3, 3, Ci, Co)
+
+
+def _promote(x: torch.Tensor, weight: torch.Tensor) -> torch.dtype:
+    """The block's compute dtype: bf16 where the weights arrive bf16 (the
+    reference's autocast runs its convs in half precision), else the
+    promoted dtype of the volume and the weights."""
+    if weight.dtype == torch.bfloat16:
+        return torch.bfloat16
+    return torch.promote_types(x.dtype, weight.dtype)
 
 
 class CenterPivotConv4d(nn.Module):
@@ -82,9 +95,17 @@ class CenterPivotConv4d(nn.Module):
                              f"got {self.stride}")
         check_no_int8()
         dims = tuple(int(d) for d in flat_dims)
+        dtype = _promote(x, self.conv1.weight)
+        x = x.to(dtype)
         if bqsc:
             return self._bqsc(x, swap_roles, fuse_relu, dims)
         return self._flat(x, swap_roles, fuse_relu, dims)
+
+    @staticmethod
+    def _plane_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+        """``conv`` on NCHW planes in the dtype of ``x``."""
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        return F.conv2d(x, conv.weight.to(x.dtype), bias, padding=conv.padding)
 
     def _bqsc(self, x: torch.Tensor, swap_roles: bool, fuse_relu: bool,
               dims) -> torch.Tensor:
@@ -95,9 +116,10 @@ class CenterPivotConv4d(nn.Module):
         co = self.out_channels
         q_conv, s_conv = (self.conv2, self.conv1) if swap_roles else (self.conv1, self.conv2)
         xs = x.reshape(b * qn, hs, ws, c).permute(0, 3, 1, 2)
-        s_out = s_conv(xs).permute(0, 2, 3, 1).reshape(b, qn, sn, co)
+        s_out = self._plane_conv(xs, s_conv).permute(0, 2, 3, 1).reshape(b, qn, sn, co)
         xq = x.transpose(1, 2).reshape(b * sn, hq, wq, c).permute(0, 3, 1, 2)
-        q_out = q_conv(xq).permute(0, 2, 3, 1).reshape(b, sn, qn, co).transpose(1, 2)
+        q_out = (self._plane_conv(xq, q_conv).permute(0, 2, 3, 1).reshape(b, sn, qn, co)
+                 .transpose(1, 2))
         out = s_out + q_out
         return torch.relu(out) if fuse_relu else out
 
@@ -107,10 +129,10 @@ class CenterPivotConv4d(nn.Module):
         if not pivot_kernel_available(self.kernel_size, self.stride, self.padding):
             raise NotImplementedError(f"kernel {self.kernel_size} / padding "
                                       f"{self.padding} on the flat route: {SIX_D_ROUTE}")
-        kq, ks = _hwio(self.conv1), _hwio(self.conv2)
+        kq, ks = _hwio(self.conv1, x.dtype), _hwio(self.conv2, x.dtype)
         wa, wb = (ks, kq) if swap_roles else (kq, ks)
         if self.conv1.bias is not None:
-            bias = self.conv1.bias + self.conv2.bias
+            bias = self.conv1.bias.to(x.dtype) + self.conv2.bias.to(x.dtype)
         else:
             bias = torch.zeros((self.out_channels,), dtype=x.dtype, device=x.device)
         return pivot_conv_flat(x, wa, wb, bias, dims, relu=fuse_relu)

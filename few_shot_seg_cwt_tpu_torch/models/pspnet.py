@@ -1,4 +1,4 @@
-"""PSPNet feature extractor and episodic classifier (PyTorch, fp32).
+"""PSPNet feature extractor and episodic classifier (PyTorch).
 
 Counterpart of ``few_shot_seg_cwt_tpu.models.pspnet`` for the ResNet arch
 with ``dist: dot``:
@@ -7,7 +7,14 @@ with ``dist: dot``:
   conv + BN + ReLU -> bilinear (align_corners) upsample -> concat;
 * bottleneck: 3x3 conv 4096->512 + BN + ReLU + channel dropout;
 * ``DotCls``: the plain 1x1-conv classifier;
-* ``extract_features`` takes and returns NHWC, like the JAX package.
+* ``extract_features`` takes and returns NHWC, like the JAX package;
+* the per-stage dtype policy (``stage_dtype_policy``: ``compute_dtype
+  bfloat16`` or ``use_amp`` casts the whole backbone to bf16, ``bf16_stages``
+  only the listed stages): ``cast_backbone`` casts each stage's parameters
+  and BN buffers and installs the activation casts at the stage boundaries
+  (stem, layer1-4, ppm, bottleneck), the JAX ``_stage_cast``. It is an
+  explicit cast of the module, not ``torch.autocast``, which would keep BN
+  and other layers in fp32: a different function from the JAX one.
 
 Module and parameter names are the reference repo's (``layer0..layer4``,
 ``ppm.features.i.{1,2}``, ``bottleneck.{0,1}``, ``classifier.weight``,
@@ -19,13 +26,47 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import DilatedResNet, reset_parameters, run_trunk
+from .resnet import DilatedResNet, reset_parameters, run_trunk, stage_cast
+
+# backbone stages addressable by the per-stage dtype policy
+BACKBONE_STAGES = ("stem", "layer1", "layer2", "layer3", "layer4",
+                   "ppm", "bottleneck")
+
+
+def stage_dtype_policy(cfg) -> Dict[str, torch.dtype]:
+    """Per-stage backbone compute dtype {stage: torch dtype}.
+
+    ``compute_dtype bfloat16`` (or the reference's ``use_amp``) runs every
+    stage in bf16, the whole-backbone cast. With fp32 compute,
+    ``bf16_stages`` ("all" or a comma list of ``BACKBONE_STAGES``, e.g.
+    "stem,layer1,layer2") runs only the listed stages in bf16. An unknown
+    stage or compute dtype raises.
+    """
+    compute = str(cfg.get("compute_dtype", "float32"))
+    if compute not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {compute!r}: 'float32' or 'bfloat16'")
+    if compute == "bfloat16" or cfg.get("use_amp", False):
+        return {s: torch.bfloat16 for s in BACKBONE_STAGES}
+    sel = cfg.get("bf16_stages", None)
+    if not sel:
+        return {s: torch.float32 for s in BACKBONE_STAGES}
+    chosen = (set(BACKBONE_STAGES) if str(sel) == "all"
+              else {s.strip() for s in str(sel).split(",") if s.strip()})
+    unknown = chosen - set(BACKBONE_STAGES)
+    if unknown:
+        raise ValueError(f"bf16_stages: unknown stages {sorted(unknown)}; the stages "
+                         f"are {BACKBONE_STAGES}")
+    return {s: (torch.bfloat16 if s in chosen else torch.float32) for s in BACKBONE_STAGES}
+
+
+def policy_is_noop(policy: Dict[str, torch.dtype]) -> bool:
+    return set(policy.values()) == {torch.float32}
 
 
 def init_classifier_weights(generator: torch.Generator, num_classes: int,
@@ -43,8 +84,11 @@ def apply_classifier(weights: torch.Tensor, features: torch.Tensor) -> torch.Ten
     """1x1 conv as einsum.
 
     (K, C) weights x (..., h, w, C) features -> (..., h, w, K), or per-episode
-    (E, K, C) weights x (E, h, w, C) features -> (E, h, w, K).
+    (E, K, C) weights x (E, h, w, C) features -> (E, h, w, K), in the
+    promoted dtype of the two (bf16 meets fp32 in fp32, as in JAX).
     """
+    dtype = torch.promote_types(weights.dtype, features.dtype)
+    weights, features = weights.to(dtype), features.to(dtype)
     if weights.ndim == 2:
         return torch.einsum("...hwc,kc->...hwk", features, weights)
     return torch.einsum("ehwc,ekc->ehwk", features, weights)
@@ -89,6 +133,8 @@ class PSPNet(nn.Module):
                  num_classes_tr: int = 2, rmid: Optional[str] = None):
         super().__init__()
         self.rmid = rmid
+        # {stage: dtype} of the activation casts; None: no casts (fp32)
+        self.stage_dtypes: Optional[Dict[str, torch.dtype]] = None
         trunk = DilatedResNet(layers)
         # the reference's attribute names: the trunk's stages hang off the
         # PSPNet itself (src/model/pspnet.py:96-101)
@@ -115,17 +161,43 @@ class PSPNet(nn.Module):
         """
         x = x.permute(0, 3, 1, 2).contiguous()
         if not self.rmid:
-            return self.bottleneck(self.ppm(run_trunk(self, x))).permute(0, 2, 3, 1).contiguous()
+            return self._head(run_trunk(self, x)).permute(0, 2, 3, 1).contiguous()
         x, feats = run_trunk(self, x, return_feats=True)
         feats = {k: [f.permute(0, 2, 3, 1) for f in v] for k, v in feats.items()}
-        return self.bottleneck(self.ppm(x)).permute(0, 2, 3, 1).contiguous(), feats
+        return self._head(x).permute(0, 2, 3, 1).contiguous(), feats
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """PPM + bottleneck on the trunk's NCHW output."""
+        x = self.ppm(stage_cast(self, x, "ppm"))
+        return self.bottleneck(stage_cast(self, x, "bottleneck"))
+
+    def stage_modules(self) -> Dict[str, nn.Module]:
+        return {"stem": self.layer0, "layer1": self.layer1, "layer2": self.layer2,
+                "layer3": self.layer3, "layer4": self.layer4, "ppm": self.ppm,
+                "bottleneck": self.bottleneck}
+
+
+def cast_backbone(model: PSPNet, policy: Dict[str, torch.dtype]) -> PSPNet:
+    """Apply a stage dtype policy to ``model`` in place: every floating
+    parameter and BN buffer of a stage goes to the stage's dtype, and the
+    activations are cast at each stage boundary. ``classifier`` and
+    ``gamma`` stay as they are (the episodic math is fp32). Uniform fp32
+    leaves the model alone. Counterpart of the JAX ``cast_backbone_io``;
+    the engines cast the output features back to fp32 themselves."""
+    if policy_is_noop(policy):
+        return model
+    for stage, module in model.stage_modules().items():
+        module.to(policy[stage])
+    model.stage_dtypes = dict(policy)
+    return model
 
 
 def build_pspnet(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
     """PSPNet from a flat config, with a seeded random init.
 
-    The port runs the fp32 ResNet/dot configuration only; VGG, the cosine
-    classifiers and the bf16 stage policy raise.
+    The port runs the ResNet/dot configuration only (VGG and the cosine
+    classifiers raise), under the config's stage dtype policy
+    (``cast_backbone``).
     """
     if cfg.get("arch", "resnet") != "resnet":
         raise NotImplementedError(f"arch {cfg.arch!r}: the port runs resnet only")
@@ -133,9 +205,7 @@ def build_pspnet(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
         raise NotImplementedError(
             f"dist {cfg.get('dist')!r} / cls_type {cfg.get('cls_type')!r}: "
             "the port runs the plain dot classifier only")
-    if (str(cfg.get("compute_dtype", "float32")) != "float32"
-            or cfg.get("use_amp", False) or cfg.get("bf16_stages")):
-        raise NotImplementedError("the port runs fp32 only (no bf16 policy)")
+    policy = stage_dtype_policy(cfg)
     rmid = cfg.get("rmid") or None
     if rmid is not None and not re.fullmatch(r"l\d+", str(rmid)):
         raise NotImplementedError(f"rmid {rmid!r}: only block taps 'l<stages>' are "
@@ -150,4 +220,4 @@ def build_pspnet(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
     reset_parameters(model, generator)
     nn.init.kaiming_uniform_(model.classifier.weight, a=math.sqrt(5),
                              generator=generator)
-    return model
+    return cast_backbone(model, policy)

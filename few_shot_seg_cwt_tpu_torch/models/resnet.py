@@ -92,10 +92,12 @@ def run_trunk(trunk: nn.Module, x: torch.Tensor, return_feats: bool = False):
     """``trunk.layer0..layer4`` (a DilatedResNet, or a PSPNet that holds the
     stages itself): (N, 3, H, W) -> (N, 2048, H/8, W/8); with
     ``return_feats`` also ``feats[stage] = [block outputs]`` for stages 1..4
-    (NCHW), as the JAX trunk returns them."""
-    x = trunk.layer0(x)
+    (NCHW), as the JAX trunk returns them. Under a stage dtype policy the
+    input of the stem and of each stage is cast to that stage's dtype."""
+    x = trunk.layer0(stage_cast(trunk, x, "stem"))
     feats = {}
     for stage in range(1, 5):
+        x = stage_cast(trunk, x, f"layer{stage}")
         outs = []
         for block in getattr(trunk, f"layer{stage}"):
             x = block(x)
@@ -103,6 +105,13 @@ def run_trunk(trunk: nn.Module, x: torch.Tensor, return_feats: bool = False):
                 outs.append(x)
         feats[stage] = outs
     return (x, feats) if return_feats else x
+
+
+def stage_cast(model: nn.Module, x: torch.Tensor, stage: str) -> torch.Tensor:
+    """``x`` in the compute dtype of ``stage`` under ``model.stage_dtypes``
+    (``models.pspnet.cast_backbone``); unchanged without a policy."""
+    dtypes = getattr(model, "stage_dtypes", None)
+    return x if dtypes is None else x.to(dtypes[stage])
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:

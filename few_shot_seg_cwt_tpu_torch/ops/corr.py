@@ -21,11 +21,16 @@ def l2norm(x: torch.Tensor, dim: int, eps: float = 1e-12) -> torch.Tensor:
 
 
 def get_corr(q_feat: torch.Tensor, k_feat: torch.Tensor) -> torch.Tensor:
-    """Cosine correlation of two NHWC feature maps -> (B, Nq, Nk), fp32."""
+    """Cosine correlation of two NHWC feature maps -> (B, Nq, Nk).
+
+    Sums in fp32 always; bf16 features (the head under ``use_amp``) give a
+    bf16 volume, as the JAX package emits it (the reference's bmm under
+    autocast), which halves the bytes of everything downstream."""
     b, h, w, c = q_feat.shape
     q = l2norm(q_feat.reshape(b, h * w, c), dim=-1)
     k = l2norm(k_feat.reshape(b, -1, c), dim=-1)
-    return torch.bmm(q.float(), k.float().transpose(1, 2))
+    out = torch.bmm(q.float(), k.float().transpose(1, 2))
+    return out.to(torch.bfloat16) if q_feat.dtype == torch.bfloat16 else out
 
 
 def _mutual(corr: torch.Tensor, q_dim: int, s_dim: int, eps: float) -> torch.Tensor:

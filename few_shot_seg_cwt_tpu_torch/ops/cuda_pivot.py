@@ -18,6 +18,11 @@ weight and bias gradient, on the tensor cores in 3xTF32 form).
 ``pivot_conv_flat`` wraps them in a ``torch.autograd.Function``: dx is
 ``pivot_fwd`` of the ReLU-masked cotangent with spatially flipped,
 (ci, co)-transposed weights, and (dwa, dwb, db) come from ``pivot_dw``.
+Around the fp32 kernels it does what the JAX wrappers do around the Pallas
+calls (``pallas_pivot_mxu.py:243,266-268,276-277,334-335``): x, the
+weights and the cotangent go to fp32 before a kernel, y comes out in the
+promoted dtype of x and the weights, and dx, dW, db in their inputs'
+dtypes, so a bf16 volume (``use_amp``) runs the same kernels.
 
 Dispatch is by device only: CPU tensors run the plain versions
 (``pivot_conv_flat_reference``, ``pivot_dw_reference``: ``F.conv2d`` and its
@@ -318,22 +323,26 @@ class _PivotConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wa, wb, bias, dims, relu):
-        x = x.contiguous()
-        y = pivot_fwd(x, wa, wb, bias, dims, relu)
-        ctx.dims, ctx.relu = dims, relu
+        f32 = torch.float32
+        y = pivot_fwd(x.to(f32).contiguous(), wa.to(f32), wb.to(f32), bias.to(f32), dims,
+                      relu).to(torch.promote_types(x.dtype, wa.dtype))
+        ctx.dims, ctx.relu, ctx.bias_dtype = dims, relu, bias.dtype
         ctx.save_for_backward(x, wa, wb, y if relu else None)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, wa, wb, y = ctx.saved_tensors
-        g = (dy * (y > 0).to(dy.dtype) if ctx.relu else dy).contiguous()
+        f32 = torch.float32
+        g = (dy * (y > 0).to(dy.dtype) if ctx.relu else dy).to(f32).contiguous()
         dx = dwa = dwb = db = None
         if ctx.needs_input_grad[0]:
-            zeros = torch.zeros((x.shape[1],), dtype=g.dtype, device=g.device)
-            dx = pivot_fwd(g, flip_t(wa), flip_t(wb), zeros, ctx.dims, False)
+            zeros = torch.zeros((x.shape[1],), dtype=f32, device=g.device)
+            dx = pivot_fwd(g, flip_t(wa.to(f32)), flip_t(wb.to(f32)), zeros, ctx.dims,
+                           False).to(x.dtype)
         if any(ctx.needs_input_grad[1:4]):
-            dwa, dwb, db = pivot_dw(x, g, ctx.dims)
+            dwa, dwb, db = pivot_dw(x.to(f32).contiguous(), g, ctx.dims)
+            dwa, dwb, db = dwa.to(wa.dtype), dwb.to(wb.dtype), db.to(ctx.bias_dtype)
         return dx, dwa, dwb, db, None, None
 
 

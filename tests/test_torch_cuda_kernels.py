@@ -419,3 +419,34 @@ def test_flat_route_on_cuda_launches_the_pivot_kernels(device, monkeypatch):
     # dx of every block but each stack's first (its input needs no grad)
     assert cuda_pivot.LAUNCHES["pivot_fwd"] - before["pivot_fwd"] == 6 + 4
     assert cuda_pivot.LAUNCHES["pivot_dw"] - before["pivot_dw"] == 6
+
+
+def test_bf16_volume_runs_the_fp32_kernels_between_casts(device):
+    """``use_amp``'s flat route: a bf16 volume and bf16 weights go to fp32,
+    through the same kernels (counted), and back: y and the gradients equal
+    the kernels' fp32 results on the upcast inputs, cast to bf16. The
+    kernels' own wrappers refuse bf16, so nothing reaches a plain version."""
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+
+    dims = (5, 6, 4, 7)
+    x, wa, wb, bias, t = (a.bfloat16() for a in _pivot_inputs(device, 2, 3, 4, dims))
+    with pytest.raises(TypeError):
+        cuda_pivot.pivot_fwd(x, wa, wb, bias, dims)
+    before = dict(cuda_pivot.LAUNCHES)
+    leaves = [a.clone().requires_grad_(True) for a in (x, wa, wb, bias)]
+    y = cuda_pivot.pivot_conv_flat(*leaves, dims, relu=True)
+    (y.float() * t.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert cuda_pivot.LAUNCHES["pivot_fwd"] - before["pivot_fwd"] == 2      # y and dx
+    assert cuda_pivot.LAUNCHES["pivot_dw"] - before["pivot_dw"] == 1
+    f32 = [a.float() for a in (x, wa, wb, bias)]
+    y32 = cuda_pivot.pivot_fwd(f32[0], *f32[1:], dims, relu=True)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y32.bfloat16())
+    # the backward's cotangent: the bf16 one, masked by the bf16 y's ReLU
+    g = (t * (y > 0).to(t.dtype)).float().contiguous()
+    zeros = torch.zeros((x.shape[1],), device=device)
+    want = [cuda_pivot.pivot_fwd(g, cuda_pivot.flip_t(f32[1]), cuda_pivot.flip_t(f32[2]), zeros,
+                                 dims)] + list(cuda_pivot.pivot_dw(f32[0], g, dims))
+    for name, got, w in zip(("dx", "dwa", "dwb", "db"), leaves, want):
+        assert got.grad.dtype == torch.bfloat16, name
+        assert torch.equal(got.grad, w.bfloat16()), name

@@ -281,10 +281,8 @@ def test_train_step_updates_the_head_with_dropout_on():
 def test_unported_head_paths_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HeadEngine(_cfg(), "chm", device="cpu")
-    engine = HeadEngine(_cfg(["adapt_iter", "1"]), "mmn", device="cpu")
-    batch = make_episode_batch(2, 1, size=SIZE, shot=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.eval_metrics_batch(batch, torch.Generator().manual_seed(0))
+        HeadEngine(_cfg(["meta_aug", "2", "att_type", "0"]), "mmn", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_pspnet(_cfg(["rmid", "nr"]))
 
