@@ -53,10 +53,12 @@ Phases (any failure raises and the script exits non-zero):
    the counts reset around them (K1 and pivot_fwd must launch),
    predictions against the rank-4 route (argmax agreement >= 99.5% for
    pred and pred1), episodes/s on both routes and where the time goes. Then
-   one bf16 training step's head gradients on the flat route (pivot_dw must
-   launch) against the rank-4 route's, within 5e-2 or twice the rank-4
-   route's own bf16 spread (its distance from the fp32-head step), per
-   tensor in the L2 norm; timed optimizer steps with dropout on. Then
+   one training step's head gradients on the flat route (pivot_dw must
+   launch) against the rank-4 route's: with the head in fp32 within 1e-3
+   of each tensor's largest entry, and with the bf16 head (use_amp) within
+   5e-2 or twice the rank-4 route's own bf16 spread (its distance from the
+   fp32-head step), per tensor in the L2 norm; timed optimizer steps with
+   dropout on. Then
    (6b) the train step of 2 at shot 5 on the flat route, counted, with the
    k-shot defaults and, where their peak memory leaves room, ``shot_tile
    5`` and ``shot_native``: episodes/s and peak memory of each.
@@ -603,15 +605,18 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
         device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
                        f"MMN eval batch of {E_MMN} (flat route), torch.profiler", card)
 
-    # ---- one bf16 training step's gradients: flat route against rank-4 ----
-    # use_amp runs the head in bf16 in the train step. Two bf16 routes each
-    # land within bf16 rounding of the fp32 gradient, so per tensor (L2) they
-    # may differ by twice the rank-4 route's own distance from its fp32-head
-    # step on the same parts, and by 5e-2 in any case.
+    # ---- one training step's gradients: flat route against rank-4 ----
+    # With the head in fp32 (use_amp off in the step; the backbone stays
+    # bf16, so both routes read the same parts) the routes agree within
+    # 1e-3 of each tensor's largest entry. use_amp runs the head in bf16:
+    # two bf16 routes each land within bf16 rounding of the fp32 gradient,
+    # so per tensor (L2) they may differ by twice the rank-4 route's own
+    # distance from its fp32-head step on the same parts, and by 5e-2 in
+    # any case.
     e2 = {k: v[:2] for k, v in episodes.items()}
-    grads = {}
+    grads, train_launches = {}, {}
     for name, flat, amp in (("flat", True, True), ("rank-4", False, True),
-                            ("rank-4 fp32 head", False, False)):
+                            ("flat fp32 head", True, False), ("rank-4 fp32 head", False, False)):
         engine.cfg.use_amp = amp
         with pivot_route(flat):
             cuda_inner_loop.reset_launches()
@@ -619,14 +624,29 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
             m = engine.backward_batch(e2, w0=w0[:2], deterministic=True)
             torch.cuda.synchronize()
             if flat:
-                train_launches = launch_counts(cuda_inner_loop, cuda_pivot)
+                train_launches[name] = launch_counts(cuda_inner_loop, cuda_pivot)
         if not torch.isfinite(m["loss_mean"]):
             raise AssertionError(f"MMN train step ({name}): non-finite loss")
         grads[name] = {k: p.grad.clone() for k, p in engine.head.named_parameters()}
     engine.cfg.use_amp = True
-    print(f"MMN train step launches (use_amp, flat route, 2 episodes): {train_launches}")
-    if train_launches["pivot_dw"] < 1 or train_launches["pivot_fwd"] < 1:
-        raise AssertionError("the MMN train step did not launch pivot_dw and pivot_fwd")
+    print(f"MMN train step launches (flat route, 2 episodes): use_amp {train_launches['flat']}; "
+          f"fp32 head {train_launches['flat fp32 head']}")
+    for counts in train_launches.values():
+        if counts["pivot_dw"] < 1 or counts["pivot_fwd"] < 1:
+            raise AssertionError(f"the MMN train step did not launch pivot_dw and pivot_fwd: "
+                                 f"{train_launches}")
+    g32 = grads["rank-4 fp32 head"]
+    scale = {k: float(g.abs().max()) for k, g in g32.items()}
+    worst32 = max((float((grads["flat fp32 head"][k] - g).abs().max()) / max(scale[k], 1e-30), k)
+                  for k, g in g32.items())
+    print(f"MMN fp32 head gradients (bf16 backbone), flat vs rank-4 route: worst "
+          f"max|g_flat - g_r4| / max|g_r4| = {worst32[0]:.3e} ({worst32[1]}); tolerance 1e-3; "
+          f"max|g_r4| per tensor from {min(scale.values()):.3e} to {max(scale.values()):.3e}")
+    if not worst32[0] <= 1e-3:
+        raise AssertionError(f"MMN fp32-head gradients differ between routes: {worst32}")
+    if not all(np.isfinite(v) and v > 0 for v in scale.values()):
+        raise AssertionError(f"MMN fp32-head gradients: a head tensor has zero or non-finite "
+                             f"grads {scale}")
     rows = {}
     for k, g in grads["rank-4"].items():
         spread = float((g - grads["rank-4 fp32 head"][k]).norm() / grads["rank-4 fp32 head"][k].norm())
@@ -671,7 +691,7 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     with pivot_route(True):
         device_profile(lambda: step(e2, torch.Generator().manual_seed(200)),
                        "MMN train step of 2 episodes (flat route), torch.profiler", card)
-    return engine, eval_launches, train_launches
+    return engine, eval_launches, train_launches["flat"]
 
 
 def k2_phase(cuda_inner_loop, pick_tile, cuda_ms, inputs, acc_k1, acc_plain, tol, card):

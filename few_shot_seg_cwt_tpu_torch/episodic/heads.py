@@ -278,18 +278,15 @@ class HeadEngine:
         self.head.zero_grad(set_to_none=True)
         accum = self.cfg.get("head_grad_accum", True)
         losses, metrics, total = [], [], 0.0
-        # the bf16 head casts live through each backward: per episode, or
-        # around the whole batch when one backward runs at the end
-        per_episode = self._amp_head if accum else contextlib.nullcontext
-        with contextlib.nullcontext() if accum else self._amp_head():
+        # one bf16 cast of the head for the batch: the casts save no
+        # tensors, so each episode's backward may pass through them
+        with self._amp_head():
             for i in range(e):
-                with per_episode():
-                    loss, m = self.train_episode_loss(*self._one(parts, batch, i),
-                                                      deterministic)
-                    if accum:
-                        (loss / e).backward()
-                    else:
-                        total = total + loss
+                loss, m = self.train_episode_loss(*self._one(parts, batch, i), deterministic)
+                if accum:
+                    (loss / e).backward()
+                else:
+                    total = total + loss
                 losses.append(loss.detach())
                 metrics.append(m)
             if not accum:

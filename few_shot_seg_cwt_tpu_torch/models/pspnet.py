@@ -182,14 +182,28 @@ def cast_backbone(model: PSPNet, policy: Dict[str, torch.dtype]) -> PSPNet:
     parameter and BN buffer of a stage goes to the stage's dtype, and the
     activations are cast at each stage boundary. ``classifier`` and
     ``gamma`` stay as they are (the episodic math is fp32). Uniform fp32
-    leaves the model alone. Counterpart of the JAX ``cast_backbone_io``;
-    the engines cast the output features back to fp32 themselves."""
-    if policy_is_noop(policy):
+    leaves an fp32 model alone. Counterpart of the JAX ``cast_backbone_io``;
+    the engines cast the output features back to fp32 themselves.
+
+    A model already cast to another policy raises: casting bf16 weights
+    back up would not give the fp32 model back, and leaving them would run
+    another policy than the caller's. Give each engine its own copy."""
+    policy = dict(policy)
+    if (model.stage_dtypes or {s: torch.float32 for s in BACKBONE_STAGES}) == policy:
         return model
+    if model.stage_dtypes is not None:
+        raise ValueError(
+            "cast_backbone: the backbone already runs the stage policy "
+            f"{_policy_str(model.stage_dtypes)}, not {_policy_str(policy)}; pass each "
+            "engine its own copy (copy.deepcopy) of the fp32 backbone")
     for stage, module in model.stage_modules().items():
         module.to(policy[stage])
-    model.stage_dtypes = dict(policy)
+    model.stage_dtypes = policy
     return model
+
+
+def _policy_str(policy: Dict[str, torch.dtype]) -> str:
+    return ",".join(f"{s}:{str(d).split('.')[-1]}" for s, d in policy.items())
 
 
 def build_pspnet(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
