@@ -83,8 +83,23 @@ Phases (any failure raises and the script exits non-zero):
    synthetic episodes: one epoch with checkpoints into a scratch model_dir
    under build/, a resume from its ``train_state.pth`` for one more epoch,
    and ``train.test.main`` loading the ``best.pth`` it wrote.
-10. A ``kernels`` JSON line, the card line, and as the last line
-    ``{"ok": true, "device": {...}}``.
+10. Real data, with ``cv2`` and ``PIL`` blocked (their import fails): a
+    PASCAL-layout tree of 48 PNG images at VOC sizes (500x375, 375x500,
+    500x333) and gray PNG masks with 1-3 objects of split-0 classes, written
+    here with zlib (every PNG row filter type in turn), under build/.
+    ``train.test.main`` on configs/pascal.yaml at 473 px, 2 runs x 64
+    episodes in batches of 8, 4 decode threads (K1 must launch). Feed
+    timings for the fp32 and the bf16 backbone: loader-fed eval episodes/s
+    against the same batches pre-collated on the card, the host's wait per
+    batch, the loader alone, one batch's copy from pinned and from pageable
+    memory. A 32-episode log replayed twice (2 runs x 16): equal per-class
+    lines both times, and run 2 scores log episodes 16-31 (their classes
+    alone). ``train_cwt.main`` (debug, FSS_INNER_TILE=2: K2 must launch) and
+    ``train_head.main`` on configs/pascal_mmn.yaml as shipped on the flat
+    route (pivot_fwd and pivot_dw must launch).
+11. A ``kernels`` JSON line (with each kernel's launches on the real-data
+    path), the card line, and as the last line ``{"ok": true, "device":
+    {...}}``.
 """
 
 from __future__ import annotations
@@ -98,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -1146,6 +1162,345 @@ def train_cwt_entry_phase(load_cfg, merge_cfg_from_list, train_cwt, test_entry,
         shutil.rmtree(model_dir, ignore_errors=True)
 
 
+# ---- the real-data phase: a PASCAL-layout tree written here ----
+
+VOC_SIZES = ((375, 500), (500, 375), (333, 500))  # (H, W) of VOC2012 images
+N_TREE = 48                                       # images: 32 train, 16 val
+FEED_BATCHES = 8                                  # batches a feed timing
+FEED_COPIES = 4                                   # the feed list: the tree 4 times
+
+
+def png_bytes(arr: np.ndarray) -> bytes:
+    """An 8-bit gray (H, W) or RGB (H, W, 3) PNG, written with zlib alone.
+    Row y is filtered with PNG filter type y % 5 (None, Sub, Up, Average,
+    Paeth), so the decoder's five unfilters all run."""
+    h, w = arr.shape[:2]
+    bpp = 1 if arr.ndim == 2 else 3
+    raw = arr.reshape(h, w * bpp).astype(np.int64)
+    up = np.vstack([np.zeros((1, w * bpp), np.int64), raw[:-1]])
+    left = np.hstack([np.zeros((h, bpp), np.int64), raw[:, :-bpp]])
+    upleft = np.hstack([np.zeros((h, bpp), np.int64), up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(raw), left, up, (left + up) // 2, paeth])
+    kinds = np.arange(h) % 5
+    rows = ((raw - preds[kinds, np.arange(h)]) % 256).astype(np.uint8)
+    body = np.hstack([kinds[:, None].astype(np.uint8), rows]).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (len(data).to_bytes(4, "big") + kind + data
+                + zlib.crc32(kind + data).to_bytes(4, "big"))
+
+    ihdr = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+            + bytes([8, 0 if bpp == 1 else 2, 0, 0, 0]))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(body, 6)) + chunk(b"IEND", b""))
+
+
+def write_voc_tree(root: str) -> dict:
+    """48 PNG images at VOC sizes with gray PNG masks (SegmentationClassAug
+    layout): 1-3 objects each, an ellipse of a split-0 val class (1-5), one of
+    a train class (6-20) and on every third image a second train class, each
+    at least 2048 px and ringed by 5 px of 255. Images 0-31 are listed in
+    train.txt, 32-47 in val.txt, and all 48 four times over in feed.txt
+    (every image holds a val class). Returns {image index: classes
+    present}."""
+    os.makedirs(os.path.join(root, "JPEGImages"))
+    os.makedirs(os.path.join(root, "SegmentationClassAug"))
+    rng = np.random.default_rng(10)
+    palette = np.random.default_rng(20).uniform(30, 225, (21, 3))
+    present = {}
+    lines = {"train": [], "val": []}
+    for i in range(N_TREE):
+        h, w = VOC_SIZES[i % len(VOC_SIZES)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        lab = np.zeros((h, w), np.uint8)
+        classes = [1 + i % 5, 6 + i % 15] + ([6 + (i * 7 + 3) % 15] if i % 3 == 0 else [])
+        classes = list(dict.fromkeys(classes))
+        for k, c in enumerate(classes):
+            cy, cx = (h * (0.3 + 0.4 * (k % 2)), w * (0.25 + 0.25 * k))
+            ry, rx = h * rng.uniform(0.12, 0.2), w * rng.uniform(0.08, 0.11)
+            d = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+            ring = ((yy - cy) / (ry + 5)) ** 2 + ((xx - cx) / (rx + 5)) ** 2
+            lab[(ring < 1) & (lab == 0)] = 255
+            lab[d < 1] = c
+        img = rng.normal(110, 25, (h, w, 3))
+        for c in classes:
+            img[lab == c] += palette[c] - 110
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        for c in classes:
+            if int((lab == c).sum()) < 2048:
+                raise AssertionError(f"tree image {i}: class {c} under 2048 px")
+        present[i] = classes
+        name = f"2008_{i:06d}"
+        with open(os.path.join(root, "JPEGImages", name + ".png"), "wb") as f:
+            f.write(png_bytes(img))
+        with open(os.path.join(root, "SegmentationClassAug", name + ".png"), "wb") as f:
+            f.write(png_bytes(lab))
+        lines["train" if i < 32 else "val"].append(
+            f"JPEGImages/{name}.png SegmentationClassAug/{name}.png\n")
+    lines["feed"] = (lines["train"] + lines["val"]) * FEED_COPIES
+    for split, ls in lines.items():
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.writelines(ls)
+    return present
+
+
+def write_episode_log(path: str, present: dict) -> None:
+    """32 val episodes: 0-15 of classes 1 and 2, 16-31 of classes 3, 4 and 5,
+    each a query and one support (another val image holding the class)."""
+    rng = np.random.default_rng(30)
+    val = [i for i in present if i >= 32]
+    pair = lambda i: [f"JPEGImages/2008_{i:06d}.png",  # noqa: E731
+                      f"SegmentationClassAug/2008_{i:06d}.png"]
+    with open(path, "w") as f:
+        for e in range(32):
+            cls = (1, 2)[e % 2] if e < 16 else (3, 4, 5)[e % 3]
+            holders = [i for i in val if cls in present[i]]
+            q, s = rng.choice(holders, size=2, replace=False)
+            f.write(json.dumps({"q": pair(int(q)), "cls": cls, "s": [pair(int(s))]}) + "\n")
+
+
+@contextlib.contextmanager
+def without_cv2_and_pil():
+    """Import of cv2 and PIL fails inside the block, as on a machine that has
+    neither."""
+    saved = {m: sys.modules.get(m) for m in ("cv2", "PIL")}
+    for m in saved:
+        sys.modules[m] = None
+    try:
+        yield
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def class_lines(lines):
+    """Per run, [Class lines] of a validate_transformer log."""
+    runs = []
+    for line in map(str, lines):
+        if line.startswith("mIoU---Val result"):
+            runs.append([])
+        elif line.startswith("Class ") and runs:
+            runs[-1].append(line)
+    return runs
+
+
+def loader_alone(loader) -> float:
+    """Episodes/s of ``loader`` with no consumer (its first batch, the
+    pipeline's start, untimed)."""
+    from few_shot_seg_cwt_tpu_torch.data.loader import infinite
+
+    stream = infinite(loader)
+    next(stream)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FEED_BATCHES):
+        next(stream)
+    torch.cuda.synchronize()
+    return FEED_BATCHES * E / (time.perf_counter() - t0)
+
+
+def feed_timings(cfg, dtype, card):
+    """The loader against episodes already on the card, for one backbone
+    dtype, on the feed list (one pass of 24 batches outlasts each timed
+    window, so a pass's cold start is not timed): episodes/s of eval fed by
+    the loader (4 decode threads, pinned ring) and of the same batches
+    pre-collated on the card, the host's wait per batch, the loader's own
+    rate with no consumer at 4 and 8 decode threads and in the consumer's
+    thread, the PNG decode's share of one thread's work, and one batch's
+    copy to the card from pinned and from pageable memory."""
+    from few_shot_seg_cwt_tpu_torch.data import imread
+    from few_shot_seg_cwt_tpu_torch.data.loader import infinite
+    from few_shot_seg_cwt_tpu_torch.episodic.engine import EpisodicEngine
+    from few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop import cuda_ms
+    from few_shot_seg_cwt_tpu_torch.train.common import episodic_val_loader
+
+    cfg = cfg.clone()
+    cfg.compute_dtype = dtype
+    engine = EpisodicEngine(cfg, device="cuda")
+    w0 = engine.init_weights(E, torch.Generator().manual_seed(4))
+    loader = episodic_val_loader(cfg, device="cuda")
+    alone = loader_alone(loader)
+    threads = {}
+    for workers in (0, 8):
+        one = cfg.clone()
+        one.workers = workers
+        threads[workers] = loader_alone(episodic_val_loader(one, device="cuda"))
+    alone8 = threads[8]
+
+    # the loader feeding eval batches
+    stream = infinite(loader)
+    engine.eval_metrics_batch(next(stream), w0=w0)["loss"].cpu()  # warm-up
+    kept, waits = [], []
+    t0 = time.perf_counter()
+    for _ in range(FEED_BATCHES):
+        tw = time.perf_counter()
+        batch = next(stream)
+        waits.append(time.perf_counter() - tw)
+        engine.eval_metrics_batch(batch, w0=w0)["loss"].cpu()
+        kept.append({k: v.clone() for k, v in batch.items()})
+    fed = FEED_BATCHES * E / (time.perf_counter() - t0)
+    del stream
+
+    # the same batches already on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in kept:
+        engine.eval_metrics_batch(batch, w0=w0)["loss"].cpu()
+    in_memory = FEED_BATCHES * E / (time.perf_counter() - t0)
+
+    # one batch's copy to the card, pinned against pageable
+    host = {k: v.cpu() for k, v in kept[0].items()}
+    pinned = {k: v.pin_memory() for k, v in host.items()}
+    nbytes = sum(v.numel() * v.element_size() for v in host.values())
+
+    def h2d(src):
+        return lambda: [v.to("cuda", non_blocking=True) for v in src.values()]
+
+    pinned_ms, pageable_ms = cuda_ms(h2d(pinned), 10), cuda_ms(h2d(host), 10)
+    label_bytes = sum(host[k].numel() for k in ("q_label", "s_label")) * 4
+    # the decode's share of one thread's work: the episode's four files
+    # (two images, two masks) against the whole sample
+    files = [p for item in loader.dataset.data_list[:16] for p in item]
+    t0 = time.perf_counter()
+    for i, path in enumerate(files):
+        imread.read(path, gray=i % 2 == 1)
+    decode_ms = 4 * 1e3 * (time.perf_counter() - t0) / len(files)
+    row = dict(dtype=dtype, fed=fed, in_memory=in_memory, alone=alone, alone8=alone8,
+               alone0=threads[0], decode_ms=decode_ms,
+               wait_ms=1e3 * statistics.mean(waits), wait_max_ms=1e3 * max(waits),
+               pinned_ms=pinned_ms, pageable_ms=pageable_ms, batch_mb=nbytes / 1e6)
+    print(f"feed ({dtype} backbone, batches of {E} at {cfg.image_size} px, "
+          f"{FEED_BATCHES} batches, 4 decode threads): loader-fed eval {fed:.3f} episodes/s "
+          f"against {in_memory:.3f} on the same batches pre-collated on the card; host wait "
+          f"per batch {row['wait_ms']:.2f} ms (max {row['wait_max_ms']:.2f}); the loader alone "
+          f"{alone:.3f} episodes/s ({threads[0]:.3f} in the consumer's thread, {alone8:.3f} "
+          f"with 8 decode threads; decoding an episode's 4 PNG files {decode_ms:.2f} ms of "
+          f"{1e3 / threads[0]:.2f} ms on one thread); one batch "
+          f"({nbytes / 1e6:.2f} MB, int32 labels {label_bytes / 1e6:.2f} MB) to the card: "
+          f"pinned {pinned_ms:.3f} ms ({nbytes / pinned_ms / 1e6:.2f} GB/s), pageable "
+          f"{pageable_ms:.3f} ms ({nbytes / pageable_ms / 1e6:.2f} GB/s) [{card}]")
+    if not all(np.isfinite([fed, in_memory, alone, alone8, threads[0], pinned_ms,
+                            pageable_ms])):
+        raise AssertionError(f"feed timings: {row}")
+    return row
+
+
+def real_data_phase(card, modules):
+    """``train.test.main``, replay, ``train_cwt.main`` and ``train_head.main``
+    on a PASCAL-layout PNG tree, with cv2 and PIL blocked."""
+    load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot = modules
+    from few_shot_seg_cwt_tpu_torch.train import test as test_entry
+    from few_shot_seg_cwt_tpu_torch.train import train_cwt, train_head
+
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_voc_", dir="build")
+    try:
+        with without_cv2_and_pil():
+            t0 = time.perf_counter()
+            present = write_voc_tree(root)
+            print(f"real data: wrote {N_TREE} PNG images at VOC sizes {VOC_SIZES} with gray "
+                  f"PNG masks in {time.perf_counter() - t0:.1f} s")
+            data = ["data_root", root, "train_list", os.path.join(root, "train.txt"),
+                    "val_list", os.path.join(root, "val.txt"), "workers", "4"]
+
+            def cfg(path, *opts):
+                out = merge_cfg_from_list(load_cfg(path), data + list(opts))
+                out.scan_cache = os.path.join(root, ".scan_cache")
+                return out
+
+            # ---- the evaluation entry point on the tree, counted ----
+            tcfg = cfg("configs/pascal.yaml", "episode_batch", str(E), "test_num", "64",
+                       "n_runs", "2")
+            if (tcfg.image_size, tcfg.adapt_iter) != (IMG, STEPS):
+                raise AssertionError("configs/pascal.yaml no longer gives 473 px, 200 steps")
+            lines = []
+            cuda_inner_loop.reset_launches()
+            t0 = time.perf_counter()
+            miou = test_entry.main(tcfg, device="cuda", log=lines.append)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(cuda_inner_loop.LAUNCHES)
+            runtime = next(str(l) for l in lines if str(l).startswith("Average runtime"))
+            print(f"real data: train.test.main (configs/pascal.yaml, 2 runs x 64 episodes in "
+                  f"batches of {E}, 4 decode threads, random init): mIoU {miou:.4f}, "
+                  f"{wall:.1f} s wall; {runtime}; launches {launches} [{card}]")
+            if launches["adapt_binary"] < 1 or not np.isfinite(miou):
+                raise AssertionError(f"real-data eval: launches {launches}, mIoU {miou}")
+
+            # ---- the feed: loader against episodes on the card ----
+            fcfg = tcfg.clone()
+            fcfg.val_list = os.path.join(root, "feed.txt")
+            feed = [feed_timings(fcfg, dtype, card) for dtype in ("float32", "bfloat16")]
+
+            # ---- replay a log twice: one stream across runs ----
+            log_path = os.path.join(root, "episodes.jsonl")
+            write_episode_log(log_path, present)
+            replays = []
+            for _ in range(2):
+                lines = []
+                rcfg = cfg("configs/pascal.yaml", "episode_batch", str(E), "test_num", "16",
+                           "n_runs", "2", "replay", log_path)
+                replays.append((test_entry.main(rcfg, device="cuda", log=lines.append),
+                                class_lines(lines)))
+            (m1, runs1), (m2, runs2) = replays
+            print(f"real data: replay of a 32-episode log, 2 runs x 16, twice: mIoU {m1:.4f} "
+                  f"and {m2:.4f}; run 1 {runs1[0]}, run 2 {runs1[1]}")
+            if runs1 != runs2:
+                raise AssertionError(f"replay differs between invocations: {runs1} {runs2}")
+            run_classes = [{int(l.split()[1]) for l in r} for r in runs1]
+            if run_classes != [{1, 2}, {3, 4, 5}]:
+                raise AssertionError(f"replay run 2 does not start at log episode 16: "
+                                     f"classes per run {run_classes}")
+
+            # ---- the CWT trainer on the tree (K2 at tile 2) ----
+            lines = []
+            cuda_inner_loop.reset_launches()
+            with inner_tile(2):
+                best = train_cwt.main(cfg("configs/pascal.yaml", "debug", "True", "epochs",
+                                          "1", "episode_batch", "2", "test_num", "8",
+                                          "n_runs", "1"), device="cuda", log=lines.append)
+            torch.cuda.synchronize()
+            cwt_launches = dict(cuda_inner_loop.LAUNCHES)
+            epoch_line = next(str(l) for l in lines if str(l).startswith("Epoch 1:"))
+            print(f"real data: train_cwt.main (debug: 5 steps of 2 episodes, "
+                  f"FSS_INNER_TILE=2): {epoch_line}; best val mIoU {best:.4f}; launches "
+                  f"{cwt_launches}")
+            if cwt_launches["adapt_binary_tiled"] < 1 or not np.isfinite(best):
+                raise AssertionError(f"real-data CWT training: {cwt_launches}, {best}")
+
+            # ---- the MMN trainer on pascal_mmn.yaml as shipped, flat route ----
+            lines = []
+            cuda_inner_loop.reset_launches()
+            cuda_pivot.reset_launches()
+            hcfg = cfg("configs/pascal_mmn.yaml", "epochs", "1", "iter_per_epoch", "4",
+                       "episode_batch", "2", "test_num", "4", "save_models", "False")
+            if not (hcfg.use_amp and hcfg.augmentations == ["hor_flip", "resize_np"]):
+                raise AssertionError("configs/pascal_mmn.yaml changed: use_amp, augmentations")
+            with pivot_route(True):
+                best = train_head.main(hcfg, "mmn", device="cuda", log=lines.append)
+            torch.cuda.synchronize()
+            mmn_launches = launch_counts(cuda_inner_loop, cuda_pivot)
+            val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
+            print(f"real data: train_head.main (configs/pascal_mmn.yaml as shipped: use_amp, "
+                  f"hor_flip + resize_np; 2 steps of 2, FSS_PIVOT_MXU=1): {val_line}; "
+                  f"launches {mmn_launches}")
+            if min(mmn_launches[k] for k in ("pivot_fwd", "pivot_dw")) < 1 \
+                    or not np.isfinite(best):
+                raise AssertionError(f"real-data MMN training: {mmn_launches}, {best}")
+            if "cv2" in sys.modules and sys.modules["cv2"] is not None:
+                raise AssertionError("cv2 was imported by the real-data phase")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"eval_launches": launches, "train_cwt_launches": cwt_launches,
+            "train_head_launches": mmn_launches, "feed": feed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1399,6 +1754,9 @@ def main() -> int:
     train_cwt_entry_phase(load_cfg, merge_cfg_from_list, train_cwt, test_entry,
                           trans_ckpt_dir)
 
+    # ---- 10. real data: a PNG tree, with cv2 and PIL blocked ----
+    real = real_data_phase(card, (load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot))
+
     main_block = pivot[(10, 10)]  # the heaviest consensus block stands for each kernel
     kernels = [{
         "name": "adapt_binary",
@@ -1412,6 +1770,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_bound_by,
         "library_ms": None,
+        "real_data": {"launches": real["eval_launches"]["adapt_binary"]},
         "shot5": {"launches": cwt_shot5_k1, "max_abs_err": k1_shot5["err"],
                   "ms": k1_shot5["ms"], "plain_ms": k1_shot5["plain_ms"],
                   "bound_ms": k1_shot5["bound_ms"], "bound_by": k1_shot5["bound_by"]},
@@ -1421,6 +1780,7 @@ def main() -> int:
         "source": "few_shot_seg_cwt_tpu_torch/csrc/inner_loop.cu",
         "replaces": "few_shot_seg_cwt_tpu/ops/pallas_inner_loop.py:97",
         "launches": train_counts["K2"]["adapt_binary_tiled"],
+        "real_data": {"launches": real["train_cwt_launches"]["adapt_binary_tiled"]},
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k1_plain_ms,
@@ -1434,6 +1794,7 @@ def main() -> int:
         "replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot_mxu.py:109",
         "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:106",
         "launches": mmn_eval_launches["pivot_fwd"],
+        "real_data": {"launches": real["train_head_launches"]["pivot_fwd"]},
         "max_abs_err": main_block["fwd_err"],
         "ms": main_block["fwd_ms"],
         "plain_ms": main_block["fwd_plain_ms"],
@@ -1447,6 +1808,7 @@ def main() -> int:
         "replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot_mxu.py:148",
         "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:165",
         "launches": mmn_train_launches["pivot_dw"],
+        "real_data": {"launches": real["train_head_launches"]["pivot_dw"]},
         "max_abs_err": main_block["dw_err"],
         "ms": main_block["dw_ms"],
         "plain_ms": main_block["dw_plain_ms"],

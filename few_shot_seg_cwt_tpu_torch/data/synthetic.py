@@ -84,33 +84,6 @@ def collate(records) -> Dict[str, np.ndarray]:
     return {k: np.stack([r[k] for r in records]) for k in records[0]}
 
 
-class ShuffledBatches:
-    """Collated training batches: one pass over ``dataset`` in the order of
-    a permutation seeded by (seed + epoch), dropping a short tail (the JAX
-    package's shuffled ``EpisodeLoader`` on one process)."""
-
-    def __init__(self, dataset, batch_size: int, seed: int = 2021):
-        if len(dataset) < batch_size:
-            raise ValueError(
-                f"dataset of {len(dataset)} items < batch_size {batch_size}")
-        self.dataset = dataset
-        self.batch_size = batch_size
-        self.seed = seed
-        self.epoch = 0
-
-    def set_epoch(self, epoch: int) -> None:
-        self.epoch = epoch
-
-    def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
-
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.random.default_rng(self.seed + self.epoch).permutation(len(self.dataset))
-        for b in range(len(self)):
-            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            yield collate([self.dataset[int(i)] for i in idx])
-
-
 class SequentialBatches:
     """Collated batches over ``dataset`` in index order, endless: each
     iteration starts at index 0 and wraps around at the end, dropping a short

@@ -56,15 +56,18 @@ def l2_normalize_channels(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def episodes_to_device(episodes: Dict, device) -> Dict[str, torch.Tensor]:
-    """Episode fields as tensors on ``device`` (float32 images, int64 labels)."""
+    """Episode fields as tensors on ``device`` (float32 images, int64 labels).
+    The copy comes first and the cast after it, on ``device``: a pinned host
+    tensor stays pinned for the copy, and int32 labels cross at half the
+    bytes of int64."""
     out = {}
     for k in EPISODE_KEYS:
         if k not in episodes:
             continue
         v = episodes[k]
         v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-        v = v.float() if k.endswith("img") else v.long()
-        out[k] = v.to(device, non_blocking=True)
+        v = v.to(device, non_blocking=True)
+        out[k] = v.float() if k.endswith("img") else v.long()
     return out
 
 

@@ -14,15 +14,16 @@ policy, ``bf16_stages``) and reports
     predictions agree (and its complement, the JAX harness's flip rate).
 
 Weights default to the seeded random init; ``--pth`` (stage-1 PSPNet .pth)
-and ``--trans-pth`` (CWT .pth) run it on real weights. ``--replay``
-(recorded episode streams) waits for the data loader (ROADMAP queue 1 item
-5) and raises.
+and ``--trans-pth`` (CWT .pth) run it on real weights. ``--replay`` runs the
+A/B on a recorded episode log (real images under ``data_root``) instead of
+synthetic episodes, through the episode loader.
 
 Usage::
 
     python -m few_shot_seg_cwt_tpu_torch.eval.ab_dtype [--episodes 128]
         [--batch 16] [--image-size 473] [--shot 1] [--stages stem,layer1]
-        [--pth stage1.pth] [--trans-pth best.pth] [--device cuda]
+        [--pth stage1.pth] [--trans-pth best.pth] [--replay episodes.jsonl]
+        [--device cuda]
 
 Prints one JSON line with the measurements and the device they ran on.
 """
@@ -38,6 +39,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..data.loader import EpisodeLoader
+from ..data.replay import ReplayEpisodicDataset
 from ..data.synthetic import make_episode_batch
 from ..episodic.engine import EpisodicEngine
 from ..train.common import fp32_parity, init_backbone, init_cwt, load_backbone_weights
@@ -50,8 +53,6 @@ def run_ab(cfg, n_episodes: int, e_batch: int, pth: Optional[str] = None,
            device="cuda", log=print) -> Dict:
     """A/B fp32 vs bf16 on ``device``. ``stages`` switches the B side from the
     whole-backbone bf16 cast to the mixed per-stage policy."""
-    if cfg.get("replay"):
-        raise NotImplementedError("--replay needs the data loader (ROADMAP queue 1 item 5)")
     cfg32 = cfg.clone()
     cfg32.update(compute_dtype="float32", use_amp=False, bf16_stages=None)
     cfg_bf = cfg32.clone()
@@ -73,14 +74,25 @@ def run_ab(cfg, n_episodes: int, e_batch: int, pth: Optional[str] = None,
                                device=device)
     engine32 = EpisodicEngine(cfg32, backbone=backbone, cwt=cwt, device=device)
 
+    # --replay: a recorded episode stream (real images) in place of synthetic
+    # episodes, the decision-grade comparison
+    replay_batches = None
+    if cfg.get("replay"):
+        ds = ReplayEpisodicDataset(cfg, str(cfg.replay))
+        e_batch = min(e_batch, len(ds))  # logs smaller than one batch still run
+        replay_batches = iter(EpisodeLoader(ds, batch_size=e_batch, shuffle=False,
+                                            num_workers=cfg.workers, device=device))
+        n_episodes = min(n_episodes, len(ds))
+
     n_batches = max(1, n_episodes // e_batch)
     seed = int(cfg.manual_seed or 0)
     acc = {name: (defaultdict(float), defaultdict(float))
            for name in ("fp32", "bf16", "fp32_raw", "bf16_raw")}
     agree = pixels = 0
     for b in range(n_batches):
-        episodes = make_episode_batch(seed=b + 1, e=e_batch, size=cfg.image_size,
-                                      shot=cfg.shot)
+        episodes = (next(replay_batches) if replay_batches is not None else
+                    make_episode_batch(seed=b + 1, e=e_batch, size=cfg.image_size,
+                                       shot=cfg.shot))
         w0 = engine32.init_weights(e_batch, batch_generator(seed, 0, b))
         m32 = {k: v.cpu().numpy() for k, v in
                engine32.eval_metrics_batch_pred(episodes, w0=w0).items()}
@@ -130,7 +142,9 @@ def main(argv=None) -> Dict:
     ap.add_argument("--shot", type=int, default=1)
     ap.add_argument("--pth", default=None, help="stage-1 PSPNet .pth")
     ap.add_argument("--trans-pth", default=None, help="CWT transformer .pth")
-    ap.add_argument("--replay", default=None, help="recorded episode log (not ported)")
+    ap.add_argument("--replay", default=None,
+                    help="recorded episode log: run the A/B on real images instead of "
+                         "synthetic episodes")
     ap.add_argument("--stages", default=None,
                     help="comma list of backbone stages to run in bf16 (mixed policy) "
                          "instead of the whole-backbone cast")

@@ -9,8 +9,12 @@ mean over runs; device time per run reported.
 Episodes stream through ``EpisodicEngine.eval_metrics_batch``; only the
 (E, K) metric arrays and class ids come back to the host. The classifier
 inits of batch b of run r are drawn from a ``torch.Generator`` seeded from
-(manual_seed, r, b), so a run is reproducible on any device. Single process;
-the mesh and multi-process branches of the JAX package are not ported yet.
+(manual_seed, r, b), so a run is reproducible on any device. Each run
+walks a fresh wrap-around stream of the loader; a replayed episode log
+(``replay``) is one stream across runs, so run r scores log episodes
+r * test_num onwards, as the reference's persistent iterator does. Single
+process; the mesh and multi-process branches of the JAX package are not
+ported yet (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.loader import infinite
 from ..utils.meters import AverageMeter
 
 
@@ -66,14 +71,25 @@ def validate_transformer(cfg, engine, loader: Iterable[Dict],
                          log=print) -> Tuple[float, float]:
     """Full CWT evaluation; returns (mean mIoU over runs, mean loss).
 
-    ``loader`` is re-iterable: each run iterates it afresh and takes
-    ``ceil(test_num / E)`` batches of E episodes (E from the first batch).
+    ``loader`` is re-iterable with a ``batch_size`` E (``EpisodeLoader``); a
+    run takes ``ceil(test_num / E)`` batches and scores exactly ``test_num``
+    episodes.
     """
     test_num = cfg.test_num
+    e_batch = loader.batch_size
     seed = int(cfg.manual_seed if cfg.manual_seed is not None else 0)
     run_mious = np.zeros(cfg.n_runs)
     run_losses = np.zeros(cfg.n_runs)
     runtimes = np.zeros(cfg.n_runs)
+
+    # replay: the recorded stream is one walk across runs, so a run must not
+    # take filler episodes past its boundary
+    replaying = bool(cfg.get("replay"))
+    if replaying and test_num % e_batch:
+        raise ValueError(
+            f"replay: episode_batch {e_batch} must divide test_num {test_num} so "
+            "run boundaries match the recorded stream")
+    persistent_stream = infinite(loader) if replaying else None
 
     for run in range(cfg.n_runs):
         cls_inter: Dict[int, float] = defaultdict(float)
@@ -81,14 +97,11 @@ def validate_transformer(cfg, engine, loader: Iterable[Dict],
         cls_inter0: Dict[int, float] = defaultdict(float)
         cls_union0: Dict[int, float] = defaultdict(float)
         loss_meter = AverageMeter()
-        stream = iter(loader)
-        batch = next(stream)
-        e_batch = len(batch["cls"])
+        stream = persistent_stream if replaying else infinite(loader)
         t_run = 0.0
         seen = 0
         for b, valid_n in enumerate(exact_batch_sizes(test_num, e_batch)):
-            if b > 0:
-                batch = next(stream)
+            batch = next(stream)
             t0 = time.time()
             out = engine.eval_metrics_batch(batch, batch_generator(seed, run, b))
             out = {k: v.cpu().numpy() for k, v in out.items()}  # waits for the device

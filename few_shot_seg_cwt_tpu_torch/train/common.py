@@ -3,8 +3,9 @@ loaders, backbone (with the stage-1 weights) and transformer inits,
 checkpoint directory and auto-resume.
 
 Counterpart of ``few_shot_seg_cwt_tpu.train.common`` on one process.
-Episodes are synthetic only: the real-data loader and transforms are not
-ported yet (ROADMAP queue 1 item 4), and asking for them raises.
+Episodes come from a dataset tree (``data_root`` + list files), a recorded
+episode log (``replay``) or the synthetic generator (``synthetic_data``),
+through ``data.loader.EpisodeLoader`` onto the engine's device.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..data.synthetic import SequentialBatches, ShuffledBatches, SyntheticEpisodicDataset
+from ..data.episodic import EpisodicDataset
+from ..data.loader import EpisodeLoader
+from ..data.replay import ReplayEpisodicDataset
+from ..data.synthetic import SyntheticEpisodicDataset
 from ..models.cwt import MultiHeadAttentionOne, build_cwt
 from ..models.pspnet import PSPNet, build_pspnet
 from ..utils.convert import load_torch_checkpoint
@@ -47,18 +51,38 @@ def apply_debug(cfg) -> None:
         cfg.save_models = False
 
 
-def episodic_loaders(cfg) -> Tuple[ShuffledBatches, SequentialBatches]:
-    """Train (shuffled per epoch) and validation (in order, endless)
-    batches of ``episode_batch`` synthetic episodes."""
-    if not cfg.get("synthetic_data"):
-        raise NotImplementedError(
-            "the PyTorch port trains on synthetic episodes only: real datasets "
-            "wait for the data loader and transforms (ROADMAP queue 1 item 4)")
-    e = int(cfg.episode_batch)
-    train = SyntheticEpisodicDataset(cfg, length=max(cfg.iter_per_epoch, 64), seed=1)
-    val = SyntheticEpisodicDataset(cfg, length=max(cfg.test_num, 64), seed=2)
-    return (ShuffledBatches(train, e, seed=cfg.manual_seed or 0),
-            SequentialBatches(val, e))
+def episodic_dataset(cfg, train: bool):
+    """Validation episodes from a recorded log (``replay``), synthetic
+    episodes (``synthetic_data``), or the sampler over a dataset tree."""
+    if not train and cfg.get("replay"):
+        return ReplayEpisodicDataset(cfg, str(cfg.replay))
+    if cfg.get("synthetic_data"):
+        n = cfg.iter_per_epoch if train else cfg.test_num
+        return SyntheticEpisodicDataset(cfg, length=max(n, 64), seed=(1 if train else 2))
+    return EpisodicDataset(cfg, train=train)
+
+
+def episodic_val_loader(cfg, device="cuda", rank: int = 0, world: int = 1) -> EpisodeLoader:
+    """Validation batches of ``episode_batch`` episodes in index order (wrap
+    around with ``data.loader.infinite``). A replayed log is evaluated on one
+    process only: the rank-padded index stream would score some recorded
+    episodes twice."""
+    if cfg.get("replay") and world > 1:
+        raise ValueError(
+            "replay evaluation is single-process only: the rank-padded index "
+            f"stream would duplicate recorded episodes (world={world})")
+    return EpisodeLoader(episodic_dataset(cfg, train=False),
+                         batch_size=int(cfg.episode_batch), shuffle=False,
+                         num_workers=cfg.workers, device=device, rank=rank, world=world)
+
+
+def episodic_loaders(cfg, device="cuda") -> Tuple[EpisodeLoader, EpisodeLoader]:
+    """Train (shuffled per epoch by ``manual_seed + epoch``) and validation
+    loaders of ``episode_batch`` episodes (the JAX package's on one process)."""
+    train = EpisodeLoader(episodic_dataset(cfg, train=True),
+                          batch_size=int(cfg.episode_batch), shuffle=True,
+                          num_workers=cfg.workers, seed=cfg.manual_seed or 0, device=device)
+    return train, episodic_val_loader(cfg, device)
 
 
 def stage1_weights_path(cfg) -> str:

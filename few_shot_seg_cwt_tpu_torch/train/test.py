@@ -3,15 +3,19 @@
 Counterpart of ``few_shot_seg_cwt_tpu.train.test``:
 
     python -m few_shot_seg_cwt_tpu_torch.train.test --config configs/pascal.yaml \
-        --opts synthetic_data True test_num 16 n_runs 1
+        --opts data_root <VOC2012 tree> test_num 1000 n_runs 5
+
+Episodes come from the dataset tree (``data_root``, ``val_list``), from a
+recorded episode log (``--opts replay <episodes.jsonl>``: one stream across
+runs, so ``episode_batch`` must divide ``test_num``), or from the synthetic
+generator (``--opts synthetic_data True``).
 
 Backbone weights load from ``resume_weights`` when it names a reference
 ``.pth`` file (``classifier.*`` dropped), else by the stage-1 directory
 schema (``train.common.load_stage1_weights``; ``classifier.*`` and ``gamma``
 dropped); transformer weights from ``<ckpt_used>.pth`` under the
 reference's transformer directory schema. Without them the run evaluates the
-seeded random init (plumbing mode). Only synthetic episodes are supported so
-far; real datasets need the data loader and transforms, not yet ported.
+seeded random init (plumbing mode).
 """
 
 from __future__ import annotations
@@ -19,12 +23,11 @@ from __future__ import annotations
 import os
 
 from ..config import parse_args
-from ..data.synthetic import SequentialBatches, SyntheticEpisodicDataset
 from ..episodic.engine import EpisodicEngine
 from ..eval.validate import validate_transformer
 from ..utils.convert import load_torch_checkpoint
-from .common import (apply_debug, fp32_parity, load_backbone_weights, load_stage1_weights,
-                     set_seeds, trans_ckpt_dir)
+from .common import (apply_debug, episodic_val_loader, fp32_parity, load_backbone_weights,
+                     load_stage1_weights, set_seeds, trans_ckpt_dir)
 
 
 def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
@@ -51,18 +54,12 @@ def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
 
 def main(cfg, device="cuda", log=print) -> float:
     fp32_parity()
-    if not cfg.get("synthetic_data"):
-        raise NotImplementedError(
-            "the PyTorch port evaluates synthetic episodes only: real datasets "
-            "wait for the data loader and transforms (ROADMAP, queue 1: "
-            "'Data loader and transforms', then 'Real-data train/test.py')")
     set_seeds(cfg)
     apply_debug(cfg)
 
     engine = EpisodicEngine(cfg, device=device)
     load_eval_weights(cfg, engine, log)
-    dataset = SyntheticEpisodicDataset(cfg, length=max(cfg.test_num, 64), seed=2)
-    loader = SequentialBatches(dataset, int(cfg.episode_batch))
+    loader = episodic_val_loader(cfg, device=engine.device)
     miou, _ = validate_transformer(cfg, engine, loader, log=log)
     return miou
 

@@ -3,7 +3,7 @@
 Counterpart of ``few_shot_seg_cwt_tpu.train.train_cwt``:
 
     python -m few_shot_seg_cwt_tpu_torch.train.train_cwt --config configs/pascal.yaml \
-        --opts synthetic_data True epochs 1
+        --opts data_root <VOC2012 tree> [synthetic_data True epochs 1]
 
 Each step draws fresh classifier inits for ``episode_batch`` episodes,
 adapts them on the dropped-out support features (the inner loop: K1, or K2
@@ -21,7 +21,8 @@ state, epoch, best) and ``final.pth``. ``train.test`` with ``ckpt_used
 best`` evaluates ``best.pth``. ``resume_ckpt`` takes a train state (exact
 resume) or a transformer state_dict (weights only); ``auto_resume`` picks
 up this run's own train state; ``stop_after_epochs`` ends the run early.
-Episodes are synthetic only (ROADMAP queue 1 item 4).
+Episodes come from ``train.common.episodic_loaders`` (a dataset tree, or
+synthetic episodes), reshuffled each epoch.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def main(cfg, device="cuda", log=print) -> float:
     log(cfg)
     set_seeds(cfg)
     apply_debug(cfg)
-    train_loader, val_loader = episodic_loaders(cfg)
+    train_loader, val_loader = episodic_loaders(cfg, device=device)
     engine = EpisodicEngine(cfg, backbone=init_backbone(cfg, log=log), cwt=init_cwt(cfg),
                             device=device)
     # reference: one param group at trans_lr * scale_lr, no scheduler in stage 2

@@ -4,7 +4,7 @@ Counterpart of ``few_shot_seg_cwt_tpu.train.train_head``:
 
     python -m few_shot_seg_cwt_tpu_torch.train.train_head \
         --config configs/pascal_mmn.yaml \
-        --opts synthetic_data True use_amp False epochs 1
+        --opts data_root <VOC2012 tree> [synthetic_data True use_amp False epochs 1]
 
 Each step draws fresh classifier inits for the episodes, adapts them on the
 support features (inner loop), and takes one optimizer step on the head's
@@ -20,7 +20,7 @@ and best1; each step's classifier inits come from a generator seeded by
 (``manual_seed``, epoch, step)). ``resume_ckpt`` takes such a state (exact
 resume) or a head state_dict (weights only); ``auto_resume`` picks up this
 run's own train state; ``stop_after_epochs`` ends the run early. Not
-ported: the other heads (ROADMAP queue 1 items 7-10), real data (item 4).
+ported: the other heads (ROADMAP queue 1 items 7-10).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 
 from ..config import parse_args
 from ..episodic.heads import HeadEngine
+from ..data.loader import infinite
 from ..eval.validate import accumulate_fg_iou, batch_generator, exact_batch_sizes, fg_miou
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
 from ..utils.meters import AverageMeter, CompareMeter
@@ -55,7 +56,7 @@ def validate_head(cfg, engine: HeadEngine, loader, log=print):
     seed = int(cfg.manual_seed or 0)
     acc = {k: defaultdict(float) for k in ("i", "u", "i1", "u1")}
     loss_meter = AverageMeter()
-    stream = iter(loader)
+    stream = infinite(loader)
     for b, valid_n in enumerate(exact_batch_sizes(cfg.test_num, loader.batch_size)):
         out = engine.eval_metrics_batch(next(stream), batch_generator(seed, 0, b))
         out = {k: v.cpu().numpy() for k, v in out.items()}
@@ -87,7 +88,7 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
     set_seeds(cfg)
     apply_debug(cfg)
     head_type = head_type or cfg.get("head", "mmn")
-    train_loader, val_loader = episodic_loaders(cfg)
+    train_loader, val_loader = episodic_loaders(cfg, device=device)
     engine = HeadEngine(cfg, head_type, backbone=init_backbone(cfg, log=log), device=device)
     trainables = init_head_trainables(engine)
     optimizer, scheduler = build_optimizer(

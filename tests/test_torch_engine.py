@@ -229,8 +229,10 @@ def test_entry_point_runs_on_cpu_and_refuses_real_data():
     logs = []
     miou = entry.main(cfg, device="cpu", log=logs.append)
     assert 0.0 <= miou <= 1.0
+    # real data: a dataset tree that is not there is refused, naming the list
     cfg.synthetic_data = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.val_list = "no/such/val.txt"
+    with pytest.raises(RuntimeError, match="no/such/val.txt"):
         entry.main(cfg, device="cpu", log=logs.append)
 
 

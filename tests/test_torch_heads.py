@@ -363,5 +363,6 @@ def test_train_head_main_smoke(tmp_path, monkeypatch):
     head = build_mmn(cfg)
     head.load_state_dict(torch.load(saved[0], weights_only=True))
     cfg.synthetic_data = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.train_list = "no/such/train.txt"
+    with pytest.raises(RuntimeError, match="no/such/train.txt"):
         train_head.main(cfg, "mmn", device="cpu", log=lines.append)
