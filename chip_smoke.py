@@ -97,9 +97,22 @@ Phases (any failure raises and the script exits non-zero):
     alone). ``train_cwt.main`` (debug, FSS_INNER_TILE=2: K2 must launch) and
     ``train_head.main`` on configs/pascal_mmn.yaml as shipped on the flat
     route (pivot_fwd and pivot_dw must launch).
-11. A ``kernels`` JSON line (with each kernel's launches on the real-data
-    path), the card line, and as the last line ``{"ok": true, "device":
-    {...}}``.
+11. Stage-1 pretraining, VGG and the bench: (a) the pretrain step at full
+    width (configs/pascal_pretrain.yaml: ResNet-50, 473 px, batch 10, 16
+    classes, label smoothing, scale_lr 2), plain and with mixup: finite
+    losses, images/s, ms a step, peak memory; (b) ``train.pretrain.main`` on
+    a PNG tree (as in 10; 4 decode threads), one epoch with standard
+    validation and one with episodic validation (K1 must launch), then
+    ``train.test.main`` loading the ``best.ckpt`` it wrote from the stage-1
+    schema (it must log ``=> loaded weight``); (c) an episodic eval batch of
+    8 with ``arch vgg``: K1 at VGG's 30x30 features against the plain loop
+    (1e-4 * max|acc|), masks against the plain loop's (>= 99.5%), K1 timed
+    beside its bound; (d) ``tools.bench.run`` in every mode with 5 timed
+    batches (MMN modes on the flat route, the CWT train step at
+    FSS_INNER_TILE=2), each JSON line printed.
+12. A ``kernels`` JSON line (with each kernel's launches on the real-data
+    path, K1's in (b)'s episodic validation and its VGG figures), the card
+    line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -119,11 +132,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, TF32 on
-# them, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_HBM_BYTES = 3.35e12
+# the card's peaks, the kernels' work and bounds, and the card line: shared
+# with the port's bench
+from few_shot_seg_cwt_tpu_torch.tools.roofline import (PEAK_FP32_FLOPS, PEAK_HBM_BYTES,
+                                                       PEAK_TF32_FLOPS, bound, card_line,
+                                                       inner_loop_work, pivot_work)
 
 E, SHOT, IMG, FEAT, CH, STEPS, CLS_LR = 8, 1, 473, 60, 512, 200, 0.1
 TILE = 2                                     # K2's episodes per CTA at 473 px
@@ -136,13 +149,6 @@ ROUTE_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FS
                   "FSS_INNER_TILE")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def host_seconds(fn, reps: int) -> float:
     """Median host seconds of ``fn()`` ending in a synchronise."""
     times = []
@@ -152,34 +158,6 @@ def host_seconds(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times)
-
-
-def inner_loop_work(e, shot, h, w, c, big_h, big_w, steps):
-    """(flops, bytes) the K1 function needs, each input read once and the
-    output written once. Per shot and step: d = f.u and acc += G.f (2hwC
-    FLOP each); T = d B^T, D = A T, gB = g B and G = A^T gB counted by the
-    non-zeros of the align-corners matrices A (H, h) and B (W, w), two taps
-    per row; g = pw sigma(D) - pwy as 5 ops per pixel (exp, add, divide,
-    multiply, subtract)."""
-    from few_shot_seg_cwt_tpu_torch.ops.resize import interp_matrix_align_corners
-    nnz_a = np.count_nonzero(interp_matrix_align_corners(big_h, h))
-    nnz_b = np.count_nonzero(interp_matrix_align_corners(big_w, w))
-    per_step = (2 * 2 * h * w * c + 2 * h * nnz_b + 2 * nnz_a * big_w
-                + 5 * big_h * big_w + 2 * big_h * nnz_b + 2 * nnz_a * w)
-    flops = e * shot * steps * per_step
-    nbytes = 4 * (e * shot * h * w * c + 2 * e * shot * big_h * big_w + 2 * e * c)
-    return flops, nbytes
-
-
-def bound(flops, nbytes, tensor_cores=False):
-    """(ms, kind): the larger of the bytes over HBM's rate and the operations
-    over the fp32 rate. With ``tensor_cores`` the operations may also run
-    fp32-accurate on the tensor cores as 3xTF32 (three TF32 products for
-    each fp32 one), and the lesser of the two operation times applies."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    if tensor_cores:
-        t_ops = min(t_ops, 3 * flops / PEAK_TF32_FLOPS * 1e3)
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 @torch.no_grad()
@@ -200,7 +178,9 @@ def calibrate_batchnorm(model: nn.Module, images: torch.Tensor) -> None:
         m.momentum = None  # cumulative average over the calibration pass
     model.train()
     try:
-        model.extract_features(images)
+        # the bottleneck's channel dropout is live in train mode; its mask
+        # does not reach the statistics
+        model.extract_features(images, torch.Generator().manual_seed(0))
     finally:
         for m, mom in zip(bns, momenta):
             m.momentum = mom
@@ -267,14 +247,6 @@ def raw_init_witness(engine, batch, w0, cuda_inner_loop, binary_pixel_weights):
                              f"on {diff['kernel']:.4%} of pixels, more than the "
                              f"allowed {allowed:.4%}")
     return norm
-
-
-def pivot_work(ci, co, q, s):
-    """(flops, bytes) of one pivot pair call, or of its weight gradient: 2
-    FLOP per tap, 18 taps per (ci, co, q, s); each input element read once
-    and each output element written once, (Ci + Co) * Q * S floats (the
-    weights and the 18*Ci*Co + Co dW outputs add under 8 KB)."""
-    return 2 * 18 * ci * co * q * s, 4 * (ci + co) * q * s
 
 
 @contextlib.contextmanager
@@ -448,10 +420,12 @@ def calibrate_consensus(engine, calib_episodes, get_corr):
           f"(first two channels each)")
 
 
-def device_profile(fn, label, card):
+def device_profile(fn, label, card, groups=()):
     """One call of ``fn`` under torch.profiler (CUPTI): device ms per kernel,
     the port's kernels summed by name, the top others, and the device's idle
-    share of the wall time (one stream, so kernel times do not overlap)."""
+    share of the wall time (one stream, so kernel times do not overlap).
+    ``groups``: (name, substrings) pairs; the other kernels whose names hold
+    one of a group's substrings are summed under its name (first match)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -475,10 +449,18 @@ def device_profile(fn, label, card):
     ours = {name: sum(v for k, v in ms.items() if pat in k) for name, pat in patterns}
     others = sorted(((v, k) for k, v in ms.items()
                      if not any(pat in k for _, pat in patterns)), reverse=True)[:6]
+    grouped = {}
+    for k, v in ms.items():
+        if any(pat in k for _, pat in patterns):
+            continue
+        name = next((g for g, subs in groups if any(sub in k for sub in subs)), "rest")
+        grouped[name] = grouped.get(name, 0.0) + v
     print(f"{label}: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle share "
           f"{1 - busy / wall:.1%}); the port's kernels "
           f"{ {k: round(v, 1) for k, v in ours.items()} }; top other kernels "
-          f"{[(k[:70], round(v, 1)) for v, k in others]} [{card}]")
+          f"{[(k[:70], round(v, 1)) for v, k in others]}"
+          + (f"; by group {({k: round(v, 1) for k, v in grouped.items()})}" if groups else "")
+          + f" [{card}]")
 
 
 def launch_counts(*modules):
@@ -1501,6 +1483,214 @@ def real_data_phase(card, modules):
             "train_head_launches": mmn_launches, "feed": feed}
 
 
+# ---- stage-1 pretraining, VGG and the bench ----
+
+PRE_BATCH, PRE_CLASSES, PRE_STEPS = 10, 16, 3   # configs/pascal_pretrain.yaml
+
+
+def pretrain_steps_phase(card, load_cfg):
+    """(a) The stage-1 step at full width (configs/pascal_pretrain.yaml:
+    ResNet-50, 473 px, batch 10, 16 classes, label smoothing, scale_lr 2),
+    plain and with mixup: finite losses; images/s, ms a step and peak
+    memory over PRE_STEPS steps after a warm-up."""
+    from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
+    from few_shot_seg_cwt_tpu_torch.train.pretrain import (build_pretrain_optimizer,
+                                                           make_pretrain_step)
+
+    cfg = load_cfg("configs/pascal_pretrain.yaml")
+    got = (cfg.image_size, cfg.batch_size, cfg.num_classes_tr, cfg.smoothing, cfg.scale_lr,
+           cfg.layers, cfg.arch)
+    if got != (IMG, PRE_BATCH, PRE_CLASSES, True, 2.0, 50, "resnet"):
+        raise AssertionError(f"configs/pascal_pretrain.yaml no longer gives the stage-1 "
+                             f"step: {got}")
+    dev = torch.device("cuda")
+    model = build_pspnet(cfg).to(dev)
+    optimizer, scheduler = build_pretrain_optimizer(model, cfg, iters_per_epoch=100)
+    rng = np.random.default_rng(40)
+    img = torch.tensor(rng.standard_normal((PRE_BATCH, IMG, IMG, 3)).astype(np.float32),
+                       device=dev)
+    gt_np = rng.integers(0, PRE_CLASSES, (PRE_BATCH, IMG, IMG)).astype(np.int32)
+    gt_np[:, :40] = 255
+    gt = torch.tensor(gt_np, device=dev)
+    out = {}
+    for mixup in (False, True):
+        mcfg = cfg.clone()
+        mcfg.mixup = mixup
+        step = make_pretrain_step(model, optimizer, scheduler, mcfg)
+        gen = torch.Generator().manual_seed(41)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(img, gt, gen)["loss"])]                  # warm-up
+        s = host_seconds(lambda: losses.append(float(step(img, gt, gen)["loss"])), PRE_STEPS)
+        peak = peak_gib()
+        name = "mixup" if mixup else "plain"
+        print(f"pretrain step ({name}; configs/pascal_pretrain.yaml: ResNet-50, {IMG} px, "
+              f"batch {PRE_BATCH}, {PRE_CLASSES} classes, smoothing, scale_lr 2, fp32, TF32 "
+              f"off): {PRE_BATCH / s:.3f} images/s, {s * 1e3:.1f} ms a step (median of "
+              f"{PRE_STEPS}), peak {peak:.2f} GiB; losses {np.round(losses, 4).tolist()} "
+              f"[{card}]")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"pretrain step ({name}): non-finite loss {losses}")
+        if not mixup:
+            device_profile(lambda: step(img, gt, gen), f"pretrain step ({name}), "
+                           "torch.profiler", card, groups=(
+                               ("conv forward", ("fprop",)), ("conv dgrad", ("dgrad",)),
+                               ("conv wgrad", ("wgrad",)), ("batch norm", ("batch_norm", "bn_")),
+                               ("gemm (resize, PPM pools)", ("gemm", "sgemm")),
+                               ("elementwise", ("elementwise", "vectorized", "reduce"))))
+        out[name] = dict(images_per_s=PRE_BATCH / s, ms=s * 1e3, peak_gib=peak)
+    return out
+
+
+def pretrain_entry_phase(card, modules):
+    """(b) ``train.pretrain.main`` on a PNG tree (4 decode threads): one epoch
+    with standard validation, then one with episodic validation, where K1
+    must launch; then stage 2 (``train.test.main``) loads the ``best.ckpt``
+    it wrote from the stage-1 schema."""
+    load_cfg, merge_cfg_from_list, cuda_inner_loop = modules
+    from few_shot_seg_cwt_tpu_torch.train import pretrain
+    from few_shot_seg_cwt_tpu_torch.train import test as test_entry
+    from few_shot_seg_cwt_tpu_torch.train.common import stage1_weights_path
+
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_pretrain_", dir="build")
+    made = []
+    try:
+        with without_cv2_and_pil():
+            write_voc_tree(root)
+            data = ["data_root", root, "train_list", os.path.join(root, "train.txt"),
+                    "val_list", os.path.join(root, "val.txt"), "workers", "4"]
+
+            def cfg(path, *opts):
+                out = merge_cfg_from_list(load_cfg(path), data + list(opts))
+                out.scan_cache = os.path.join(root, ".scan_cache")
+                return out
+
+            runs = {}
+            for episodic in (False, True):
+                pcfg = cfg("configs/pascal_pretrain.yaml", "epochs", "1", "episodic_val",
+                           str(episodic), "exp_name", "chip_smoke_" + ("ep" if episodic else "std"),
+                           "episode_batch", str(E), "test_num", "16", "n_runs", "1",
+                           "log_freq", "1")
+                made.append(pretrain.save_dir(pcfg))
+                lines = []
+                cuda_inner_loop.reset_launches()
+                t0 = time.perf_counter()
+                best = pretrain.main(pcfg, device="cuda", log=lambda l: lines.append(str(l)))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(cuda_inner_loop.LAUNCHES)
+                epoch = next(l for l in lines if l.startswith("===== Epoch 0"))
+                val = next(l for l in lines if l.startswith(
+                    "episodic_validate run" if episodic else "Testing results"))
+                print(f"train.pretrain.main ({'episodic' if episodic else 'standard'} "
+                      f"validation; the tree's 32 train images in batches of {PRE_BATCH}, "
+                      f"16 val images): {epoch} {val}; best {best:.4f}; {wall:.1f} s wall; "
+                      f"launches {launches} [{card}]")
+                if not np.isfinite(best):
+                    raise AssertionError(f"pretrain.main returned {best}")
+                if episodic and launches["adapt_binary"] < 1:
+                    raise AssertionError(f"episodic validation did not launch K1: {launches}")
+                runs["episodic" if episodic else "standard"] = dict(
+                    launches=launches["adapt_binary"], best=best,
+                    ckpt=os.path.join(pretrain.save_dir(pcfg), "best.ckpt"))
+
+            # stage 2 on the stage-1 weights, through the reference's schema
+            weights = os.path.join(root, "weights")
+            tcfg = cfg("configs/pascal.yaml", "resume_weights", weights, "episode_batch",
+                       str(E), "test_num", "16", "n_runs", "1")
+            path = stage1_weights_path(tcfg)
+            os.makedirs(os.path.dirname(path))
+            shutil.copyfile(runs["episodic"]["ckpt"], path)
+            lines = []
+            miou = test_entry.main(tcfg, device="cuda", log=lambda l: lines.append(str(l)))
+            loaded = f"=> loaded weight '{path}'"
+            print(f"train.test.main on the stage-1 best.ckpt: '{loaded}' logged: "
+                  f"{loaded in lines}; mIoU {miou:.4f}")
+            if loaded not in lines or not np.isfinite(miou):
+                raise AssertionError(f"stage 2 did not load the stage-1 weights: {lines[:5]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        for d in made:
+            shutil.rmtree(d, ignore_errors=True)
+    return runs
+
+
+def vgg_phase(card, calib_images, modules):
+    """(c) One episodic eval batch of 8 with ``arch vgg`` (30x30 features at
+    473 px), BN calibrated: counted, K1 at its shapes against the plain loop
+    (1e-4 * max|acc|) and the masks against the plain loop's (>= 99.5%),
+    K1 timed beside its bound."""
+    (load_cfg, merge_cfg_from_list, EpisodicEngine, make_episode_batch, cuda_inner_loop,
+     binary_pixel_weights, cuda_ms) = modules
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal.yaml"),
+                              ["arch", "vgg", "episode_batch", str(E), "cls_lr", str(CLS_LR)])
+    engine = EpisodicEngine(cfg, device="cuda")
+    calibrate_batchnorm(engine.backbone, calib_images)
+    episodes = make_episode_batch(17, E, size=IMG, shot=SHOT)
+    w0 = engine.init_weights(E, torch.Generator().manual_seed(18))
+    batch = engine.to_device(episodes)
+    cuda_inner_loop.reset_launches()
+    masks = engine.serve_batch(episodes, w0=w0)
+    metrics = engine.eval_metrics_batch_no_cwt(episodes, w0=w0)
+    torch.cuda.synchronize()
+    launches = dict(cuda_inner_loop.LAUNCHES)
+    with torch.no_grad():
+        f_s, f_q = engine._episode_features(batch)
+        pw, pwy = binary_pixel_weights(batch["s_label"])
+        u0 = (w0[:, 1] - w0[:, 0]).contiguous()
+        acc_k = cuda_inner_loop.adapt_binary(f_s, pw, pwy, u0, STEPS, CLS_LR)
+        acc_p = cuda_inner_loop.adapt_binary_reference(f_s, pw, pwy, u0, STEPS, CLS_LR)
+        w_plain = torch.stack([w0[:, 0] + CLS_LR * acc_p, w0[:, 1] - CLS_LR * acc_p], dim=1)
+        masks_plain = engine.mask_from_prediction(engine._predict(f_q, w_plain)[0], (IMG, IMG))
+    torch.cuda.synchronize()
+    err, tol = float((acc_k - acc_p).abs().max()), 1e-4 * float(acc_p.abs().max())
+    agree = float((masks == masks_plain).float().mean())
+    h = f_s.shape[2]
+    ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary(f_s, pw, pwy, u0, STEPS, CLS_LR), 5)
+    plain_ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary_reference(
+        f_s, pw, pwy, u0, STEPS, CLS_LR), 3)
+    flops, nbytes = inner_loop_work(E, SHOT, h, h, CH, IMG, IMG, STEPS)
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"VGG episodic eval (arch vgg, {h}x{h} features, batch of {E}): launches "
+          f"{launches}; K1 max|acc_k - acc_p| = {err:.3e} (tolerance 1e-4 * max|acc_p| = "
+          f"{tol:.3e}); masks against the plain loop's {agree:.6f} (>= 0.995 needed); K1 "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) [{card}]")
+    if h != -(-IMG // 16) or launches["adapt_binary"] < 1:    # ceil-mode pools: 30 at 473
+        raise AssertionError(f"VGG path: features {h}x{h}, launches {launches}")
+    if not np.isfinite(err) or err > tol or agree < 0.995:
+        raise AssertionError(f"VGG K1: error {err} > {tol} or masks {agree} < 0.995")
+    if not all(torch.isfinite(metrics[k]).all() for k in ("inter0", "union0", "loss0")):
+        raise AssertionError("VGG no-CWT metrics are not finite")
+    return dict(launches=launches["adapt_binary"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def bench_phase(card):
+    """(d) ``tools.bench.run`` in every mode, 5 timed batches: the pivot
+    kernels on the flat route in the MMN modes, K2 (FSS_INNER_TILE=2) in
+    the CWT train step; each JSON line printed."""
+    from few_shot_seg_cwt_tpu_torch.tools import bench
+
+    lines = {}
+    for mode in bench.MODES:
+        flat = mode.startswith("head")
+        with pivot_route(flat), inner_tile(2 if mode == "train" else None):
+            out = bench.run(mode, device="cuda", batches=5, quiet=1)
+        print(f"bench {json.dumps(out)}")
+        if not (np.isfinite(out["value"]) and np.isfinite(out["mfu"])):
+            raise AssertionError(f"bench {mode}: {out}")
+        want = {"eval": "adapt_binary", "train": "adapt_binary_tiled",
+                "head": "pivot_dw", "head_eval": "pivot_fwd", "head_serve": "pivot_fwd"}
+        if mode in want and out["kernel_launches"].get(want[mode], 0) < 1:
+            raise AssertionError(f"bench {mode} did not launch {want[mode]}: "
+                                 f"{out['kernel_launches']}")
+        lines[mode] = out
+        torch.cuda.empty_cache()
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1757,6 +1947,18 @@ def main() -> int:
     # ---- 10. real data: a PNG tree, with cv2 and PIL blocked ----
     real = real_data_phase(card, (load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot))
 
+    # ---- 11. stage-1 pretraining, VGG and the bench ----
+    del engine
+    torch.cuda.empty_cache()
+    pretrain_steps_phase(card, load_cfg)
+    torch.cuda.empty_cache()
+    pre = pretrain_entry_phase(card, (load_cfg, merge_cfg_from_list, cuda_inner_loop))
+    vgg = vgg_phase(card, calib_images, (load_cfg, merge_cfg_from_list, EpisodicEngine,
+                                         make_episode_batch, cuda_inner_loop,
+                                         binary_pixel_weights, cuda_ms))
+    torch.cuda.empty_cache()
+    bench_phase(card)
+
     main_block = pivot[(10, 10)]  # the heaviest consensus block stands for each kernel
     kernels = [{
         "name": "adapt_binary",
@@ -1771,6 +1973,8 @@ def main() -> int:
         "bound_by": k1_bound_by,
         "library_ms": None,
         "real_data": {"launches": real["eval_launches"]["adapt_binary"]},
+        "pretrain_episodic_val": {"launches": pre["episodic"]["launches"]},
+        "vgg_30x30": vgg,
         "shot5": {"launches": cwt_shot5_k1, "max_abs_err": k1_shot5["err"],
                   "ms": k1_shot5["ms"], "plain_ms": k1_shot5["plain_ms"],
                   "bound_ms": k1_shot5["bound_ms"], "bound_by": k1_shot5["bound_by"]},

@@ -6,7 +6,7 @@ from .classes import (
     resolve_train_classes,
     resolve_val_classes,
 )
-from .episodic import EpisodicDataset, binarize
+from .episodic import EpisodicDataset, StandardDataset, binarize
 from .listing import make_dataset
 from .loader import EpisodeLoader, collate, infinite
 from .replay import ReplayEpisodicDataset, load_episode_log
@@ -26,6 +26,7 @@ __all__ = [
     "resolve_train_classes",
     "resolve_val_classes",
     "EpisodicDataset",
+    "StandardDataset",
     "binarize",
     "make_dataset",
     "EpisodeLoader",

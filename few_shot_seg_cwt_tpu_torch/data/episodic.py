@@ -16,8 +16,8 @@ in the same order, so the same seeds give the JAX package's episodes:
   (FitCrop / ColorJitter / RandScale, which need OpenCV), aug_type in
   {0,1,2,3,10} (src:330-403).
 
-Images and masks decode through ``data.imread`` (PNG without OpenCV). The
-stage-1 ``StandardDataset`` waits for pretraining (ROADMAP queue 1 item 6).
+``StandardDataset`` gives stage-1 pretraining's multi-class records.
+Images and masks decode through ``data.imread`` (PNG without OpenCV).
 Returned episodes are dicts of numpy arrays in NHWC; batching and the copy to
 the card live in ``data.loader``.
 """
@@ -304,3 +304,41 @@ class EpisodicDataset:
                 [T.RandScale((scale, scale + 0.1), fixed_size=self.image_size,
                              padding=self.padding)] + self._tail(1), img, lab)
         return [i], [l]
+
+
+class StandardDataset:
+    """Multi-class segmentation records ``{"img", "label"}`` for stage-1
+    pretraining: the train (or val) list scanned for the fold's train
+    classes, labels remapped to fold-local contiguous ids (0 stays
+    background); any other class, and 255, becomes 255. Train records go
+    through the config's augmentations, val records through resize +
+    normalize."""
+
+    def __init__(self, cfg, train: bool = True, transform: Optional[T.Compose] = None):
+        self.cfg = cfg
+        self.class_list = resolve_train_classes(cfg)
+        list_file = cfg.train_list if train else cfg.val_list
+        self.data_list, _ = make_dataset(
+            cfg.data_root, list_file, self.class_list,
+            num_workers=cfg.workers, cache_dir=cfg.get("scan_cache", ".scan_cache"),
+        )
+        self.transform = transform or (
+            T.build_aug_pipeline(cfg, cfg.augmentations) if train
+            else T.build_val_pipeline(cfg)
+        )
+
+    def __len__(self) -> int:
+        return len(self.data_list)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        image_path, label_path = self.data_list[index]
+        image, label = _read_pair(image_path, label_path)
+        new_label = np.zeros_like(label)
+        for c in np.unique(label).tolist():
+            if c in (0, 255):
+                continue
+            new_label[label == c] = (self.class_list.index(c) + 1
+                                     if c in self.class_list else 255)
+        new_label[label == 255] = 255
+        img, lab = self.transform(image, new_label)
+        return {"img": img.astype(np.float32), "label": lab.astype(np.int32)}

@@ -61,7 +61,8 @@ class _PinnedRing:
 
     def copy(self, records) -> Dict[str, Any]:
         """Collate ``records`` into the next free slot and start its copy;
-        returns the device tensors and the event that ends the copy."""
+        returns the device tensors and the event that ends the copy. A
+        short tail batch (``drop_last=False``) fills the slot's first rows."""
         with self.lock:
             if not self.buffers:
                 self._allocate(records)
@@ -69,7 +70,7 @@ class _PinnedRing:
             self.next = (k + 1) % self.slots
             if self.events[k] is not None:
                 self.events[k].synchronize()  # the slot's last copy has landed
-            host = self.buffers[k]
+            host = {name: buf[:len(records)] for name, buf in self.buffers[k].items()}
             for name, buf in host.items():
                 np.stack([r[name] for r in records], axis=0, out=buf.numpy())
             with torch.cuda.device(self.device), torch.cuda.stream(self.stream):

@@ -256,6 +256,21 @@ class EpisodicEngine:
         return out
 
     @torch.no_grad()
+    def eval_metrics_batch_no_cwt(self, episodes, generator: Optional[torch.Generator] = None,
+                                  w0: Optional[torch.Tensor] = None
+                                  ) -> Dict[str, torch.Tensor]:
+        """Inner loop + the adapted classifier's own query metrics, no CWT:
+        per-episode ``inter0``, ``union0``, ``loss0`` and ``cls``. Stage-1
+        pretraining's episodic validation (reference src/test.py:257-371
+        has no transformer)."""
+        batch = self.to_device(episodes)
+        e = batch["q_img"].shape[0]
+        f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
+        inter0, union0, loss0 = self._upsampled_metrics(apply_classifier(w, f_q),
+                                                        batch["q_label"])
+        return {"inter0": inter0, "union0": union0, "loss0": loss0, "cls": batch["cls"]}
+
+    @torch.no_grad()
     def serve_batch(self, episodes, generator: Optional[torch.Generator] = None,
                     w0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Label-free inference: E episodes -> (E, H, W) int32 query masks."""

@@ -12,9 +12,11 @@ inits of batch b of run r are drawn from a ``torch.Generator`` seeded from
 (manual_seed, r, b), so a run is reproducible on any device. Each run
 walks a fresh wrap-around stream of the loader; a replayed episode log
 (``replay``) is one stream across runs, so run r scores log episodes
-r * test_num onwards, as the reference's persistent iterator does. Single
-process; the mesh and multi-process branches of the JAX package are not
-ported yet (ROADMAP queue 1 item 13).
+r * test_num onwards, as the reference's persistent iterator does.
+``episodic_validate`` is the same protocol without the transformer, scoring
+the adapted inner-loop classifier (stage-1 pretraining's episodic
+validation). Single process; the mesh and multi-process branches of the JAX
+package are not ported yet (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -131,4 +133,32 @@ def validate_transformer(cfg, engine, loader: Iterable[Dict],
 
     log(f"Average mIoU over {cfg.n_runs} runs --- {run_mious.mean():.4f}.")
     log(f"Average runtime / run --- {runtimes.mean():.4f}.")
+    return float(run_mious.mean()), float(run_losses.mean())
+
+
+def episodic_validate(cfg, engine, loader: Iterable[Dict],
+                      log=print) -> Tuple[float, float]:
+    """No-transformer episodic evaluation (reference src/test.py:257-371):
+    the protocol of ``validate_transformer`` scored on the adapted
+    classifier's own query logits (``eval_metrics_batch_no_cwt``) and its
+    own CE. Each run walks a fresh stream of ``loader``; returns (mean
+    mIoU over runs, mean loss)."""
+    e_batch = loader.batch_size
+    seed = int(cfg.manual_seed if cfg.manual_seed is not None else 0)
+    run_mious = np.zeros(cfg.n_runs)
+    run_losses = np.zeros(cfg.n_runs)
+    for run in range(cfg.n_runs):
+        cls_inter: Dict[int, float] = defaultdict(float)
+        cls_union: Dict[int, float] = defaultdict(float)
+        loss_meter = AverageMeter()
+        stream = infinite(loader)
+        for b, valid_n in enumerate(exact_batch_sizes(cfg.test_num, e_batch)):
+            out = engine.eval_metrics_batch_no_cwt(next(stream),
+                                                   batch_generator(seed, run, b))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            accumulate_fg_iou(cls_inter, cls_union, out, suffix="0", limit=valid_n)
+            loss_meter.update(float(out["loss0"][:valid_n].mean()), n=valid_n)
+        run_mious[run] = fg_miou(cls_inter, cls_union)
+        run_losses[run] = loss_meter.avg
+        log(f"episodic_validate run {run}: mIoU {run_mious[run]:.4f}")
     return float(run_mious.mean()), float(run_losses.mean())

@@ -7,7 +7,10 @@ Counterpart of ``few_shot_seg_cwt_tpu.models.resnet``: ResNet-50/101 with
   Sequential indices (conv ``0, 3, 6``, BN ``1, 4, 7``);
 * layer3 with dilation 2 and layer4 with dilation 4, both stride 1, so the
   output stride is 8 (60x60 features at 473 px);
-* BatchNorm with eps 1e-5, run on its running statistics (eval mode).
+* ``BatchNorm2d``: eps 1e-5, momentum 0.1, run on its running statistics
+  in eval mode; in train mode (stage-1 pretraining) it normalises with the
+  batch statistics and updates the running variance with the biased batch
+  variance, as flax's ``nn.BatchNorm`` does.
 
 Parameter names are the reference repo's (``layerN.i.convK`` / ``bnK`` /
 ``downsample.{0,1}``), so a reference state_dict loads with
@@ -20,9 +23,39 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 # block counts per stage (reference: src/model/resnet.py:198,210)
 RESNET_DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows flax's update.
+
+    In train mode torch folds the *unbiased* batch variance into
+    ``running_var`` and flax the *biased* one; the output (normalised with
+    the biased variance) is the same. torch updates copies of the running
+    statistics here, and the buffers take its mean and, for the variance,
+    flax's value: with factor f, n values a channel and v_old the previous
+    statistic, torch's copy holds (1-f) v_old + f v n/(n-1) and flax's is
+    (1-f) v_old + f v = copy (n-1)/n + (1-f) v_old / n. The copies keep the
+    buffers out of autograd's saved tensors, which an in-place update after
+    the op would invalidate. Eval mode is ``nn.BatchNorm2d`` itself."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        f = (self.momentum if self.momentum is not None
+             else 1.0 / float(self.num_batches_tracked))
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, f, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            self.running_var.mul_(1.0 - f).div_(n).add_(var, alpha=(n - 1) / n)
+        return out
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
@@ -42,16 +75,16 @@ class Bottleneck(nn.Module):
                  dilation: int = 1, has_downsample: bool = False):
         super().__init__()
         self.conv1 = conv(in_ch, planes, 1)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = conv(planes, planes, 3, stride, dilation)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = conv(planes, planes * 4, 1)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample: Optional[nn.Sequential] = None
         if has_downsample:
             self.downsample = nn.Sequential(
-                conv(in_ch, planes * 4, 1, stride), nn.BatchNorm2d(planes * 4))
+                conv(in_ch, planes * 4, 1, stride), BatchNorm2d(planes * 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.relu(self.bn1(self.conv1(x)))
@@ -64,12 +97,14 @@ class Bottleneck(nn.Module):
 class DilatedResNet(nn.Module):
     """Deep-stem dilated ResNet trunk: (N, 3, H, W) -> (N, 2048, H/8, W/8)."""
 
+    arch = "resnet"
+
     def __init__(self, depth: int = 50):
         super().__init__()
         self.layer0 = nn.Sequential(
-            conv(3, 64, 3, 2), nn.BatchNorm2d(64), nn.ReLU(inplace=True),
-            conv(64, 64, 3), nn.BatchNorm2d(64), nn.ReLU(inplace=True),
-            conv(64, 128, 3), nn.BatchNorm2d(128), nn.ReLU(inplace=True),
+            conv(3, 64, 3, 2), BatchNorm2d(64), nn.ReLU(inplace=True),
+            conv(64, 64, 3), BatchNorm2d(64), nn.ReLU(inplace=True),
+            conv(64, 128, 3), BatchNorm2d(128), nn.ReLU(inplace=True),
             nn.MaxPool2d(kernel_size=3, stride=2, padding=1),
         )
         # (planes, first-block stride, dilation) per stage; layers 3/4 dilated
@@ -89,17 +124,25 @@ class DilatedResNet(nn.Module):
 
 
 def run_trunk(trunk: nn.Module, x: torch.Tensor, return_feats: bool = False):
-    """``trunk.layer0..layer4`` (a DilatedResNet, or a PSPNet that holds the
-    stages itself): (N, 3, H, W) -> (N, 2048, H/8, W/8); with
-    ``return_feats`` also ``feats[stage] = [block outputs]`` for stages 1..4
-    (NCHW), as the JAX trunk returns them. Under a stage dtype policy the
-    input of the stem and of each stage is cast to that stage's dtype."""
+    """``trunk.layer0..layer4`` (a DilatedResNet or VGG16BN, or a PSPNet that
+    holds the stages itself): (N, 3, H, W) -> (N, 2048, H/8, W/8) for the
+    ResNet, (N, 512, ~H/16, ~W/16) for VGG; with ``return_feats`` also
+    ``feats[stage]`` for stages 1..4 (NCHW), as the JAX trunk returns them:
+    the ResNet's block outputs, VGG's stage output. Under a stage dtype
+    policy the input of the stem and of each stage is cast to that stage's
+    dtype."""
     x = trunk.layer0(stage_cast(trunk, x, "stem"))
+    per_block = trunk.arch == "resnet"
     feats = {}
     for stage in range(1, 5):
         x = stage_cast(trunk, x, f"layer{stage}")
+        layer = getattr(trunk, f"layer{stage}")
+        if not per_block:
+            x = layer(x)
+            feats[stage] = [x]
+            continue
         outs = []
-        for block in getattr(trunk, f"layer{stage}"):
+        for block in layer:
             x = block(x)
             if return_feats:  # held only where a head reads them
                 outs.append(x)
@@ -115,12 +158,15 @@ def stage_cast(model: nn.Module, x: torch.Tensor, stage: str) -> torch.Tensor:
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded torch-default init: kaiming-normal (fan_out) for conv kernels,
-    unit/zero BN affine and zero/unit running stats."""
+    """Seeded torch-default init: kaiming-normal (fan_out) for conv kernels
+    and zero conv biases (VGG's convs have them), unit/zero BN affine and
+    zero/unit running stats."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             nn.init.kaiming_normal_(m.weight, mode="fan_out",
                                     nonlinearity="relu", generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.BatchNorm2d):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

@@ -10,6 +10,7 @@ from .losses import (
     class_balance_weights,
     cross_entropy,
     seg_loss,
+    smoothed_cross_entropy,
     weighted_cross_entropy,
     weighted_dice_loss,
 )
@@ -32,6 +33,7 @@ __all__ = [
     "class_balance_weights",
     "cross_entropy",
     "seg_loss",
+    "smoothed_cross_entropy",
     "weighted_cross_entropy",
     "weighted_dice_loss",
     "get_corr",

@@ -3,8 +3,8 @@
 Counterparts of ``few_shot_seg_cwt_tpu.ops.losses``: class-weighted CE with
 ignore index 255 and the weight-normalised mean of ``nn.CrossEntropyLoss``,
 its K=2 form on the logit difference, the per-episode dynamic class
-weights [1, n_bg/n_fg], the binary dice loss and the ``seg_loss`` dispatcher
-of the head trainers.
+weights [1, n_bg/n_fg], the binary dice loss, the ``seg_loss`` dispatcher
+of the head trainers and stage-1 pretraining's label-smoothing CE.
 """
 
 from __future__ import annotations
@@ -76,6 +76,25 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     """Unweighted nn.CrossEntropyLoss(ignore_index=255), mean over valid pixels."""
     ones = torch.ones((logits.shape[-1],), dtype=torch.float32, device=logits.device)
     return weighted_cross_entropy(logits, target, ones, ignore_index)
+
+
+def smoothed_cross_entropy(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
+                           smoothing: float = 0.1, ignore_index: int = 255) -> torch.Tensor:
+    """Label-smoothing CE of stage-1 pretraining (src/pretrain.py:196-218).
+
+    The true class gets 1 - eps and every other class eps / (C - 1).
+    Pixels labelled ``ignore_index`` are scattered to class 0 for the
+    one-hot, as the reference does, and masked out of the mean.
+    logits: (..., H, W, C); target: (..., H, W).
+    """
+    valid = target != ignore_index
+    tgt = torch.where(valid, target, torch.zeros_like(target)).long()
+    onehot = F.one_hot(tgt, num_classes).float()
+    smoothed = onehot * (1.0 - smoothing) + (1.0 - onehot) * (
+        smoothing / max(num_classes - 1, 1))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss_pix = -torch.sum(smoothed * logp, dim=-1) * valid.float()
+    return torch.sum(loss_pix) / torch.clamp(torch.sum(valid), min=1)
 
 
 def weighted_dice_loss(

@@ -12,7 +12,12 @@ into the port with ``load_state_dict``, and so does a reference ``.pth``.
 * BN ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats) ->
   ``weight``/``bias``/``running_mean``/``running_var``, plus
   ``num_batches_tracked``;
-* the episodic classifier (C, K) -> a (K, C, 1, 1) 1x1 conv.
+* the classifier (C, K) -> a (K, C, 1, 1) 1x1 conv (``classifier.weight``,
+  or ``weight_v`` beside ``weight_g`` (K, 1, 1, 1) under weight norm; the
+  cosine classifier's under ``classifier.cls.*``, with
+  ``classifier.scale_factor``);
+* the VGG trunk's ``stage<s>_conv<b>`` / ``stage<s>_bn<b>`` -> the
+  reference's Sequential slices ``layer<s>.<3b>`` / ``layer<s>.<3b+1>``.
 """
 
 from __future__ import annotations
@@ -43,12 +48,28 @@ def _bn(sd: Dict[str, torch.Tensor], prefix: str, params: Mapping,
     sd[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def pspnet_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax PSPNet (resnet arch, dot classifier) variables -> torch state_dict."""
+def pspnet_state_dict_from_flax(variables: Mapping[str, Any],
+                                dist: str = "dot") -> Dict[str, torch.Tensor]:
+    """flax PSPNet variables (ResNet or VGG trunk) -> torch state_dict;
+    ``dist`` names the classifier (``dot``, or ``cos`` / ``cosN`` for the
+    cosine classifier), which the variables alone do not tell apart."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     trunk, trunk_stats = params["trunk"], stats.get("trunk", {})
-    for name, idx in _STEM.items():
+    for name, p in trunk.items():
+        m = re.match(r"stage([0-4])_(conv|bn)(\d+)$", name)
+        if not m:
+            continue
+        idx = 3 * int(m.group(3)) + (m.group(2) == "bn")
+        prefix = f"layer{m.group(1)}.{idx}"
+        if m.group(2) == "conv":
+            sd[prefix + ".weight"] = _conv(p["kernel"])
+            sd[prefix + ".bias"] = _t(p["bias"])
+        else:
+            _bn(sd, prefix, p, trunk_stats[name])
+    for name, idx in _STEM.items():     # the ResNet's deep stem
+        if name not in trunk:
+            continue
         if name.startswith("conv"):
             sd[f"layer0.{idx}.weight"] = _conv(trunk[name]["kernel"])
         else:
@@ -77,8 +98,18 @@ def pspnet_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch
             _bn(sd, f"ppm.features.{i}.2", leaf, stats["ppm"][key])
     sd["bottleneck.0.weight"] = _conv(params["bottleneck_conv"]["kernel"])
     _bn(sd, "bottleneck.1", params["bottleneck_bn"], stats["bottleneck_bn"])
-    w = np.asarray(params["classifier"]["weight"])          # (C, K)
-    sd["classifier.weight"] = _t(w.T[:, :, None, None])
+    cls = params["classifier"]
+    prefix = "classifier.cls." if dist in ("cos", "cosN") else "classifier."
+    w = _t(np.asarray(cls["weight"]).T[:, :, None, None])   # (C, K) -> (K, C, 1, 1)
+    if "weight_g" in cls:
+        sd[prefix + "weight_v"] = w
+        sd[prefix + "weight_g"] = _t(np.asarray(cls["weight_g"]).reshape(-1, 1, 1, 1))
+    else:
+        sd[prefix + "weight"] = w
+    if "bias" in cls:
+        sd[prefix + "bias"] = _t(cls["bias"])
+    if "scale_factor" in cls:
+        sd["classifier.scale_factor"] = _t(cls["scale_factor"])
     if "gamma" in params:
         sd["gamma"] = _t(params["gamma"])
     return sd

@@ -74,3 +74,21 @@ def test_a_consumer_on_its_own_stream_waits_for_the_copy(device):
     torch.cuda.synchronize()
     want = [float(ds[i]["q_img"].astype(np.float64).sum()) for i in range(len(ds))]
     np.testing.assert_allclose(torch.cat(sums).cpu().numpy(), want, rtol=1e-12)
+
+
+@pytest.mark.parametrize("workers", [0, 3])
+def test_a_short_tail_batch_fills_the_first_rows_of_a_slot(device, workers):
+    """``drop_last=False`` (stage-1 standard validation): the tail batch of
+    24 records in batches of 5 has 4 rows, copied from the first rows of a
+    slot allocated at the full batch; the next pass reuses the slots."""
+    ds = _Records()
+    loader = EpisodeLoader(ds, batch_size=5, shuffle=False, num_workers=workers, prefetch=1,
+                           drop_last=False, device=device)
+    for _ in range(2):
+        batches = list(loader)
+        assert [b["q_img"].shape[0] for b in batches] == [5, 5, 5, 5, 4]
+        for b, batch in enumerate(batches):
+            want = collate([ds[i] for i in range(5 * b, min(5 * b + 5, len(ds)))])
+            for k, v in want.items():
+                assert torch.equal(batch[k].cpu(), torch.from_numpy(v)), (b, k)
+    assert all(buf.shape[0] == 5 for slot in loader._ring.buffers for buf in slot.values())
