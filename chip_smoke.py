@@ -61,7 +61,22 @@ Phases (any failure raises and the script exits non-zero):
    dropout on. Then
    (6b) the train step of 2 at shot 5 on the flat route, counted, with the
    k-shot defaults and, where their peak memory leaves room, ``shot_tile
-   5`` and ``shot_native``: episodes/s and peak memory of each.
+   5`` and ``shot_native``: episodes/s and peak memory of each. (6c) On
+   the same engine: one train step of 2 with ``meta_aug 2`` and
+   ``att_type 3`` (two views a support, the better one read; pivot_dw must
+   launch), and eval of 4 with ``eval_episode_tile 2`` (masks and I/U
+   equal to the untiled run's). (6d) The match head, configs/
+   pascal_match.yaml as shipped (ResNet-50, ``rmid mid4``, ``crm_type nc``,
+   cycle mask at eval, cosine classifier, fp32; BN statistics and
+   consensus biases calibrated as for MMN): the pivot pair at its first
+   block's new shape 1 -> 10 as in 3b; eval + serve of 4 and a train step
+   of 2 on the rank-4, flat and 6D routes, counted (K1 on every route, the
+   pivot kernels on the flat route only), argmax of pred and pred1 >= 99.5%
+   equal to rank-4's, gradients within 1e-3 of each tensor's largest
+   entry, episodes/s and peak memory; then ``conv4d cv4`` on each
+   ``FSS_CONV4D_IM2COL`` route (q, qp, gemm, loop): an eval batch of 2 and
+   a train step of 2, predictions within 1e-4 and gradients within 1e-3 of
+   the q route's, ms and peak memory of each.
 7. The trainer entry points ``train.train_head.main`` on pascal_mmn.yaml as
    shipped and ``train.train_kshot.main`` at shot 5, with synthetic
    episodes; their validation lines are printed.
@@ -96,7 +111,10 @@ Phases (any failure raises and the script exits non-zero):
     lines both times, and run 2 scores log episodes 16-31 (their classes
     alone). ``train_cwt.main`` (debug, FSS_INNER_TILE=2: K2 must launch) and
     ``train_head.main`` on configs/pascal_mmn.yaml as shipped on the flat
-    route (pivot_fwd and pivot_dw must launch).
+    route (pivot_fwd and pivot_dw must launch); ``train_match.main`` on
+    configs/pascal_match.yaml on the flat route (K1 and both pivot kernels
+    must launch), one epoch with its train state saved, then a ``debug``
+    run resuming from it for the second epoch.
 11. Stage-1 pretraining, VGG and the bench: (a) the pretrain step at full
     width (configs/pascal_pretrain.yaml: ResNet-50, 473 px, batch 10, 16
     classes, label smoothing, scale_lr 2), plain and with mixup: finite
@@ -111,8 +129,9 @@ Phases (any failure raises and the script exits non-zero):
     batches (MMN modes on the flat route, the CWT train step at
     FSS_INNER_TILE=2), each JSON line printed.
 12. A ``kernels`` JSON line (with each kernel's launches on the real-data
-    path, K1's in (b)'s episodic validation and its VGG figures), the card
-    line, and as the last line ``{"ok": true, "device": {...}}``.
+    path, K1's in (b)'s episodic validation and its VGG figures, and the
+    match head's launches and the pivot pair's figures at 1 -> 10), the
+    card line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -291,7 +310,7 @@ def pivot_grads(fn, x, wa, wb, bias, t, dtype=torch.float32):
     return [a.grad for a in leaves]
 
 
-def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card):
+def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=PIVOT_BLOCKS):
     """Each consensus block at 473 px: pivot_fwd with the ReLU against the
     plain version (max|y_k - y_p| <= 1e-5 max|y_p|); the autograd.Function's
     dx (pivot_fwd with flipped weights) and (dwa, dwb, db) (pivot_dw) against
@@ -307,7 +326,7 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card):
     rng = np.random.default_rng(4)
     q = s = FEAT * FEAT
     out = {}
-    for ci, co in PIVOT_BLOCKS:
+    for ci, co in blocks:
         x = torch.tensor(rng.standard_normal((1, ci, q, s), dtype=np.float32), device=dev)
         w = (rng.standard_normal((2, 3, 3, ci, co)) / np.sqrt(18 * ci)).astype(np.float32)
         wa, wb = (torch.tensor(a, device=dev) for a in w)
@@ -387,28 +406,12 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card):
 
 
 @torch.no_grad()
-def calibrate_consensus(engine, calib_episodes, get_corr):
-    """Set each consensus block's bias so that half of its outputs on a
-    calibration episode's correlation volume are positive (median
-    pre-activation per output channel at 0), block after block.
-
-    With the seeded random init (zero biases) the last block's ReLU can zero
-    the whole filtered volume: the readout is then a plain average over the
-    support and neither route's consensus reaches the prediction. This gives
-    the consensus the live units a trained one has, as ``calibrate_batchnorm``
-    does for the backbone. Runs on the flat route; conv2's bias stays 0.
-    """
-    from few_shot_seg_cwt_tpu_torch.ops.corr import mutual_matching_flat
-
-    batch = engine.to_device({k: v[:1] for k, v in calib_episodes.items()})
-    w0 = engine.init_weights(1, torch.Generator().manual_seed(9))
-    part = engine._one(engine.episode_parts(batch, w0), batch, 0)[0]
-    head = engine.head
-    corr = torch.stack([get_corr(q, s) for q, s in zip(head.prep_query(part["fq_feats"]),
-                                                         head.prep_query(part["fs_feats"]))],
-                       dim=1)
-    x = mutual_matching_flat(corr)
-    for blk in list(head.corr_net.NeighConsensus.conv)[::2]:
+def calibrate_blocks(consensus, x):
+    """Set each block's bias of ``consensus`` so that half of its outputs on
+    the flat volume ``x`` (after mutual matching) are positive (median
+    pre-activation per output channel at 0), block after block; conv2's
+    bias stays 0."""
+    for blk in list(consensus.conv)[::2]:
         blk.conv1.bias.zero_()
         blk.conv2.bias.zero_()
         pre = blk(x, False, False, PIVOT_DIMS)
@@ -416,8 +419,49 @@ def calibrate_consensus(engine, calib_episodes, get_corr):
         blk.conv1.bias.copy_(-med)
         x = torch.relu(pre - med.view(1, -1, 1, 1))
     print(f"consensus calibration: block biases "
-          f"{[round(float(b), 5) for blk in list(head.corr_net.NeighConsensus.conv)[::2] for b in blk.conv1.bias[:2]]} "
+          f"{[round(float(b), 5) for blk in list(consensus.conv)[::2] for b in blk.conv1.bias[:2]]} "
           f"(first two channels each)")
+
+
+@torch.no_grad()
+def calibrate_consensus(engine, calib_episodes, get_corr):
+    """Calibrate the consensus biases of an MMN or match engine on a
+    calibration episode's correlation volume (``calibrate_blocks``).
+
+    With the seeded random init (zero biases) the last block's ReLU can zero
+    the whole filtered volume: the readout is then a plain average over the
+    support and neither route's consensus reaches the prediction. This gives
+    the consensus the live units a trained one has, as ``calibrate_batchnorm``
+    does for the backbone. Runs on the flat route.
+    """
+    from few_shot_seg_cwt_tpu_torch.episodic.heads import match_stage
+    from few_shot_seg_cwt_tpu_torch.ops.corr import mutual_matching, mutual_matching_flat
+
+    batch = engine.to_device({k: v[:1] for k, v in calib_episodes.items()})
+    w0 = engine.init_weights(1, torch.Generator().manual_seed(9))
+    part = engine._one(engine.episode_parts(batch, w0), batch, 0)[0]
+    head = engine.head
+    if engine.head_type == "match":
+        key = match_stage(engine.cfg)
+        corr = get_corr(part["fq_feats"][key][-1], part["fs_feats"][key][-1])[:, None]
+        consensus = head.NeighConsensus
+        if consensus.conv_type == "cv4":
+            # the true 4D conv has one bias and runs on the 6D layout
+            x = mutual_matching(corr.reshape((1,) + PIVOT_DIMS + (1,)))
+            for blk in list(consensus.conv)[::2]:
+                blk.bias.zero_()
+                pre = blk(x)
+                med = pre.flatten(0, 4).median(dim=0).values
+                blk.bias.copy_(-med)
+                x = torch.relu(pre - med)
+            print(f"cv4 consensus calibration: block biases "
+                  f"{[round(float(b), 5) for blk in list(consensus.conv)[::2] for b in blk.bias[:2]]}")
+            return
+    else:
+        corr = torch.stack([get_corr(q, s) for q, s in zip(
+            head.prep_query(part["fq_feats"]), head.prep_query(part["fs_feats"]))], dim=1)
+        consensus = head.corr_net.NeighConsensus
+    calibrate_blocks(consensus, mutual_matching_flat(corr))
 
 
 def device_profile(fn, label, card, groups=()):
@@ -690,6 +734,250 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
         device_profile(lambda: step(e2, torch.Generator().manual_seed(200)),
                        "MMN train step of 2 episodes (flat route), torch.profiler", card)
     return engine, eval_launches, train_launches["flat"]
+
+
+def consensus_route(name: str):
+    """The consensus route for the enclosed calls: "rank-4" (the default),
+    "flat" (FSS_PIVOT_MXU=1, the pivot kernels) or "6D" (FSS_NCONS_R4=0)."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(env_var("FSS_PIVOT_MXU", "1" if name == "flat" else None))
+    stack.enter_context(env_var("FSS_NCONS_R4", "0" if name == "6D" else None))
+    return stack
+
+
+MATCH_ROUTES = ("rank-4", "flat", "6D")
+CV4_ROUTES = ("q", "qp", "gemm", "loop")
+
+
+def match_phase(card, calib_images, calib_episodes, cuda_ms, modules):
+    """The match head, configs/pascal_match.yaml as shipped: the pivot pair
+    at its first block's new shape (1 -> 10) against the plain versions;
+    eval + serve of E_MMN and a train step of 2 on the rank-4, flat and 6D
+    routes (counted; argmax and gradients held against rank-4; episodes/s
+    and peak memory); then ``conv4d cv4``'s four routes on one eval batch
+    and one train step."""
+    (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+     cuda_pivot, get_corr, build_pspnet, CenterPivotConv4d) = modules
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal_match.yaml"),
+                              ["episode_batch", str(E_MMN)])
+    got = (cfg.image_size, cfg.adapt_iter, cfg.layers, cfg.rmid, cfg.crm_type, cfg.conv4d,
+           cfg.cyc, cfg.sce, cfg.ignore, cfg.temp, cfg.att_wt, cfg.dist, cfg.cls_type,
+           cfg.shot, cfg.use_amp)
+    if got != (IMG, STEPS, 50, "mid4", "nc", "red", True, False, False, 20.0, 0.2, "cosN",
+               "ooo", 1, False):
+        raise AssertionError(f"configs/pascal_match.yaml no longer gives the match path: {got}")
+
+    # ---- the pivot pair at the match head's first block, 1 -> 10 ----
+    ci1 = pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=((1, 10),))[(1, 10)]
+
+    backbone = build_pspnet(cfg).to("cuda")
+    calibrate_batchnorm(backbone, calib_images)
+    engine = HeadEngine(cfg, "match", backbone=backbone, device="cuda")
+    with consensus_route("flat"):
+        calibrate_consensus(engine, calib_episodes, get_corr)
+    episodes = make_episode_batch(17, E_MMN, size=IMG, shot=SHOT)
+    w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(6))
+
+    # ---- eval + serve on each route, counted ----
+    preds, launches, rates = {}, {}, {}
+    for name in MATCH_ROUTES:
+        with consensus_route(name):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_inner_loop.reset_launches()
+            cuda_pivot.reset_launches()
+            metrics = engine.eval_metrics_batch(episodes, w0=w0)
+            masks = engine.serve_batch(episodes, w0=w0)
+            torch.cuda.synchronize()
+            launches[name] = launch_counts(cuda_inner_loop, cuda_pivot)
+            peak = peak_gib()
+            preds[name] = engine.predict_batch(episodes, w0=w0)
+            serve_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
+            eval_s = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 3)
+        rates[name] = dict(eval=E_MMN / eval_s, serve=E_MMN / serve_s, peak_gib=peak)
+        for k in ("inter", "union", "inter1", "union1", "loss"):
+            if not torch.isfinite(metrics[k].float()).all():
+                raise AssertionError(f"match eval ({name}): non-finite {k}")
+        if tuple(masks.shape) != (E_MMN, IMG, IMG) or not set(masks.unique().tolist()) <= {0, 1}:
+            raise AssertionError(f"match masks ({name}) {tuple(masks.shape)}")
+        fg = {k: (metrics[f"inter{k}"][:, 1] / metrics[f"union{k}"][:, 1].clamp(min=1))
+              .cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
+        print(f"match {name} route: eval_metrics_batch {rates[name]['eval']:.3f} episodes/s "
+              f"({eval_s * 1e3:.1f} ms per batch of {E_MMN}), serve_batch "
+              f"{rates[name]['serve']:.3f} episodes/s ({serve_s * 1e3:.1f} ms); peak memory "
+              f"{peak:.2f} GiB; launches (eval + serve) {launches[name]}; per-episode fg IoU "
+              f"of pred, pred1 and the adapted classifier {fg} [{card}; fp32, TF32 off, "
+              f"1-shot, 473 px, adapt_iter {STEPS}, cycle mask on]")
+        pivots = launches[name]["pivot_fwd"] + launches[name]["pivot_dw"]
+        if launches[name]["adapt_binary"] < 1 or (name == "flat") != (pivots > 0):
+            raise AssertionError(f"match {name} route launches {launches[name]}: K1 must "
+                                 "launch, the pivot kernels on the flat route only")
+    for name in ("rank-4", "flat"):
+        with consensus_route(name):
+            device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                           f"match eval batch of {E_MMN} ({name} route), torch.profiler", card,
+                           groups=(("conv (backbone, rank-4 planes)", ("conv", "fprop")),
+                                   ("gemm (correlation, readout)", ("gemm", "sgemm")),
+                                   ("copies and permutes", ("copy", "permute")),
+                                   ("reductions and argmax", ("reduce", "argmax", "max")),
+                                   ("elementwise", ("elementwise", "vectorized"))))
+    for name in ("flat", "6D"):
+        agree = {k: float((preds[name][k].argmax(-1) == preds["rank-4"][k].argmax(-1))
+                          .float().mean()) for k in ("pred", "pred1")}
+        rel = {k: float((preds[name][k] - preds["rank-4"][k]).abs().max()
+                        / preds["rank-4"][k].abs().max()) for k in ("pred", "pred1")}
+        print(f"match {name} vs rank-4 route: argmax agreement {agree} (>= 0.995 needed), "
+              f"max|p - p_r4| / max|p_r4| {rel}")
+        if min(agree.values()) < 0.995:
+            raise AssertionError(f"match {name} and rank-4 routes disagree: {agree}")
+    del preds
+
+    # ---- a train step of 2 on each route: gradients against rank-4 ----
+    e2 = {k: v[:2] for k, v in episodes.items()}
+    grads, train = {}, {}
+    opt = torch.optim.SGD(engine.head.parameters(), lr=cfg.trans_lr)
+    step = engine.make_train_step(opt)
+    saved = {k: v.clone() for k, v in engine.head.state_dict().items()}
+    for name in MATCH_ROUTES:
+        with consensus_route(name):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_inner_loop.reset_launches()
+            cuda_pivot.reset_launches()
+            m = engine.backward_batch(e2, w0=w0[:2])
+            torch.cuda.synchronize()
+            counts = launch_counts(cuda_inner_loop, cuda_pivot)
+            grads[name] = {k: p.grad.clone() for k, p in engine.head.named_parameters()}
+            step_s = host_seconds(lambda: step(e2, w0=w0[:2]), 2)
+            peak = peak_gib()
+            engine.head.load_state_dict(saved)
+        if not torch.isfinite(m["loss_mean"]):
+            raise AssertionError(f"match train step ({name}): non-finite loss")
+        pivots = counts["pivot_fwd"] + counts["pivot_dw"]
+        if (name == "flat") != (min(counts["pivot_fwd"], counts["pivot_dw"]) > 0) \
+                or (name != "flat" and pivots) or counts["adapt_binary"] < 1:
+            raise AssertionError(f"match train step ({name}) launches {counts}")
+        train[name] = dict(rate=2 / step_s, peak_gib=peak, launches=counts)
+        print(f"match {name} route: train step of 2 (SGD) {2 / step_s:.3f} episodes/s "
+              f"({step_s * 1e3:.1f} ms); peak memory {peak:.2f} GiB; launches (the gradients' "
+              f"step) {counts} [{card}]")
+    scale = {k: float(g.abs().max()) for k, g in grads["rank-4"].items()}
+    if not all(np.isfinite(v) and v > 0 for v in scale.values()):
+        raise AssertionError(f"match gradients: zero or non-finite tensor {scale}")
+    for name in ("flat", "6D"):
+        worst = max((float((grads[name][k] - g).abs().max()) / scale[k], k)
+                    for k, g in grads["rank-4"].items())
+        print(f"match train step gradients, {name} vs rank-4 route: worst max|g - g_r4| / "
+              f"max|g_r4| = {worst[0]:.3e} ({worst[1]}); tolerance 1e-3")
+        if not worst[0] <= 1e-3:
+            raise AssertionError(f"match gradients differ, {name} vs rank-4: {worst}")
+    del grads
+
+    # ---- conv4d cv4: the true 4D conv's four routes ----
+    cv4 = cv4_phase(cfg, backbone, calib_episodes, episodes, w0, card,
+                    (HeadEngine, get_corr))
+    return dict(ci1=ci1, eval_launches=launches["flat"], train_launches=train["flat"]["launches"],
+                rates=rates, train=train, cv4=cv4)
+
+
+def cv4_phase(cfg, backbone, calib_episodes, episodes, w0, card, modules):
+    """The match head with ``conv4d cv4`` (1 -> 10 -> 10 -> 1 true 4D convs,
+    symmetric, U(+-1/sqrt(fan_in)) weights and biases): one eval batch of 2
+    and one train step of 2 on each ``FSS_CONV4D_IM2COL`` route, its biases
+    calibrated as the centre-pivot stack's are. Predictions within 1e-4 of
+    the q route's scale, gradients within 1e-3 of each tensor's largest
+    entry; ms (eval after a warm-up call, the step's first call) and peak
+    memory of each."""
+    HeadEngine, get_corr = modules
+    ccfg = cfg.clone()
+    ccfg.conv4d = "cv4"
+    engine = HeadEngine(ccfg, "match", backbone=backbone, device="cuda")
+    calibrate_consensus(engine, calib_episodes, get_corr)
+    e2 = {k: v[:2] for k, v in episodes.items()}
+    out, ref = {}, None
+    for route in CV4_ROUTES:
+        with env_var("FSS_CONV4D_IM2COL", route):
+            engine.predict_batch(e2, w0=w0[:2])            # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            p = engine.predict_batch(e2, w0=w0[:2])["pred1"]
+            torch.cuda.synchronize()
+            eval_ms = (time.perf_counter() - t0) * 1e3
+            eval_peak = peak_gib()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = engine.backward_batch(e2, w0=w0[:2])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            step_peak = peak_gib()
+        g = {k: q.grad.clone() for k, q in engine.head.named_parameters()}
+        if not torch.isfinite(m["loss_mean"]) or not torch.isfinite(p).all():
+            raise AssertionError(f"cv4 {route}: non-finite loss or prediction")
+        if ref is None:
+            ref = (p, g)
+            p_err, g_err = 0.0, 0.0
+        else:
+            p_err = float((p - ref[0]).abs().max() / ref[0].abs().max())
+            g_err = max(float((g[k] - r).abs().max() / r.abs().max()) for k, r in ref[1].items())
+        out[route] = dict(eval_ms=eval_ms, eval_peak_gib=eval_peak, step_ms=step_ms,
+                          step_peak_gib=step_peak, pred_rel=p_err, grad_rel=g_err)
+        print(f"match conv4d cv4, FSS_CONV4D_IM2COL={route}: eval batch of 2 {eval_ms:.1f} ms "
+              f"(peak {eval_peak:.2f} GiB), train step of 2 (gradients) {step_ms:.1f} ms "
+              f"(peak {step_peak:.2f} GiB); max|p - p_q| / max|p_q| = {p_err:.3e} (tolerance "
+              f"1e-4), worst gradient max|g - g_q| / max|g_q| = {g_err:.3e} (tolerance 1e-3) "
+              f"[{card}]")
+        if not (p_err <= 1e-4 and g_err <= 1e-3):
+            raise AssertionError(f"cv4 route {route} disagrees with q: {out[route]}")
+    if not all(float(r.abs().max()) > 0 for r in ref[1].values()):
+        raise AssertionError("cv4: a head tensor has zero gradients")
+    return out
+
+
+def mmn_options_phase(engine, card, modules):
+    """On the MMN engine of phase 6: one train step with ``meta_aug 2`` and
+    ``att_type 3`` (two views a support, the better one read), counted; and
+    eval of E_MMN with ``eval_episode_tile 2`` against the untiled run."""
+    make_episode_batch, cuda_inner_loop, cuda_pivot = modules
+    cfg = engine.cfg
+    views = make_episode_batch(19, 2, size=IMG, shot=2)
+    w0 = engine.init_weights(2, torch.Generator().manual_seed(8))
+    shipped = cfg.meta_aug, cfg.att_type
+    cfg.meta_aug, cfg.att_type = 2, 3
+    try:
+        with pivot_route(True):
+            cuda_inner_loop.reset_launches()
+            cuda_pivot.reset_launches()
+            t0 = time.perf_counter()
+            m = engine.backward_batch(views, w0=w0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts(cuda_inner_loop, cuda_pivot)
+    finally:
+        cfg.meta_aug, cfg.att_type = shipped
+    print(f"MMN meta_aug 2, att_type 3 (flat route): train step gradients of 2 episodes x 2 "
+          f"views in {ms:.1f} ms, loss {float(m['loss_mean']):.4f}; launches {counts} [{card}]")
+    if not torch.isfinite(m["loss_mean"]) or counts["pivot_dw"] < 1:
+        raise AssertionError(f"MMN meta_aug step: {m['loss_mean']}, {counts}")
+
+    episodes = make_episode_batch(13, E_MMN, size=IMG, shot=SHOT)
+    w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(5))
+    out = {}
+    with pivot_route(True):
+        for tile in (1, 2):
+            cfg.eval_episode_tile = tile
+            out[tile] = engine.eval_metrics_batch(episodes, w0=w0)
+            out[f"masks{tile}"] = engine.serve_batch(episodes, w0=w0)
+            out[f"s{tile}"] = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 2)
+    cfg.eval_episode_tile = 1
+    differ = int((out["masks1"] != out["masks2"]).sum())
+    same_iou = all(torch.equal(out[1][k], out[2][k]) for k in ("inter", "union", "inter1",
+                                                               "union1"))
+    print(f"MMN eval_episode_tile 2 vs 1 (flat route, {E_MMN} episodes): {differ} of "
+          f"{out['masks1'].numel()} mask pixels differ, I/U equal {same_iou}; eval "
+          f"{E_MMN / out['s2']:.3f} vs {E_MMN / out['s1']:.3f} episodes/s [{card}]")
+    if differ or not same_iou:
+        raise AssertionError("eval_episode_tile 2 changed the MMN eval masks")
 
 
 def k2_phase(cuda_inner_loop, pick_tile, cuda_ms, inputs, acc_k1, acc_plain, tol, card):
@@ -1475,12 +1763,58 @@ def real_data_phase(card, modules):
             if min(mmn_launches[k] for k in ("pivot_fwd", "pivot_dw")) < 1 \
                     or not np.isfinite(best):
                 raise AssertionError(f"real-data MMN training: {mmn_launches}, {best}")
+            match_launches = train_match_entry(root, load_cfg, merge_cfg_from_list,
+                                               cuda_inner_loop, cuda_pivot)
             if "cv2" in sys.modules and sys.modules["cv2"] is not None:
                 raise AssertionError("cv2 was imported by the real-data phase")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"eval_launches": launches, "train_cwt_launches": cwt_launches,
-            "train_head_launches": mmn_launches, "feed": feed}
+            "train_head_launches": mmn_launches, "train_match_launches": match_launches,
+            "feed": feed}
+
+
+def train_match_entry(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot):
+    """``train_match.main`` on configs/pascal_match.yaml and the PNG tree at
+    ``root``, flat route: one epoch of 2 steps of 2 with its train state
+    saved, then a ``debug`` run (5 steps) resuming from that state for the
+    second epoch. Runs in ``root`` (its ``results/`` goes with the tree)."""
+    from few_shot_seg_cwt_tpu_torch.train import train_match
+
+    root = os.path.abspath(root)
+    data = ["data_root", root, "train_list", os.path.join(root, "train.txt"),
+            "val_list", os.path.join(root, "val.txt"), "workers", "4"]
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal_match.yaml"), data + [
+        "epochs", "2", "stop_after_epochs", "1", "iter_per_epoch", "4", "episode_batch", "2",
+        "test_num", "4", "save_models", "True"])
+    cfg.scan_cache = os.path.join(root, ".scan_cache")
+    lines = []
+    cuda_inner_loop.reset_launches()
+    cuda_pivot.reset_launches()
+    with contextlib.chdir(root), pivot_route(True):
+        best = train_match.main(cfg, device="cuda", log=lines.append)
+        torch.cuda.synchronize()
+        launches = launch_counts(cuda_inner_loop, cuda_pivot)
+        state = [os.path.join(d, "train_state.pt") for d, _, files in os.walk("results")
+                 if "train_state.pt" in files]
+        if len(state) != 1:
+            raise AssertionError(f"train_match.main saved no single train state: {state}")
+        rcfg = cfg.clone()
+        rcfg.debug, rcfg.stop_after_epochs, rcfg.resume_ckpt = True, None, state[0]
+        resumed = []
+        best2 = train_match.main(rcfg, device="cuda", log=resumed.append)
+    val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
+    resume_line = next((str(l) for l in resumed if "resumed full head train state" in str(l)),
+                       None)
+    epoch_line = next((str(l) for l in resumed if str(l).startswith("==== Epoch 2")), None)
+    print(f"real data: train_match.main (configs/pascal_match.yaml, FSS_PIVOT_MXU=1, 2 steps "
+          f"of 2): {val_line}; launches {launches}; then debug with resume_ckpt: "
+          f"{resume_line}; {epoch_line}; best {best:.4f} / {best2:.4f}")
+    if min(launches[k] for k in ("adapt_binary", "pivot_fwd", "pivot_dw")) < 1 \
+            or resume_line is None or epoch_line is None or not np.isfinite(best2):
+        raise AssertionError(f"real-data match training: {launches}, {resume_line}, "
+                             f"{epoch_line}, {best2}")
+    return launches
 
 
 # ---- stage-1 pretraining, VGG and the bench ----
@@ -1902,7 +2236,16 @@ def main() -> int:
     # ---- 6b. the MMN train step at shot 5 ----
     mmn_shot5_phase(mmn_engine, card, (HeadEngine, cuda_inner_loop, cuda_pivot,
                                        build_optimizer))
+
+    # ---- 6c. MMN options: meta_aug 2 with att_type 3, eval_episode_tile 2 ----
+    mmn_options_phase(mmn_engine, card, (make_episode_batch, cuda_inner_loop, cuda_pivot))
     del mmn_engine
+    torch.cuda.empty_cache()
+
+    # ---- 6d. the match head: three routes, the pivot pair at 1 -> 10, cv4 ----
+    match = match_phase(card, calib_images, calib, cuda_ms, (
+        load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+        cuda_pivot, get_corr, build_pspnet, CenterPivotConv4d))
     torch.cuda.empty_cache()
 
     # ---- 7. the head trainer's entry point (flat route) ----
@@ -1973,6 +2316,8 @@ def main() -> int:
         "bound_by": k1_bound_by,
         "library_ms": None,
         "real_data": {"launches": real["eval_launches"]["adapt_binary"]},
+        "match": {"launches": match["eval_launches"]["adapt_binary"],
+                  "train_match_launches": real["train_match_launches"]["adapt_binary"]},
         "pretrain_episodic_val": {"launches": pre["episodic"]["launches"]},
         "vgg_30x30": vgg,
         "shot5": {"launches": cwt_shot5_k1, "max_abs_err": k1_shot5["err"],
@@ -1999,6 +2344,11 @@ def main() -> int:
         "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:106",
         "launches": mmn_eval_launches["pivot_fwd"],
         "real_data": {"launches": real["train_head_launches"]["pivot_fwd"]},
+        "match_1_to_10": {"launches": match["eval_launches"]["pivot_fwd"],
+                          "max_abs_err": match["ci1"]["fwd_err"], "ms": match["ci1"]["fwd_ms"],
+                          "plain_ms": match["ci1"]["fwd_plain_ms"],
+                          "bound_ms": match["ci1"]["bound_ms"],
+                          "bound_by": match["ci1"]["bound_by"], "library_ms": None},
         "max_abs_err": main_block["fwd_err"],
         "ms": main_block["fwd_ms"],
         "plain_ms": main_block["fwd_plain_ms"],
@@ -2013,6 +2363,11 @@ def main() -> int:
         "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:165",
         "launches": mmn_train_launches["pivot_dw"],
         "real_data": {"launches": real["train_head_launches"]["pivot_dw"]},
+        "match_1_to_10": {"launches": match["train_launches"]["pivot_dw"],
+                          "max_abs_err": match["ci1"]["dw_err"], "ms": match["ci1"]["dw_ms"],
+                          "plain_ms": match["ci1"]["dw_plain_ms"],
+                          "bound_ms": match["ci1"]["bound_ms"],
+                          "bound_by": match["ci1"]["bound_by"], "library_ms": None},
         "max_abs_err": main_block["dw_err"],
         "ms": main_block["dw_ms"],
         "plain_ms": main_block["dw_plain_ms"],

@@ -12,9 +12,9 @@ from .pspnet import (
     init_classifier_weights,
 )
 from .cwt import MultiHeadAttentionOne, build_cwt
-from .conv4d import CenterPivotConv4d
-from .matching import MatchNet, NeighConsensus
-from .msm import WeightAverage
+from .conv4d import CenterPivotConv4d, Conv4d, conv4d
+from .matching import MatchNet, NeighConsensus, SpatialContextEncoder
+from .msm import MSBlock, WeightAverage
 from .mmn import MMN, build_mmn
 
 __all__ = [
@@ -35,8 +35,12 @@ __all__ = [
     "MultiHeadAttentionOne",
     "build_cwt",
     "CenterPivotConv4d",
+    "Conv4d",
+    "conv4d",
     "MatchNet",
     "NeighConsensus",
+    "SpatialContextEncoder",
+    "MSBlock",
     "WeightAverage",
     "MMN",
     "build_mmn",

@@ -1,17 +1,24 @@
-"""Neighbourhood feature smoothing: ``WeightAverage`` (PyTorch).
+"""Multi-scale and neighbourhood feature blocks (PyTorch).
 
-Counterpart of ``few_shot_seg_cwt_tpu.models.msm.WeightAverage`` (reference:
-src/model/msm/msm_func.py:50-104): 3x3-neighbourhood cosine attention with a
-residual. The 1x1 projections commute with spatial shifts, so the nine
-neighbour views are replicate-padded shifts of the projected maps (no
-unfold). Features are NHWC; the 1x1 convs keep the reference's names
-(``conv_theta``, ``conv_phi``, ``conv_g``, ``conv_back``). ``MSBlock`` is
-not ported.
+Counterpart of ``few_shot_seg_cwt_tpu.models.msm`` (reference:
+src/model/msm/msm_func.py):
+
+* ``MSBlock`` (src:12-47): a 3x3 conv then three dilated 3x3 convs (rates
+  r, 2r, 3r), their ReLU'd outputs summed, convs initialised N(0, 0.01)
+  with zero biases;
+* ``WeightAverage`` (src:50-104): 3x3-neighbourhood cosine attention with a
+  residual. The 1x1 projections commute with spatial shifts, so the nine
+  neighbour views are replicate-padded shifts of the projected maps (no
+  unfold).
+
+Features are NHWC; the convs keep the reference's names (``conv``,
+``conv1``-``conv3``; ``conv_theta``, ``conv_phi``, ``conv_g``,
+``conv_back``).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -21,6 +28,29 @@ import torch.nn.functional as F
 def pointwise(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A 1x1 ``nn.Conv2d`` applied to NHWC features."""
     return F.linear(x, conv.weight[:, :, 0, 0], conv.bias)
+
+
+class MSBlock(nn.Module):
+    """(B, h, w, c_in) -> (B, h, w, c_out): o + o1 + o2 + o3 with o the
+    ReLU'd 3x3 conv and o_k the ReLU'd 3x3 conv of o at dilation k * rate."""
+
+    def __init__(self, c_in: int, c_out: int = 32, rate: int = 4,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        r = max(rate, 1)
+        self.conv = nn.Conv2d(c_in, c_out, 3, padding=1)
+        for k in (1, 2, 3):
+            setattr(self, f"conv{k}", nn.Conv2d(c_out, c_out, 3, padding=r * k,
+                                                dilation=r * k))
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.normal_(m.weight, 0.0, 0.01, generator=generator)
+                nn.init.zeros_(m.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        o = torch.relu(self.conv(x.permute(0, 3, 1, 2)))
+        out = o + sum(torch.relu(getattr(self, f"conv{k}")(o)) for k in (1, 2, 3))
+        return out.permute(0, 2, 3, 1)
 
 
 def _neighbor_shifts(x: torch.Tensor, r: int = 3) -> List[torch.Tensor]:

@@ -33,7 +33,6 @@ across by name and a reference ``.pth`` loads with ``load_state_dict``.
 from __future__ import annotations
 
 import math
-import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -278,14 +277,15 @@ class PSPNet(nn.Module):
         """(B, H, W, 3) NHWC images -> (B, h, w, 512) NHWC features.
 
         With ``rmid`` set (the matching heads), returns ``(features, feats)``
-        with ``feats[stage]`` for stages 1..4, NHWC views, as the JAX
+        with ``feats[stage]`` for stages 1..4 (and ``feats["nr"]``, layer4
+        before its last ReLU, under ``rmid nr``), NHWC views, as the JAX
         package's ``extract_features`` does. In train mode the bottleneck's
         channel dropout draws its mask from ``generator``.
         """
         x = x.permute(0, 3, 1, 2).contiguous()
         if not self.rmid:
             return self._head(run_trunk(self, x), generator).permute(0, 2, 3, 1).contiguous()
-        x, feats = run_trunk(self, x, return_feats=True)
+        x, feats = run_trunk(self, x, return_feats=True, no_relu=self.rmid == "nr")
         feats = {k: [f.permute(0, 2, 3, 1) for f in v] for k, v in feats.items()}
         return self._head(x, generator).permute(0, 2, 3, 1).contiguous(), feats
 
@@ -351,9 +351,6 @@ def build_pspnet(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
     config's stage dtype policy (``cast_backbone``)."""
     policy = stage_dtype_policy(cfg)
     rmid = cfg.get("rmid") or None
-    if rmid is not None and not re.fullmatch(r"l\d+", str(rmid)):
-        raise NotImplementedError(f"rmid {rmid!r}: only block taps 'l<stages>' are "
-                                  "ported; the no-ReLU taps wait (ROADMAP queue 1 item 7)")
     if cfg.get("inherit_base", False):
         raise NotImplementedError("inherit_base is not ported (ROADMAP queue 1 item 11)")
     model = PSPNet(layers=cfg.layers, bins=tuple(cfg.bins), dropout=cfg.dropout,

@@ -86,12 +86,17 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(
                 conv(in_ch, planes * 4, 1, stride), BatchNorm2d(planes * 4))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_pre_relu: bool = False):
+        """The block's output; with ``return_pre_relu`` also the sum before
+        the last ReLU (the ``rmid nr`` tap)."""
         out = self.relu(self.bn1(self.conv1(x)))
         out = self.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
-        return self.relu(out + residual)
+        pre = out + residual
+        if return_pre_relu:
+            return torch.relu(pre), pre
+        return self.relu(pre)
 
 
 class DilatedResNet(nn.Module):
@@ -123,14 +128,16 @@ class DilatedResNet(nn.Module):
         return run_trunk(self, x, return_feats)
 
 
-def run_trunk(trunk: nn.Module, x: torch.Tensor, return_feats: bool = False):
+def run_trunk(trunk: nn.Module, x: torch.Tensor, return_feats: bool = False,
+              no_relu: bool = False):
     """``trunk.layer0..layer4`` (a DilatedResNet or VGG16BN, or a PSPNet that
     holds the stages itself): (N, 3, H, W) -> (N, 2048, H/8, W/8) for the
     ResNet, (N, 512, ~H/16, ~W/16) for VGG; with ``return_feats`` also
     ``feats[stage]`` for stages 1..4 (NCHW), as the JAX trunk returns them:
-    the ResNet's block outputs, VGG's stage output. Under a stage dtype
-    policy the input of the stem and of each stage is cast to that stage's
-    dtype."""
+    the ResNet's block outputs, VGG's stage output, and with ``no_relu``
+    ``feats["nr"]``, the ResNet's layer4 output before its last ReLU (the
+    JAX ``Bottleneck.return_pre_relu``). Under a stage dtype policy the
+    input of the stem and of each stage is cast to that stage's dtype."""
     x = trunk.layer0(stage_cast(trunk, x, "stem"))
     per_block = trunk.arch == "resnet"
     feats = {}
@@ -142,8 +149,12 @@ def run_trunk(trunk: nn.Module, x: torch.Tensor, return_feats: bool = False):
             feats[stage] = [x]
             continue
         outs = []
-        for block in layer:
-            x = block(x)
+        for i, block in enumerate(layer):
+            if no_relu and stage == 4 and i == len(layer) - 1:
+                x, pre = block(x, return_pre_relu=True)
+                feats["nr"] = [pre]
+            else:
+                x = block(x)
             if return_feats:  # held only where a head reads them
                 outs.append(x)
         feats[stage] = outs

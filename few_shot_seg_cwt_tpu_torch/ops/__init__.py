@@ -18,8 +18,10 @@ from .corr import (
     get_corr,
     l2norm,
     masked_attention_readout,
+    mutual_matching,
     mutual_matching_bqsc,
     mutual_matching_flat,
+    mutual_nn_filter,
 )
 from .metrics import intersection_and_union
 
@@ -39,7 +41,9 @@ __all__ = [
     "get_corr",
     "l2norm",
     "masked_attention_readout",
+    "mutual_matching",
     "mutual_matching_bqsc",
     "mutual_matching_flat",
+    "mutual_nn_filter",
     "intersection_and_union",
 ]

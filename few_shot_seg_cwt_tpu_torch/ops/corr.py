@@ -1,10 +1,10 @@
 """Correlation-volume primitives (cosine correlation, mutual matching).
 
 Counterpart of ``few_shot_seg_cwt_tpu.ops.corr`` (reference:
-src/model/model_util.py:101-109 and src/model/match.py:21-53). Flattened
-correlations are (B, N_q, N_s); volumes are flat channels-major
-(B, C, Q, S) or rank-4 channels-last (B, Q, S, C). The 6D ``mutual_matching``
-and ``mutual_nn_filter`` are not ported yet.
+src/model/model_util.py:101-109, src/model/match.py:21-53 and
+src/model/base/correlation.py:14-24). Flattened correlations are
+(B, N_q, N_s); volumes are 6D channels-last (B, h, w, hs, ws, C), flat
+channels-major (B, C, Q, S) or rank-4 channels-last (B, Q, S, C).
 """
 
 from __future__ import annotations
@@ -33,10 +33,25 @@ def get_corr(q_feat: torch.Tensor, k_feat: torch.Tensor) -> torch.Tensor:
     return out.to(torch.bfloat16) if q_feat.dtype == torch.bfloat16 else out
 
 
-def _mutual(corr: torch.Tensor, q_dim: int, s_dim: int, eps: float) -> torch.Tensor:
+def _mutual(corr: torch.Tensor, q_dim, s_dim, eps: float) -> torch.Tensor:
     max_s = torch.amax(corr, dim=s_dim, keepdim=True)   # over support pixels
     max_q = torch.amax(corr, dim=q_dim, keepdim=True)   # over query pixels
     return corr * ((corr / (max_s + eps)) * (corr / (max_q + eps)))
+
+
+def mutual_matching(corr: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-channel mutual-max normalisation of a (B, h, w, hs, ws, C) volume."""
+    return _mutual(corr, (1, 2), (3, 4), eps)
+
+
+def mutual_nn_filter(corr: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """Mutual nearest-neighbour filtering of a flattened (B, N, N) matrix;
+    ``eps`` is added only where a max is exactly 0."""
+    src_max = torch.amax(corr, dim=2, keepdim=True)
+    trg_max = torch.amax(corr, dim=1, keepdim=True)
+    src_max = torch.where(src_max == 0, src_max + eps, src_max)
+    trg_max = torch.where(trg_max == 0, trg_max + eps, trg_max)
+    return corr * ((corr / src_max) * (corr / trg_max))
 
 
 def mutual_matching_flat(corr: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

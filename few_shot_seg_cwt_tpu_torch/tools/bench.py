@@ -10,8 +10,8 @@ arguments, lower case without the ``BENCH_`` prefix):
 * ``BENCH_MODE``: ``eval`` (CWT ``eval_metrics_batch``; ``BENCH_EVAL_PROGRAM``
   ``logits`` times ``eval_batch_from_w0``, ``no_cwt`` the CWT-free program
   of stage-1 validation), ``train`` (the CWT meta-train step;
-  ``BENCH_TRAIN_METRICS=0`` the loss-only step), ``head`` (the MMN train
-  step), ``head_eval``, ``head_serve``, ``pretrain`` (the stage-1 step on
+  ``BENCH_TRAIN_METRICS=0`` the loss-only step), ``head`` (the head's train
+  step, ``BENCH_HEAD``), ``head_eval``, ``head_serve``, ``pretrain`` (the stage-1 step on
   ``BENCH_PRETRAIN_BATCH`` images, 16 classes, fp32) or ``backbone`` (the
   feature extractor alone on an eval batch's images);
 * ``BENCH_EPISODE_BATCH``: the card's batches by default, the sizes
@@ -20,8 +20,9 @@ arguments, lower case without the ``BENCH_`` prefix):
 * ``BENCH_IMAGE_SIZE`` (473), ``BENCH_DTYPE`` (``float32`` or ``bfloat16``:
   the backbone's ``compute_dtype``; the MMN modes' ``use_amp``),
   ``BENCH_BF16_STAGES``, ``BENCH_SHOT`` (1), ``BENCH_ADAPT_ITER`` (the
-  config's 200), ``BENCH_HEAD`` (``mmn``; the heads not ported raise with
-  their ROADMAP item), ``BENCH_OPTS`` (``key value ...`` as ``--opts``),
+  config's 200), ``BENCH_HEAD`` (``mmn``, or ``match`` with
+  configs/pascal_match.yaml's model settings; the heads not ported raise
+  with their ROADMAP item), ``BENCH_OPTS`` (``key value ...`` as ``--opts``),
   ``BENCH_QUIET=1`` (no progress lines on stderr).
 
 Inputs (three batches, synthetic, seeded) are staged on the device before
@@ -63,6 +64,11 @@ DEFAULT_BATCH = {"eval": 8, "train": 8, "backbone": 8, "head": 2, "head_eval": 4
 # the MMN hyperparameters of configs/pascal_mmn.yaml, as the JAX bench sets them
 MMN_KNOBS = dict(conv4d="red", temp=20.0, att_wt=0.2, loss_type="wt_dc", rmid="l34",
                  wa=True, proj_drop=0.5, att_drop=0.5, trans_lr=0.0015)
+# the match head's: configs/pascal_match.yaml's MODEL and Classifier sections
+# and its trans_lr (stage-4 taps, cycle mask on at eval, cosine classifier)
+MATCH_KNOBS = dict(crm_type="nc", conv4d="red", ignore=False, temp=20.0, rmid="mid4",
+                   att_wt=0.2, sce=False, cyc=True, dist="cosN", cls_type="ooo",
+                   trans_lr=0.0001)
 
 
 def _knob(knobs: Dict[str, Any], name: str, default):
@@ -91,14 +97,15 @@ def _config(knobs: Dict[str, Any], size: int, dtype: str, shot: int):
 
 
 def _head_engine(cfg, head: str, dtype: str, device):
-    """The MMN head's engine; the heads not ported raise with their ROADMAP
-    item (``episodic.heads.build_head``)."""
+    """The head's engine: MMN with ``MMN_KNOBS``, the match head with
+    ``MATCH_KNOBS``; the heads not ported raise with their ROADMAP item
+    (``episodic.heads.build_head``)."""
     from ..episodic.heads import HeadEngine
 
     if head == "cca":
         raise NotImplementedError("BENCH_HEAD 'cca': the incremental CCA engine is not "
                                   "ported (ROADMAP queue 1 item 11)")
-    for k, v in MMN_KNOBS.items():
+    for k, v in (MATCH_KNOBS if head == "match" else MMN_KNOBS).items():
         cfg[k] = v
     cfg.use_amp = dtype == "bfloat16"
     return HeadEngine(cfg, head, device=device)

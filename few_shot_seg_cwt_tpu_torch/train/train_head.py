@@ -1,4 +1,4 @@
-"""Trainer for the extension heads, on the GPU (MMN so far).
+"""Trainer for the extension heads, on the GPU (MMN and the match head).
 
 Counterpart of ``few_shot_seg_cwt_tpu.train.train_head``:
 
@@ -20,7 +20,7 @@ and best1; each step's classifier inits come from a generator seeded by
 (``manual_seed``, epoch, step)). ``resume_ckpt`` takes such a state (exact
 resume) or a head state_dict (weights only); ``auto_resume`` picks up this
 run's own train state; ``stop_after_epochs`` ends the run early. Not
-ported: the other heads (ROADMAP queue 1 items 7-10).
+ported: the other heads (ROADMAP queue 1 items 8-10).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The JAX package imports reference ``.pth`` state_dicts with
 ``few_shot_seg_cwt_tpu.utils.ckpt.import_pspnet`` / ``import_cwt`` /
-``import_mmn``. These
+``import_mmn`` / ``import_matchnet``. These
 functions are their inverse: they take flax variables as nested dicts of
 numpy arrays and return a torch ``state_dict`` under the reference repo's
 parameter names, which are the port's module names. So flax variables load
@@ -17,7 +17,9 @@ into the port with ``load_state_dict``, and so does a reference ``.pth``.
   cosine classifier's under ``classifier.cls.*``, with
   ``classifier.scale_factor``);
 * the VGG trunk's ``stage<s>_conv<b>`` / ``stage<s>_bn<b>`` -> the
-  reference's Sequential slices ``layer<s>.<3b>`` / ``layer<s>.<3b+1>``.
+  reference's Sequential slices ``layer<s>.<3b>`` / ``layer<s>.<3b+1>``;
+* a true 4D conv kernel (k0, k1, k2, k3, I, O) -> the reference's
+  pre-permuted (k0, O, I, k1, k2, k3).
 """
 
 from __future__ import annotations
@@ -127,24 +129,51 @@ def cwt_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Te
     }
 
 
+def _matchnet_into(sd: Dict[str, torch.Tensor], params: Mapping[str, Any],
+                   prefix: str) -> None:
+    """A flax MatchNet tree (``ncons`` and optionally ``sce``) into ``sd``
+    under ``prefix``: the centre-pivot pair ``conv4d_{i}/conv_query|
+    conv_support`` becomes ``NeighConsensus.conv.{2i}.conv1|conv2`` (the
+    Sequential interleaves ReLUs); a true ``Conv4d`` kernel (k0, k1, k2, k3,
+    I, O) becomes ``NeighConsensus.conv.{2i}.weight`` in the reference's
+    layout (k0, O, I, k1, k2, k3); ``sce/embed`` becomes
+    ``SpatialContextEncoder.embeddingFea.0``."""
+    for block, node in params["ncons"].items():
+        i = int(re.fullmatch(r"conv4d_(\d+)", block).group(1))
+        base = f"{prefix}NeighConsensus.conv.{2 * i}"
+        if "kernel" in node:
+            sd[base + ".weight"] = _t(np.asarray(node["kernel"]).transpose(0, 5, 4, 1, 2, 3))
+            if "bias" in node:
+                sd[base + ".bias"] = _t(node["bias"])
+            continue
+        for flax_name, ref_name in (("conv_query", "conv1"), ("conv_support", "conv2")):
+            sd[f"{base}.{ref_name}.weight"] = _conv(node[flax_name]["kernel"])
+            if "bias" in node[flax_name]:
+                sd[f"{base}.{ref_name}.bias"] = _t(node[flax_name]["bias"])
+    if "sce" in params:
+        embed = params["sce"]["embed"]
+        sd[prefix + "SpatialContextEncoder.embeddingFea.0.weight"] = _conv(embed["kernel"])
+        sd[prefix + "SpatialContextEncoder.embeddingFea.0.bias"] = _t(embed["bias"])
+
+
+def matchnet_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax MatchNet variables (or their ``params`` tree) -> torch
+    state_dict, as ``utils/ckpt.py:import_matchnet`` reads it."""
+    sd: Dict[str, torch.Tensor] = {}
+    _matchnet_into(sd, variables.get("params", variables), "")
+    return sd
+
+
 def mmn_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax MMN variables (or their ``params`` tree) -> torch state_dict.
 
     Reference names, as ``utils/ckpt.py:import_mmn`` reads them: the
-    consensus pivot pair ``conv4d_{i}/conv_query|conv_support`` becomes
-    ``corr_net.NeighConsensus.conv.{2i}.conv1|conv2`` (the Sequential
-    interleaves ReLUs), ``wa_{bid}/conv_*`` stays ``wa_{bid}.conv_*`` and
-    ``rd_{bid}`` becomes ``rd_{bid}.0``.
+    consensus under ``corr_net.`` (``_matchnet_into``), ``wa_{bid}/conv_*``
+    stays ``wa_{bid}.conv_*`` and ``rd_{bid}`` becomes ``rd_{bid}.0``.
     """
     params = variables.get("params", variables)
     sd: Dict[str, torch.Tensor] = {}
-    for block, pair in params["corr_net"]["ncons"].items():
-        i = int(re.fullmatch(r"conv4d_(\d+)", block).group(1))
-        for flax_name, ref_name in (("conv_query", "conv1"), ("conv_support", "conv2")):
-            prefix = f"corr_net.NeighConsensus.conv.{2 * i}.{ref_name}"
-            sd[prefix + ".weight"] = _conv(pair[flax_name]["kernel"])
-            if "bias" in pair[flax_name]:
-                sd[prefix + ".bias"] = _t(pair[flax_name]["bias"])
+    _matchnet_into(sd, params["corr_net"], "corr_net.")
     for name, node in params.items():
         if name.startswith("wa_"):
             for conv_name, leaf in node.items():
@@ -152,6 +181,16 @@ def mmn_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Te
                 sd[f"{name}.{conv_name}.bias"] = _t(leaf["bias"])
         elif name.startswith("rd_"):
             sd[f"{name}.0.weight"] = _conv(node["kernel"])
+    return sd
+
+
+def msblock_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax MSBlock variables -> torch state_dict (``conv``, ``conv1``-``conv3``)."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in params.items():
+        sd[name + ".weight"] = _conv(leaf["kernel"])
+        sd[name + ".bias"] = _t(leaf["bias"])
     return sd
 
 

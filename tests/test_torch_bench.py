@@ -62,6 +62,15 @@ def test_heads_not_ported_name_their_item(knobs, error):
                   episode_batch=1, quiet=1, **knobs)
 
 
+@pytest.mark.parametrize("mode", ["head", "head_eval", "head_serve"])
+def test_match_head_modes_run_on_the_cpu(mode):
+    """BENCH_HEAD match: configs/pascal_match.yaml's model settings."""
+    out = bench.run(mode, device="cpu", image_size=33, adapt_iter=2, batches=1,
+                    episode_batch=2, quiet=1, head="match")
+    assert out["mode"] == mode and math.isfinite(out["value"]) and out["value"] > 0
+    assert out["flops_per_episode"] > 0 and out["kernel_launches"] == {}
+
+
 def test_unknown_mode_raises():
     with pytest.raises(ValueError, match="BENCH_MODE"):
         bench.run("serve", device="cpu")

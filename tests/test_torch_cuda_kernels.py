@@ -266,6 +266,8 @@ def _pivot_grads(fn, x, wa, wb, bias, t, dims, relu, dtype=torch.float32):
     (2, 10, 10, (60, 60, 60, 60)),  # a batch wider than one at full size
     (3, 3, 4, (4, 5, 6, 13)),       # ws % 4 != 0 (rows copied by the threads), B > 1
     (1, 1, 10, (5, 7, 6, 11)),      # Ci = 1, Co = 10, ragged
+    (2, 1, 10, (9, 11, 13, 7)),     # Ci = 1 -> 10 (the match head's first block), B = 2
+    (1, 1, 10, (16, 16, 16, 16)),   # Ci = 1 -> 10, whole 8-wide support tiles
 ] + [(1, 2, co, (3, 4, 3, 9)) for co in range(1, 11)])   # every Co
 @pytest.mark.parametrize("relu", [True, False])
 def test_pivot_kernels_match_plain(device, b, ci, co, dims, relu):
@@ -419,6 +421,72 @@ def test_flat_route_on_cuda_launches_the_pivot_kernels(device, monkeypatch):
     # dx of every block but each stack's first (its input needs no grad)
     assert cuda_pivot.LAUNCHES["pivot_fwd"] - before["pivot_fwd"] == 6 + 4
     assert cuda_pivot.LAUNCHES["pivot_dw"] - before["pivot_dw"] == 6
+
+
+def test_match_consensus_at_ci_1_on_the_flat_route(device, monkeypatch):
+    """The match head's stack (1 -> 10 -> 10 -> 1, symmetric) on the flat
+    route against the rank-4 route on the card: forward within 1e-5 of the
+    scale, weight gradients within 1e-3 of each tensor's largest entry;
+    pivot_dw runs at Ci = 1 for each stack's first block."""
+    from few_shot_seg_cwt_tpu_torch.models.matching import NeighConsensus
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+
+    torch.backends.cudnn.allow_tf32 = False
+    dims = (9, 10, 8, 11)
+    torch.manual_seed(0)
+    net = NeighConsensus(in_channel=1, block_remat=False).to(device)
+    with torch.no_grad():
+        for blk in list(net.conv)[::2]:
+            blk.conv1.bias.uniform_(0.0, 0.2)
+    x = torch.rand((2, 1, 90, 88), device=device)
+    outs, grads = [], []
+    for flat in (True, False):
+        if flat:
+            monkeypatch.setenv("FSS_PIVOT_MXU", "1")
+        else:
+            monkeypatch.delenv("FSS_PIVOT_MXU")
+        net.zero_grad()
+        before = dict(cuda_pivot.LAUNCHES)
+        y = (net(x, flat_dims=dims) if flat
+             else net.bqsc(x.permute(0, 2, 3, 1), dims).permute(0, 3, 1, 2))
+        (y * y).sum().backward()
+        torch.cuda.synchronize()
+        launched = cuda_pivot.LAUNCHES["pivot_dw"] - before["pivot_dw"]
+        assert launched == (6 if flat else 0)
+        outs.append(y.detach())
+        grads.append({k: p.grad.clone() for k, p in net.named_parameters()})
+    assert float(outs[1].abs().max()) > 0
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-5 * float(outs[1].abs().max())
+    for k, g in grads[1].items():
+        assert float((grads[0][k] - g).abs().max()) <= 1e-3 * float(g.abs().max()), k
+
+
+@pytest.mark.parametrize("route", ["q", "qp", "gemm", "loop"])
+def test_conv4d_routes_on_the_card(device, route, monkeypatch):
+    """The true 4D conv's routes (cuDNN and cuBLAS calls) against the loop
+    route on the CPU in fp64: forward and gradients within 1e-5 of the
+    scale."""
+    from few_shot_seg_cwt_tpu_torch.models.conv4d import Conv4d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(1)
+    conv = Conv4d(3, 4)
+    x = torch.randn(2, 5, 6, 4, 7, 3)
+    monkeypatch.setenv("FSS_CONV4D_IM2COL", "loop")
+    ref = conv.double()
+    xr = x.double().requires_grad_(True)
+    y_ref = ref(xr)
+    y_ref.sum().backward()
+    want = [y_ref.detach(), xr.grad, ref.weight.grad.clone()]
+    monkeypatch.setenv("FSS_CONV4D_IM2COL", route)
+    dev = conv.float().to(device)
+    dev.zero_grad()
+    xd = x.to(device).requires_grad_(True)
+    y = dev(xd)
+    y.sum().backward()
+    for got, w in zip((y.detach(), xd.grad, dev.weight.grad), want):
+        assert float((got.double().cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def test_bf16_volume_runs_the_fp32_kernels_between_casts(device):
