@@ -98,10 +98,11 @@ Phases (any failure raises and the script exits non-zero):
    synthetic episodes: one epoch with checkpoints into a scratch model_dir
    under build/, a resume from its ``train_state.pth`` for one more epoch,
    and ``train.test.main`` loading the ``best.pth`` it wrote.
-10. Real data, with ``cv2`` and ``PIL`` blocked (their import fails): a
-    PASCAL-layout tree of 48 PNG images at VOC sizes (500x375, 375x500,
+10. Real data: a PASCAL-layout tree of 48 PNG images at VOC sizes (500x375, 375x500,
     500x333) and gray PNG masks with 1-3 objects of split-0 classes, written
-    here with zlib (every PNG row filter type in turn), under build/.
+    here with zlib (every PNG row filter type in turn), under build/. With
+    ``cv2`` and ``PIL`` blocked (their import fails; configs/pascal.yaml
+    needs neither):
     ``train.test.main`` on configs/pascal.yaml at 473 px, 2 runs x 64
     episodes in batches of 8, 4 decode threads (K1 must launch). Feed
     timings for the fp32 and the bf16 backbone: loader-fed eval episodes/s
@@ -109,12 +110,21 @@ Phases (any failure raises and the script exits non-zero):
     batch, the loader alone, one batch's copy from pinned and from pageable
     memory. A 32-episode log replayed twice (2 runs x 16): equal per-class
     lines both times, and run 2 scores log episodes 16-31 (their classes
-    alone). ``train_cwt.main`` (debug, FSS_INNER_TILE=2: K2 must launch) and
+    alone). ``train_cwt.main`` (debug, FSS_INNER_TILE=2: K2 must launch).
+    Then, with cv2 (``resize_np`` is cv2's resize, as in the JAX package):
     ``train_head.main`` on configs/pascal_mmn.yaml as shipped on the flat
     route (pivot_fwd and pivot_dw must launch); ``train_match.main`` on
     configs/pascal_match.yaml on the flat route (K1 and both pivot kernels
     must launch), one epoch with its train state saved, then a ``debug``
-    run resuming from it for the second epoch.
+    run resuming from it for the second epoch. Every trainer's ``log.txt``
+    must hold its validation line (train_cwt's in phase 9, train_head's in
+    phase 7 and here, pretrain's in 11b, whose TensorBoard scalars must
+    hold ``train_loss`` and ``mean_iou/val``). The tools on the tree:
+    ``tools.preflight`` exits 0 with a stage-1 and a CWT ``.pth`` saved from
+    the random init and 1 without the stage-1 one; ``utils.convert_ckpt
+    strip-module`` then ``to-port`` give back the state_dict;
+    ``tools.bench_loader`` prints its line. ``record_episodes`` and
+    ``parity_drill`` need the reference tree, which is not here.
 11. Stage-1 pretraining, VGG and the bench: (a) the pretrain step at full
     width (configs/pascal_pretrain.yaml: ResNet-50, 473 px, batch 10, 16
     classes, label smoothing, scale_lr 2), plain and with mixup: finite
@@ -128,15 +138,29 @@ Phases (any failure raises and the script exits non-zero):
     beside its bound; (d) ``tools.bench.run`` in every mode with 5 timed
     batches (MMN modes on the flat route, the CWT train step at
     FSS_INNER_TILE=2), each JSON line printed.
-12. A ``kernels`` JSON line (with each kernel's launches on the real-data
-    path, K1's in (b)'s episodic validation and its VGG figures, and the
-    match head's launches and the pivot pair's figures at 1 -> 10), the
-    card line, and as the last line ``{"ok": true, "device": {...}}``.
+12. The serve artifacts (``tools.export_serve``): the CWT serve program at
+    batch 8 on phase 4's calibrated weights and the MMN one
+    (configs/pascal_mmn.yaml as shipped, flat route) at batch 4 on phase
+    6's, each exported with ``torch.export`` around the ``fss::``
+    operators, saved, and loaded in a fresh process that imports only
+    torch and the port's ``ops`` (``tools.serve_loaded``): its masks >=
+    99.5% equal to eager ``serve_batch``'s, K1 (and for MMN pivot_fwd)
+    launched there; export seconds, size and episodes/s loaded vs eager
+    (the serving process turns TF32 off, as the entry points do; the CWT
+    artifact also runs once with TF32 on, printed without a limit).
+    Then ``validate_transformer`` with ``profile_dir`` (1 run x 16
+    episodes): its torch.profiler trace must name K1's kernel.
+13. A ``kernels`` JSON line (with each kernel's launches on the real-data
+    path, K1's in (b)'s episodic validation and its VGG figures, the
+    match head's launches and the pivot pair's figures at 1 -> 10, and the
+    loaded artifacts' launches), the card line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -177,6 +201,49 @@ def host_seconds(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times)
+
+
+def launch_and_op_ms(raw, op, reps: int = 7) -> dict:
+    """A kernel's bare ctypes launch ``raw()`` beside the ``fss::`` operator
+    call ``op()`` that wraps it, on the same inputs, interleaved in one loop.
+    Median CUDA-event ms with the stream idle at each start event, as
+    ``cuda_ms`` times (``ms``, ``op_ms``: the host's time to issue the call
+    shows in them); the same with the stream kept busy by a 1 ms spin while
+    the host issues (``queued_ms``, ``op_queued_ms``: device time alone);
+    and median host microseconds from the call to its return (``host_us``,
+    ``op_host_us``). The operator's dispatch a launch is
+    ``op_host_us - host_us``."""
+    raw(), op()
+    torch.cuda.synchronize()
+    keys = ("ms", "op_ms", "queued_ms", "op_queued_ms", "host_us", "op_host_us")
+    got = {k: [] for k in keys}
+    for _ in range(reps):
+        for queued in (False, True):
+            for pre, fn in (("", raw), ("op_", op)):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                if queued:
+                    torch.cuda._sleep(2_000_000)      # ~1 ms of cycles
+                start.record()
+                t0 = time.perf_counter()
+                fn()
+                host_us = 1e6 * (time.perf_counter() - t0)
+                end.record()
+                torch.cuda.synchronize()
+                got[pre + ("queued_ms" if queued else "ms")].append(start.elapsed_time(end))
+                if not queued:
+                    got[pre + "host_us"].append(host_us)
+    out = {k: statistics.median(v) for k, v in got.items()}
+    out["dispatch_us"] = out["op_host_us"] - out["host_us"]
+    return out
+
+
+def dispatch_text(t: dict) -> str:
+    """One line of ``launch_and_op_ms``'s figures."""
+    return (f"bare launch {t['ms']:.3f} ms / operator {t['op_ms']:.3f} ms (idle stream), "
+            f"{t['queued_ms']:.3f} / {t['op_queued_ms']:.3f} ms (host ahead: device time), "
+            f"host {t['host_us']:.1f} / {t['op_host_us']:.1f} us a call: dispatch "
+            f"{t['dispatch_us']:.1f} us a launch")
 
 
 @torch.no_grad()
@@ -312,16 +379,18 @@ def pivot_grads(fn, x, wa, wb, bias, t, dtype=torch.float32):
 
 def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=PIVOT_BLOCKS):
     """Each consensus block at 473 px: pivot_fwd with the ReLU against the
-    plain version (max|y_k - y_p| <= 1e-5 max|y_p|); the autograd.Function's
-    dx (pivot_fwd with flipped weights) and (dwa, dwb, db) (pivot_dw) against
+    plain version (max|y_k - y_p| <= 1e-5 max|y_p|); the operator's
+    gradient: dx (pivot_fwd with flipped weights) and (dwa, dwb, db) (pivot_dw) against
     autograd of the plain version, both held against an fp64 run (see
     ``pivot_grads``): the kernels may be at most 4x as far from fp64 as the
     plain fp32 version, plus 2e-6 of the largest entry. The slack covers the
     short sums: dx adds 18*Co <= 180 products per output in one fp32 chain,
     good to ~1e-6 relative, while cuDNN's tree sums come closer; for the
     13 M-term dW sums it is far below the plain version's own error.
-    Times pivot_fwd at the forward shape and at the block's dx shape (Ci and
-    Co swapped). Returns per-block numbers."""
+    Times the bare launches of pivot_fwd at the forward shape and at the
+    block's dx shape (Ci and Co swapped) and of pivot_dw, the first and the
+    last beside their operators (``launch_and_op_ms``). Returns per-block
+    numbers."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
     q = s = FEAT * FEAT
@@ -338,7 +407,7 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=PIVOT_BLOCK
         y_p = ref(x, wa, wb, bias, PIVOT_DIMS, relu=True)
         fwd_err, fwd_scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
         del y_k, y_p
-        g_k = pivot_grads(cuda_pivot.pivot_conv_flat, x, wa, wb, bias, t)
+        g_k = pivot_grads(cuda_pivot.pivot_fwd, x, wa, wb, bias, t)
         g_p = pivot_grads(ref, x, wa, wb, bias, t)
         g_64 = pivot_grads(ref, x, wa, wb, bias, t, torch.float64)
         torch.cuda.synchronize()
@@ -361,9 +430,15 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=PIVOT_BLOCK
                                      f"from fp64 as the plain fp32 version (+2e-6 of the "
                                      f"scale): {g}")
 
-        fwd_ms = cuda_ms(lambda: cuda_pivot.pivot_fwd(x, wa, wb, bias, PIVOT_DIMS, True), 5)
+        lib = cuda_pivot.load_library()
+        fwd_t = launch_and_op_ms(
+            lambda: cuda_pivot.launch_fwd(lib, x, wa, wb, bias, PIVOT_DIMS, True),
+            lambda: cuda_pivot.pivot_fwd(x, wa, wb, bias, PIVOT_DIMS, True))
+        fwd_ms = fwd_t["ms"]
         fwd_plain_ms = cuda_ms(lambda: ref(x, wa, wb, bias, PIVOT_DIMS, True), 5)
-        dw_ms = cuda_ms(lambda: cuda_pivot.pivot_dw(x, t, PIVOT_DIMS), 5)
+        dw_t = launch_and_op_ms(lambda: cuda_pivot.launch_dw(lib, x, t, PIVOT_DIMS),
+                                lambda: cuda_pivot.pivot_dw(x, t, PIVOT_DIMS))
+        dw_ms = dw_t["ms"]
         dw_plain_ms = cuda_ms(lambda: cuda_pivot.pivot_dw_reference(x, t, PIVOT_DIMS), 5)
         blk = CenterPivotConv4d(ci, co).to(dev)
         with torch.no_grad():
@@ -377,7 +452,7 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=PIVOT_BLOCK
         # transposed weights, Ci and Co swapped, a zero bias, no ReLU
         fwa, fwb = cuda_pivot.flip_t(wa), cuda_pivot.flip_t(wb)
         zeros = torch.zeros(ci, device=dev)
-        dx_ms = cuda_ms(lambda: cuda_pivot.pivot_fwd(t, fwa, fwb, zeros, PIVOT_DIMS), 5)
+        dx_ms = cuda_ms(lambda: cuda_pivot.launch_fwd(lib, t, fwa, fwb, zeros, PIVOT_DIMS), 5)
         dx_plain_ms = cuda_ms(lambda: ref(t, fwa, fwb, zeros, PIVOT_DIMS), 5)
         del xr, x, t
         torch.cuda.empty_cache()
@@ -398,8 +473,11 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=PIVOT_BLOCK
         print(f"pivot {ci}->{co}: pivot_dw / cuDNN wgrad (the plain version, TF32 off) = "
               f"{dw_ms:.3f} / {dw_plain_ms:.3f} ms = {dw_ms / dw_plain_ms:.3f}; "
               f"{b_ms / dw_ms:.1%} of the {b_by} bound [{card}]")
-        out[(ci, co)] = dict(fwd_err=fwd_err, dw_err=dw_err, fwd_ms=fwd_ms,
-                             fwd_plain_ms=fwd_plain_ms, dw_ms=dw_ms, dw_plain_ms=dw_plain_ms,
+        print(f"pivot {ci}->{co}: pivot_fwd {dispatch_text(fwd_t)}; pivot_dw "
+              f"{dispatch_text(dw_t)} [{card}]")
+        out[(ci, co)] = dict(fwd_err=fwd_err, dw_err=dw_err, fwd_ms=fwd_ms, fwd_t=fwd_t,
+                             dw_t=dw_t, fwd_plain_ms=fwd_plain_ms, dw_ms=dw_ms,
+                             dw_plain_ms=dw_plain_ms,
                              dx_ms=dx_ms, dx_plain_ms=dx_plain_ms,
                              r4_ms=r4_ms, bound_ms=b_ms, bound_by=b_by)
     return out
@@ -1011,9 +1089,11 @@ def k2_phase(cuda_inner_loop, pick_tile, cuda_ms, inputs, acc_k1, acc_plain, tol
     if smem != formula or smem != plan.smem or tiles != {"2": 2, "4": 4}:
         raise AssertionError(f"K2's shared memory or the tile dispatch: {smem}, {formula}, "
                              f"{tiles}")
-    ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, STEPS, CLS_LR,
-                                                            TILE), 5)
-    return err, ms
+    k2_t = launch_and_op_ms(
+        lambda: cuda_inner_loop.launch(lib, f_s, pw, pwy, u0, STEPS, CLS_LR, TILE),
+        lambda: cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, STEPS, CLS_LR, TILE))
+    print(f"K2 adapt_binary_tiled (tile {TILE}): {dispatch_text(k2_t)} [{card}]")
+    return err, k2_t
 
 
 def cwt_train_phase(engine, episodes, w0, card, modules):
@@ -1146,7 +1226,8 @@ def k1_shot5_phase(cuda_inner_loop, binary_pixel_weights, cuda_ms, rng, card):
     acc_p = cuda_inner_loop.adapt_binary_reference(f_s, pw, pwy, u0, STEPS, CLS_LR)
     torch.cuda.synchronize()
     err, tol = float((acc_k - acc_p).abs().max()), 1e-4 * float(acc_p.abs().max())
-    ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary(f_s, pw, pwy, u0, STEPS, CLS_LR), 5)
+    ms = cuda_ms(lambda: cuda_inner_loop.launch(cuda_inner_loop.load_library(), f_s, pw, pwy,
+                                                u0, STEPS, CLS_LR), 5)
     plain_ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary_reference(f_s, pw, pwy, u0, STEPS,
                                                                       CLS_LR), 3)
     flops, nbytes = inner_loop_work(E, SHOT5, FEAT, FEAT, CH, IMG, IMG, STEPS)
@@ -1391,6 +1472,19 @@ def mmn_shot5_phase(engine, card, modules):
     eng.head.load_state_dict(start)
 
 
+def log_txt_val(directory, prefix):
+    """The lines of ``<directory>/log.txt`` that start with ``prefix``; fails
+    without the file or such a line."""
+    path = os.path.join(directory, "log.txt")
+    if not os.path.isfile(path):
+        raise AssertionError(f"no log.txt in {directory}")
+    with open(path) as f:
+        val = [l.rstrip("\n") for l in f if l.startswith(prefix)]
+    if not val:
+        raise AssertionError(f"{path} holds no '{prefix}' line")
+    return val
+
+
 def train_cwt_entry_phase(load_cfg, merge_cfg_from_list, train_cwt, test_entry,
                           trans_ckpt_dir):
     """``train.train_cwt.main``: one epoch with checkpoints, a resume from its
@@ -1420,8 +1514,12 @@ def train_cwt_entry_phase(load_cfg, merge_cfg_from_list, train_cwt, test_entry,
                                         if str(l).startswith(keep + ("checkpoints",))))
         print(f"train.train_cwt.main: best mIoU {best:.4f} after epoch 1, {best2:.4f} after "
               f"the resumed epoch 2; train.test.main on best.pth: mIoU {miou:.4f}")
-        if written != ["best.pth", "final.pth", "train_state.pth"]:
-            raise AssertionError(f"train_cwt wrote {written}")
+        with open(os.path.join(out, "log.txt")) as f:
+            logged = f.read().splitlines()
+        val = [l for l in logged if l.startswith("mIoU---Val result")]
+        print(f"train.train_cwt.main log.txt: {len(logged)} lines, val lines {val}")
+        if written != ["best.pth", "final.pth", "log.txt", "train_state.pth"] or not val:
+            raise AssertionError(f"train_cwt wrote {written}, val lines in log.txt {val}")
         if not any(str(l).startswith("=> resumed full train state at epoch 1") for l in lines):
             raise AssertionError("train_cwt did not resume its train state")
         if not any(str(l).startswith("=> loading transformer weight") for l in lines):
@@ -1662,14 +1760,16 @@ def feed_timings(cfg, dtype, card):
 
 
 def real_data_phase(card, modules):
-    """``train.test.main``, replay, ``train_cwt.main`` and ``train_head.main``
-    on a PASCAL-layout PNG tree, with cv2 and PIL blocked."""
+    """``train.test.main``, replay and ``train_cwt.main`` on a PASCAL-layout
+    PNG tree with cv2 and PIL blocked (configs/pascal.yaml needs neither);
+    then ``train_head.main`` and ``train_match.main`` (``resize_np``, through
+    cv2) and the tools on the same tree."""
     load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot = modules
     from few_shot_seg_cwt_tpu_torch.train import test as test_entry
     from few_shot_seg_cwt_tpu_torch.train import train_cwt, train_head
 
     os.makedirs("build", exist_ok=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_voc_", dir="build")
+    root = os.path.abspath(tempfile.mkdtemp(prefix="chip_smoke_voc_", dir="build"))
     try:
         with without_cv2_and_pil():
             t0 = time.perf_counter()
@@ -1744,29 +1844,31 @@ def real_data_phase(card, modules):
             if cwt_launches["adapt_binary_tiled"] < 1 or not np.isfinite(best):
                 raise AssertionError(f"real-data CWT training: {cwt_launches}, {best}")
 
-            # ---- the MMN trainer on pascal_mmn.yaml as shipped, flat route ----
-            lines = []
-            cuda_inner_loop.reset_launches()
-            cuda_pivot.reset_launches()
-            hcfg = cfg("configs/pascal_mmn.yaml", "epochs", "1", "iter_per_epoch", "4",
-                       "episode_batch", "2", "test_num", "4", "save_models", "False")
-            if not (hcfg.use_amp and hcfg.augmentations == ["hor_flip", "resize_np"]):
-                raise AssertionError("configs/pascal_mmn.yaml changed: use_amp, augmentations")
-            with pivot_route(True):
-                best = train_head.main(hcfg, "mmn", device="cuda", log=lines.append)
-            torch.cuda.synchronize()
-            mmn_launches = launch_counts(cuda_inner_loop, cuda_pivot)
-            val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
-            print(f"real data: train_head.main (configs/pascal_mmn.yaml as shipped: use_amp, "
-                  f"hor_flip + resize_np; 2 steps of 2, FSS_PIVOT_MXU=1): {val_line}; "
-                  f"launches {mmn_launches}")
-            if min(mmn_launches[k] for k in ("pivot_fwd", "pivot_dw")) < 1 \
-                    or not np.isfinite(best):
-                raise AssertionError(f"real-data MMN training: {mmn_launches}, {best}")
-            match_launches = train_match_entry(root, load_cfg, merge_cfg_from_list,
-                                               cuda_inner_loop, cuda_pivot)
-            if "cv2" in sys.modules and sys.modules["cv2"] is not None:
-                raise AssertionError("cv2 was imported by the real-data phase")
+        # ---- the MMN trainer on pascal_mmn.yaml as shipped, flat route ----
+        # (resize_np: cv2's resize, as the JAX package runs it)
+        lines = []
+        cuda_inner_loop.reset_launches()
+        cuda_pivot.reset_launches()
+        hcfg = cfg("configs/pascal_mmn.yaml", "epochs", "1", "iter_per_epoch", "4",
+                   "episode_batch", "2", "test_num", "4", "save_models", "False")
+        if not (hcfg.use_amp and hcfg.augmentations == ["hor_flip", "resize_np"]):
+            raise AssertionError("configs/pascal_mmn.yaml changed: use_amp, augmentations")
+        with contextlib.chdir(root), pivot_route(True):   # its results/ goes with the tree
+            best = train_head.main(hcfg, "mmn", device="cuda", log=lines.append)
+        head_log = log_txt_val(os.path.join(root, train_head.results_dir(hcfg, "mmn")),
+                               "val: mIoU")
+        torch.cuda.synchronize()
+        mmn_launches = launch_counts(cuda_inner_loop, cuda_pivot)
+        val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
+        print(f"real data: train_head.main (configs/pascal_mmn.yaml as shipped: use_amp, "
+              f"hor_flip + resize_np through cv2; 2 steps of 2, FSS_PIVOT_MXU=1): {val_line}; "
+              f"launches {mmn_launches}; log.txt {head_log}")
+        if min(mmn_launches[k] for k in ("pivot_fwd", "pivot_dw")) < 1 \
+                or not np.isfinite(best):
+            raise AssertionError(f"real-data MMN training: {mmn_launches}, {best}")
+        match_launches = train_match_entry(root, load_cfg, merge_cfg_from_list,
+                                           cuda_inner_loop, cuda_pivot)
+        tools_on_tree(root, load_cfg, merge_cfg_from_list)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"eval_launches": launches, "train_cwt_launches": cwt_launches,
@@ -1803,13 +1905,14 @@ def train_match_entry(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda
         rcfg.debug, rcfg.stop_after_epochs, rcfg.resume_ckpt = True, None, state[0]
         resumed = []
         best2 = train_match.main(rcfg, device="cuda", log=resumed.append)
+        match_log = log_txt_val(os.path.dirname(state[0]), "val: mIoU")
     val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
     resume_line = next((str(l) for l in resumed if "resumed full head train state" in str(l)),
                        None)
     epoch_line = next((str(l) for l in resumed if str(l).startswith("==== Epoch 2")), None)
     print(f"real data: train_match.main (configs/pascal_match.yaml, FSS_PIVOT_MXU=1, 2 steps "
           f"of 2): {val_line}; launches {launches}; then debug with resume_ckpt: "
-          f"{resume_line}; {epoch_line}; best {best:.4f} / {best2:.4f}")
+          f"{resume_line}; {epoch_line}; best {best:.4f} / {best2:.4f}; log.txt {match_log}")
     if min(launches[k] for k in ("adapt_binary", "pivot_fwd", "pivot_dw")) < 1 \
             or resume_line is None or epoch_line is None or not np.isfinite(best2):
         raise AssertionError(f"real-data match training: {launches}, {resume_line}, "
@@ -1885,10 +1988,10 @@ def pretrain_entry_phase(card, modules):
     from few_shot_seg_cwt_tpu_torch.train import pretrain
     from few_shot_seg_cwt_tpu_torch.train import test as test_entry
     from few_shot_seg_cwt_tpu_torch.train.common import stage1_weights_path
+    from few_shot_seg_cwt_tpu_torch.utils.tb import read_scalars
 
     os.makedirs("build", exist_ok=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_pretrain_", dir="build")
-    made = []
+    root = os.path.abspath(tempfile.mkdtemp(prefix="chip_smoke_pretrain_", dir="build"))
     try:
         with without_cv2_and_pil():
             write_voc_tree(root)
@@ -1906,11 +2009,12 @@ def pretrain_entry_phase(card, modules):
                            str(episodic), "exp_name", "chip_smoke_" + ("ep" if episodic else "std"),
                            "episode_batch", str(E), "test_num", "16", "n_runs", "1",
                            "log_freq", "1")
-                made.append(pretrain.save_dir(pcfg))
                 lines = []
                 cuda_inner_loop.reset_launches()
                 t0 = time.perf_counter()
-                best = pretrain.main(pcfg, device="cuda", log=lambda l: lines.append(str(l)))
+                with contextlib.chdir(root):   # its results/ goes with the tree
+                    best = pretrain.main(pcfg, device="cuda",
+                                         log=lambda l: lines.append(str(l)))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches = dict(cuda_inner_loop.LAUNCHES)
@@ -1925,9 +2029,17 @@ def pretrain_entry_phase(card, modules):
                     raise AssertionError(f"pretrain.main returned {best}")
                 if episodic and launches["adapt_binary"] < 1:
                     raise AssertionError(f"episodic validation did not launch K1: {launches}")
+                sv = os.path.join(root, pretrain.save_dir(pcfg))
+                logged = log_txt_val(sv, val.split()[0])
+                scalars = read_scalars(os.path.join(sv, "model"))
+                print(f"train.pretrain.main log.txt: {logged}; scalars "
+                      f"{ {k: v for k, v in sorted(scalars.items())} } "
+                      f"({sorted(os.listdir(os.path.join(sv, 'model')))})")
+                if not {"train_loss", "mean_iou/val"} <= set(scalars):
+                    raise AssertionError(f"pretrain scalars: {scalars}")
                 runs["episodic" if episodic else "standard"] = dict(
                     launches=launches["adapt_binary"], best=best,
-                    ckpt=os.path.join(pretrain.save_dir(pcfg), "best.ckpt"))
+                    ckpt=os.path.join(sv, "best.ckpt"))
 
             # stage 2 on the stage-1 weights, through the reference's schema
             weights = os.path.join(root, "weights")
@@ -1945,8 +2057,6 @@ def pretrain_entry_phase(card, modules):
                 raise AssertionError(f"stage 2 did not load the stage-1 weights: {lines[:5]}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-        for d in made:
-            shutil.rmtree(d, ignore_errors=True)
     return runs
 
 
@@ -1981,7 +2091,8 @@ def vgg_phase(card, calib_images, modules):
     err, tol = float((acc_k - acc_p).abs().max()), 1e-4 * float(acc_p.abs().max())
     agree = float((masks == masks_plain).float().mean())
     h = f_s.shape[2]
-    ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary(f_s, pw, pwy, u0, STEPS, CLS_LR), 5)
+    ms = cuda_ms(lambda: cuda_inner_loop.launch(cuda_inner_loop.load_library(), f_s, pw, pwy,
+                                                u0, STEPS, CLS_LR), 5)
     plain_ms = cuda_ms(lambda: cuda_inner_loop.adapt_binary_reference(
         f_s, pw, pwy, u0, STEPS, CLS_LR), 3)
     flops, nbytes = inner_loop_work(E, SHOT, h, h, CH, IMG, IMG, STEPS)
@@ -2023,6 +2134,187 @@ def bench_phase(card):
         lines[mode] = out
         torch.cuda.empty_cache()
     return lines
+
+
+# ---- 12. the tools: serve artifacts, the profiler trace, the tools on a tree ----
+
+
+def module_state(module) -> dict:
+    """A module's state_dict copied to the host (to rebuild it later)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+
+
+def run_loaded(path, inputs, out):
+    """``tools/serve_loaded.py`` on an artifact in a fresh process: its
+    JSON result line and its masks."""
+    proc = subprocess.run([sys.executable, "-m", "few_shot_seg_cwt_tpu_torch.tools.serve_loaded",
+                           path, inputs, out, "--reps", "3"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{path}: the serving process failed:\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), torch.load(out, weights_only=True)
+
+
+def serve_artifact(name, engine, export, episodes, w0, work, card, flat=False):
+    """Export ``engine``'s serve program at the batch of ``episodes`` with
+    ``export`` (tracing launches no kernel), save it, and run it in a fresh
+    process that imports only torch and the port's ``ops``
+    (``tools/serve_loaded.py``, TF32 off as in every entry point): its masks
+    against the engine's eager ``serve_batch`` on the same inputs (>= 99.5%
+    equal), its launches, its episodes/s beside eager's. Returns the loaded
+    program's launches and figures."""
+    e = len(episodes["q_img"])
+    path = os.path.join(work, f"{name}_serve.pt2")
+    with pivot_route(flat):
+        t0 = time.perf_counter()
+        exported = export(engine, e)
+        export_s = time.perf_counter() - t0
+        torch.export.save(exported, path)
+        eager = engine.serve_batch(episodes, w0=w0)
+        eager_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
+    inputs = os.path.join(work, f"{name}_inputs.pt")
+    torch.save({"s_img": torch.as_tensor(episodes["s_img"]),
+                "s_label": torch.as_tensor(episodes["s_label"]).int(),
+                "q_img": torch.as_tensor(episodes["q_img"]), "w0": w0.cpu()}, inputs)
+    out = os.path.join(work, f"{name}_masks.pt")
+    loaded, masks = run_loaded(path, inputs, out)
+    agree = float((masks == eager.cpu()).float().mean())
+    launches = {k: v for k, v in loaded["launches"].items() if v}
+    heavy = [m for m in loaded["port_modules"]
+             if m.split(".")[1] in ("models", "episodic", "train", "eval", "data")]
+    print(f"{name} serve artifact (batch {e}): export {export_s:.2f} s, "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB; loaded in a fresh process (imports "
+          f"{len(loaded['port_modules'])} port modules, none of models/episodic) in "
+          f"{loaded['load_s']:.2f} s: launches {launches}, masks equal to eager serve_batch "
+          f"on {agree:.6f} of pixels; {loaded['episodes_per_s']:.3f} episodes/s loaded vs "
+          f"{e / eager_s:.3f} eager [{card}]")
+    if heavy:
+        raise AssertionError(f"{name} artifact: the serving process imported {heavy}")
+    if agree < 0.995:
+        raise AssertionError(f"{name} artifact: masks agree with eager on {agree:.4%}")
+    return {"launches": launches, "export_s": export_s,
+            "mib": os.path.getsize(path) / 2**20, "agree": agree,
+            "episodes_per_s": loaded["episodes_per_s"], "eager_episodes_per_s": e / eager_s}
+
+
+def tools_phase(card, cwt_state, episodes, w0, mmn, modules):
+    """(a) the CWT serve artifact at batch 8 on the calibrated weights of
+    phase 4, (b) the MMN one on configs/pascal_mmn.yaml as shipped on the
+    flat route at batch 4 (weights of phase 6), each loaded in a fresh
+    process; (c) ``validate_transformer`` with ``profile_dir`` (1 run x 16
+    episodes): the trace names K1's kernel."""
+    load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine = modules
+    from few_shot_seg_cwt_tpu_torch.eval.validate import validate_transformer
+    from few_shot_seg_cwt_tpu_torch.tools import export_serve
+    from few_shot_seg_cwt_tpu_torch.train.common import episodic_val_loader
+
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_", dir="build")
+    try:
+        cfg = merge_cfg_from_list(load_cfg("configs/pascal.yaml"), [
+            "cls_lr", str(CLS_LR), "episode_batch", str(E)])
+        engine = EpisodicEngine(cfg, device="cuda")
+        engine.backbone.load_state_dict(cwt_state["backbone"])
+        engine.cwt.load_state_dict(cwt_state["cwt"])
+        cwt = serve_artifact("CWT", engine, lambda eng, e: export_serve.build_serve_export(
+            cfg, eng, e), episodes, w0, work, card)
+        if cwt["launches"].get("adapt_binary", 0) < 1:
+            raise AssertionError(f"the loaded CWT artifact launched {cwt['launches']}")
+
+        mcfg, mmn_state, mmn_episodes, mmn_w0 = mmn
+        with pivot_route(True):
+            mmn_engine = HeadEngine(mcfg, "mmn", device="cuda")
+        mmn_engine.backbone.load_state_dict(mmn_state["backbone"])
+        mmn_engine.head.load_state_dict(mmn_state["head"])
+        mmn_art = serve_artifact(
+            "MMN", mmn_engine, lambda eng, e: export_serve.build_head_serve_export(
+                mcfg, "mmn", eng, e), mmn_episodes, mmn_w0, work, card, flat=True)
+        if min(mmn_art["launches"].get(k, 0) for k in ("adapt_binary", "pivot_fwd")) < 1:
+            raise AssertionError(f"the loaded MMN artifact launched {mmn_art['launches']}")
+        del mmn_engine
+
+        # ---- the profiler trace of validate_transformer ----
+        pcfg = merge_cfg_from_list(cfg.clone(), [
+            "synthetic_data", "True", "test_num", "16", "n_runs", "1",
+            "profile_dir", os.path.join(work, "profile")])
+        lines = []
+        miou, _ = validate_transformer(pcfg, engine, episodic_val_loader(pcfg, device="cuda"),
+                                       log=lines.append)
+        trace = next(str(l) for l in lines if "profile trace written" in str(l)).split()[-1]
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        k1 = [ev for ev in events if ev.get("cat") == "kernel"
+              and "adapt_binary_kernel" in ev.get("name", "")]
+        ops = sum(1 for ev in events if ev.get("name") == "fss::adapt_binary")
+        print(f"validate_transformer with profile_dir (1 run x 16 episodes, mIoU {miou:.4f}): "
+              f"{os.path.getsize(trace) / 2**20:.1f} MiB Chrome trace, {len(events)} events, "
+              f"{len(k1)} adapt_binary_kernel launches ({sum(ev['dur'] for ev in k1) / 1e3:.3f} "
+              f"ms), {ops} fss::adapt_binary operator calls [{card}]")
+        if not k1:
+            raise AssertionError("the profile_dir trace does not name K1's kernel")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"cwt": cwt, "mmn": mmn_art, "trace_k1": len(k1)}
+
+
+def tools_on_tree(root, load_cfg, merge_cfg_from_list):
+    """On the real-data phase's PNG tree: ``preflight`` with a stage-1 .pth
+    and a CWT .pth saved from the port's random init (exit 0) and with the
+    stage-1 .pth removed (exit 1); ``convert_ckpt strip-module`` then
+    ``to-port`` give back the PSPNet's state_dict; ``bench_loader`` on the
+    tree prints its JSON line."""
+    from few_shot_seg_cwt_tpu_torch.models.cwt import build_cwt
+    from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
+    from few_shot_seg_cwt_tpu_torch.tools import bench_loader, preflight
+    from few_shot_seg_cwt_tpu_torch.train.common import trans_ckpt_dir
+    from few_shot_seg_cwt_tpu_torch.utils import convert_ckpt
+    from few_shot_seg_cwt_tpu_torch.utils.ckpt import load_ckpt
+
+    stage1 = os.path.join(root, "stage1.pth")
+    opts = ["data_root", root, "train_list", os.path.join(root, "train.txt"), "val_list",
+            os.path.join(root, "val.txt"), "resume_weights", stage1, "model_dir",
+            os.path.join(root, "model"), "ckpt_used", "best"]
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal.yaml"), opts)
+    sd = build_pspnet(cfg).state_dict()
+    torch.save({"epoch": 1, "state_dict": {f"module.{k}": v for k, v in sd.items()}}, stage1)
+    trans = os.path.join(trans_ckpt_dir(cfg), "best.pth")
+    os.makedirs(os.path.dirname(trans), exist_ok=True)
+    torch.save(build_cwt(cfg).state_dict(), trans)
+    args = ["--config", "configs/pascal.yaml", "--opts", *opts]
+    with contextlib.redirect_stdout(io.StringIO()) as ready:
+        rc_ready = preflight.main(args)
+    os.replace(stage1, stage1 + ".away")
+    with contextlib.redirect_stdout(io.StringIO()) as missing:
+        rc_missing = preflight.main(args)
+    os.replace(stage1 + ".away", stage1)
+    fails = [l.strip() for l in missing.getvalue().splitlines() if l.strip().startswith("FAIL")]
+    print(f"preflight on the PNG tree: exit {rc_ready} with the stage-1 .pth "
+          f"({sum('PASS' in l for l in ready.getvalue().splitlines())} PASS lines), exit "
+          f"{rc_missing} without it: {fails}")
+    if (rc_ready, rc_missing) != (0, 1):
+        raise AssertionError(f"preflight exits {rc_ready}, {rc_missing}:\n{ready.getvalue()}")
+
+    stripped, ported = os.path.join(root, "stripped.pth"), os.path.join(root, "ported.pth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_ckpt.main(["strip-module", stage1, stripped])
+        convert_ckpt.main(["to-port", "pspnet", stripped, ported])
+    back = load_ckpt(ported)
+    same = back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd)
+    print(f"convert_ckpt strip-module + to-port: {len(back)} tensors, equal to the "
+          f"PSPNet's state_dict: {same}")
+    if not same:
+        raise AssertionError("convert_ckpt did not give back the state_dict")
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        bench_loader.main(["--data-root", root, "--list", os.path.join(root, "train.txt"),
+                           "--episodes", "64", "--batch", str(E), "--workers", "4",
+                           "--device", "cuda"])
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"bench_loader on the PNG tree: {line}")
+    if not np.isfinite(json.loads(line)["value"]):
+        raise AssertionError(f"bench_loader: {line}")
+    print("record_episodes and parity_drill: not run, the reference tree (its src/ "
+          "sampler) is not on this machine")
 
 
 def main() -> int:
@@ -2090,6 +2382,7 @@ def main() -> int:
     if not np.isfinite(k1_err) or k1_err > k1_tol:
         raise AssertionError(f"K1 disagrees with its plain version: {k1_err} > {k1_tol}")
     k1_rows = {}
+    k1_lib = cuda_inner_loop.load_library()
     for e in (1, 2, 4, E):
         # each batch size partitions an episode differently (one row a CTA,
         # uneven slices, part of f streamed): held against the plain version,
@@ -2105,12 +2398,16 @@ def main() -> int:
         if not np.isfinite(err_e) or err_e > k1_tol or not same_e:
             raise AssertionError(f"K1 at E = {e}: error {err_e} > {k1_tol} or bits differ "
                                  f"from E = {E} ({same_e})")
-        ms = cuda_ms(lambda a=args: cuda_inner_loop.adapt_binary(*a, STEPS, CLS_LR), 5)
+        k1_t = launch_and_op_ms(
+            lambda a=args: cuda_inner_loop.launch(k1_lib, *a, STEPS, CLS_LR),
+            lambda a=args: cuda_inner_loop.adapt_binary(*a, STEPS, CLS_LR))
+        ms = k1_t["ms"]
         plain_ms = cuda_ms(
             lambda a=args: cuda_inner_loop.adapt_binary_reference(*a, STEPS, CLS_LR), 5)
         flops, nbytes = inner_loop_work(e, SHOT, FEAT, FEAT, CH, IMG, IMG, STEPS)
         b_ms, b_by = bound(flops, nbytes)
-        k1_rows[e] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        k1_rows[e] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, dispatch=k1_t)
+        print(f"K1 adapt_binary at E = {e}: {dispatch_text(k1_t)} [{card}]")
         print(f"K1 adapt_binary at E = {e}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {b_ms:.3f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
               f"grid {plan.grid} CTAs, {plan.ctas_per_group} CTAs per episode, plan "
@@ -2118,11 +2415,13 @@ def main() -> int:
         if plan.ctas_per_group < 2:
             raise AssertionError(f"K1 runs an episode on one CTA at E = {e}: {plan.summary()}")
     k1_ms, k1_plain_ms = k1_rows[E]["ms"], k1_rows[E]["plain_ms"]
+    k1_dispatch = k1_rows[E]["dispatch"]
     k1_bound, k1_bound_by = k1_rows[E]["bound_ms"], k1_rows[E]["bound_by"]
 
     # ---- 3c. K2 on the same inputs ----
-    k2_err, k2_ms = k2_phase(cuda_inner_loop, pick_tile, cuda_ms, (f_s, pw, pwy, u0),
-                                acc_k, acc_p, k1_tol, card)
+    k2_err, k2_t = k2_phase(cuda_inner_loop, pick_tile, cuda_ms, (f_s, pw, pwy, u0),
+                            acc_k, acc_p, k1_tol, card)
+    k2_ms = k2_t["ms"]
     print(f"K2 adapt_binary_tiled (tile {TILE}): kernel {k2_ms:.3f} ms against K1's "
           f"{k1_ms:.3f} ms; plain {k1_plain_ms:.3f} ms (the same function), bound "
           f"{k1_bound:.3f} ms ({k1_bound_by}, the same work), library_ms null [{card}]")
@@ -2239,6 +2538,12 @@ def main() -> int:
 
     # ---- 6c. MMN options: meta_aug 2 with att_type 3, eval_episode_tile 2 ----
     mmn_options_phase(mmn_engine, card, (make_episode_batch, cuda_inner_loop, cuda_pivot))
+    mmn_serve = (merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"),
+                                     ["episode_batch", str(E_MMN)]),
+                 {"backbone": module_state(mmn_engine.backbone),
+                  "head": module_state(mmn_engine.head)},
+                 make_episode_batch(13, E_MMN, size=IMG, shot=SHOT),
+                 mmn_engine.init_weights(E_MMN, torch.Generator().manual_seed(5)))
     del mmn_engine
     torch.cuda.empty_cache()
 
@@ -2253,19 +2558,27 @@ def main() -> int:
         "synthetic_data", "True", "epochs", "1", "iter_per_epoch", "8",
         "episode_batch", "2", "test_num", "8", "save_models", "False"])
     lines = []
-    with pivot_route(True):
+    # the head trainers write results/ (log.txt, checkpoints) under the working
+    # directory: run them in one of the smoke's own
+    os.makedirs("build", exist_ok=True)
+    run_dir = os.path.abspath(tempfile.mkdtemp(prefix="chip_smoke_head_", dir="build"))
+    with contextlib.chdir(run_dir), pivot_route(True):
         best = train_head.main(hcfg, "mmn", device="cuda", log=lines.append)
     val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
+    head_log = log_txt_val(os.path.join(run_dir, train_head.results_dir(hcfg, "mmn")),
+                           "val: mIoU")
     print(f"train.train_head.main: {val_line} (best {best:.4f}; random init, synthetic "
-          "episodes, 4 steps of 2 episodes, configs/pascal_mmn.yaml as shipped: use_amp)")
+          "episodes, 4 steps of 2 episodes, configs/pascal_mmn.yaml as shipped: use_amp); "
+          f"its log.txt: {head_log}")
     if not np.isfinite(best):
         raise AssertionError("the head trainer returned a non-finite mIoU")
     kcfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"), [
         "synthetic_data", "True", "shot", str(SHOT5), "epochs", "1", "iter_per_epoch", "2",
         "episode_batch", "1", "test_num", "2", "save_models", "False"])
     lines = []
-    with pivot_route(True):
+    with contextlib.chdir(run_dir), pivot_route(True):
         best = train_kshot.main(kcfg, device="cuda", log=lines.append)
+    shutil.rmtree(run_dir, ignore_errors=True)
     val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
     print(f"train.train_kshot.main (shot {SHOT5}, use_amp, 2 steps of 1 episode, test_num 2): "
           f"{val_line} (best {best:.4f})")
@@ -2287,10 +2600,11 @@ def main() -> int:
     train_cwt_entry_phase(load_cfg, merge_cfg_from_list, train_cwt, test_entry,
                           trans_ckpt_dir)
 
-    # ---- 10. real data: a PNG tree, with cv2 and PIL blocked ----
+    # ---- 10. real data: a PNG tree (cv2 and PIL blocked for pascal.yaml), the tools ----
     real = real_data_phase(card, (load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot))
 
     # ---- 11. stage-1 pretraining, VGG and the bench ----
+    cwt_state = {"backbone": module_state(engine.backbone), "cwt": module_state(engine.cwt)}
     del engine
     torch.cuda.empty_cache()
     pretrain_steps_phase(card, load_cfg)
@@ -2301,6 +2615,11 @@ def main() -> int:
                                          binary_pixel_weights, cuda_ms))
     torch.cuda.empty_cache()
     bench_phase(card)
+    torch.cuda.empty_cache()
+
+    # ---- 12. the tools: serve artifacts, the profiler trace ----
+    tools = tools_phase(card, cwt_state, episodes, w0, mmn_serve, (
+        load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine))
 
     main_block = pivot[(10, 10)]  # the heaviest consensus block stands for each kernel
     kernels = [{
@@ -2315,10 +2634,14 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_bound_by,
         "library_ms": None,
+        "dispatch": k1_dispatch,
         "real_data": {"launches": real["eval_launches"]["adapt_binary"]},
         "match": {"launches": match["eval_launches"]["adapt_binary"],
                   "train_match_launches": real["train_match_launches"]["adapt_binary"]},
         "pretrain_episodic_val": {"launches": pre["episodic"]["launches"]},
+        "loaded_artifacts": {"cwt_launches": tools["cwt"]["launches"].get("adapt_binary", 0),
+                             "mmn_launches": tools["mmn"]["launches"].get("adapt_binary", 0),
+                             "profile_trace_kernels": tools["trace_k1"]},
         "vgg_30x30": vgg,
         "shot5": {"launches": cwt_shot5_k1, "max_abs_err": k1_shot5["err"],
                   "ms": k1_shot5["ms"], "plain_ms": k1_shot5["plain_ms"],
@@ -2336,6 +2659,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_bound_by,
         "library_ms": None,
+        "dispatch": k2_t,
     }, {
         "name": "pivot_fwd",
         "route": "cuda",
@@ -2344,6 +2668,7 @@ def main() -> int:
         "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:106",
         "launches": mmn_eval_launches["pivot_fwd"],
         "real_data": {"launches": real["train_head_launches"]["pivot_fwd"]},
+        "loaded_artifacts": {"mmn_launches": tools["mmn"]["launches"].get("pivot_fwd", 0)},
         "match_1_to_10": {"launches": match["eval_launches"]["pivot_fwd"],
                           "max_abs_err": match["ci1"]["fwd_err"], "ms": match["ci1"]["fwd_ms"],
                           "plain_ms": match["ci1"]["fwd_plain_ms"],
@@ -2355,6 +2680,7 @@ def main() -> int:
         "bound_ms": main_block["bound_ms"],
         "bound_by": main_block["bound_by"],
         "library_ms": None,
+        "dispatch": main_block["fwd_t"],
     }, {
         "name": "pivot_dw",
         "route": "cuda",
@@ -2374,6 +2700,7 @@ def main() -> int:
         "bound_ms": main_block["bound_ms"],
         "bound_by": main_block["bound_by"],
         "library_ms": None,
+        "dispatch": main_block["dw_t"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -214,7 +214,7 @@ _DEFAULTS: Dict[str, Any] = {
     "head_grad_accum": True,   # head train step: accumulate per-episode grads
                                # sequentially (exact; bounds HBM by 1 episode)
 
-    "profile_dir": None,       # jax.profiler trace output directory
+    "profile_dir": None,       # torch.profiler trace of validate_transformer (Chrome JSON)
     "resume_ckpt": None,       # orbax ckpt: full train_state (exact resume) or weights
     "auto_resume": False,      # pick up this run's own train_state.ckpt if present
     "stop_after_epochs": None, # preemption drill: exit after N epochs this run

@@ -120,26 +120,6 @@ void resize_pad_label_i32(
   }
 }
 
-// Nearest-resize a uint8 label to a (size, size) int32 canvas the way
-// cv2.resize(INTER_NEAREST) does: src = floor(dst * (1 / (size / in))), the
-// reciprocal of cv2's scale factor, which rounds differently from in / size
-// where dst * in / size is a whole number (the ``resize_np`` label tail).
-void resize_label_square_i32(
-    const uint8_t* label, int64_t in_h, int64_t in_w,
-    int32_t* out, int64_t size) {
-  const double ify = 1.0 / (static_cast<double>(size) / static_cast<double>(in_h));
-  const double ifx = 1.0 / (static_cast<double>(size) / static_cast<double>(in_w));
-  for (int64_t y = 0; y < size; ++y) {
-    const int64_t yy = std::min<int64_t>(static_cast<int64_t>(std::floor(y * ify)), in_h - 1);
-    const uint8_t* src_row = label + yy * in_w;
-    int32_t* row = out + y * size;
-    for (int64_t x = 0; x < size; ++x) {
-      const int64_t xx = std::min<int64_t>(static_cast<int64_t>(std::floor(x * ifx)), in_w - 1);
-      row[x] = src_row[xx];
-    }
-  }
-}
-
 // Undo PNG's row filters (PNG spec, section 9): ``in`` holds ``height``
 // rows of one filter-type byte and ``row_bytes`` filtered bytes; ``out``
 // receives the ``height * row_bytes`` raw bytes. ``bpp`` is the bytes per

@@ -100,8 +100,8 @@ class EpisodicDataset:
         # _resize_norm = the pipeline's resize flavour + normalization;
         # _norm_only   = normalization alone (view already at full canvas).
         if "resize_np" in cfg.augmentations:
-            self._resize_norm = [T.FusedResizeSquareNormalize(cfg.image_size, cfg.mean,
-                                                              cfg.std)]
+            self._resize_norm = [T.ResizeSquare((cfg.image_size, cfg.image_size)),
+                                 T.ToNormalized(cfg.mean, cfg.std)]
         else:
             self._resize_norm = [T.FusedResizeNormalize(
                 cfg.image_size, cfg.mean, cfg.std, padding=self.padding)]

@@ -1,8 +1,7 @@
 """ctypes bridge to the port's host C++ core (``csrc/fss_native.cpp``).
 
 The fused resize + pad + normalize of an image, the fused nearest resize +
-pad of a label (and cv2's nearest rule for the square ``resize_np`` label),
-and the PNG row unfilter that ``data.imread`` uses. The
+pad of a label, and the PNG row unfilter that ``data.imread`` uses. The
 library is built at first use with g++ (the JAX package's flags, so the
 resize output is the same bits) into ``build/torch_kernels/`` beside the
 CUDA kernels, under a name keyed by the source and the flags. There is no
@@ -78,8 +77,6 @@ def load_library() -> ctypes.CDLL:
             lib.resize_pad_label_i32.argtypes = [
                 u8p, i64, i64, i32p, i64, i64, i64, ctypes.c_int32]
             lib.resize_pad_label_i32.restype = None
-            lib.resize_label_square_i32.argtypes = [u8p, i64, i64, i32p, i64]
-            lib.resize_label_square_i32.restype = None
             lib.png_unfilter.argtypes = [u8p, i64, i64, i64, u8p]
             lib.png_unfilter.restype = i64
             _LIB = lib
@@ -127,19 +124,6 @@ def resize_pad_label(label: np.ndarray, size: int, nh: int, nw: int,
     out = np.empty((size, size), np.int32)
     lib.resize_pad_label_i32(_ptr(lab, ctypes.c_uint8), lab.shape[0], lab.shape[1],
                              _ptr(out, ctypes.c_int32), size, nh, nw, target_class)
-    return out
-
-
-def resize_label_square(label: np.ndarray, size: int) -> np.ndarray:
-    """(H, W) uint8 -> (size, size) int32 by cv2's nearest-neighbour rule
-    (``cv2.resize(..., INTER_NEAREST)`` to a square, exactly)."""
-    if label.ndim != 2:
-        raise ValueError(f"expected an (H, W) label, got {label.shape}")
-    lib = load_library()
-    lab = np.ascontiguousarray(label, np.uint8)
-    out = np.empty((size, size), np.int32)
-    lib.resize_label_square_i32(_ptr(lab, ctypes.c_uint8), lab.shape[0], lab.shape[1],
-                                _ptr(out, ctypes.c_int32), size)
     return out
 
 

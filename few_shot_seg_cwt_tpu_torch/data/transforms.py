@@ -14,13 +14,14 @@ mIoU parity:
   (src:312-368) — connected components via cv2;
 * ColorJitter brightness/saturation/contrast variants (src:435-478).
 
-The pipelines' resize + normalize tail always runs fused in the host C++
-core (``data.native``): ``resize`` as ``FusedResizeNormalize``, bit for bit
-the JAX package's, and ``resize_np`` as ``FusedResizeSquareNormalize``,
-within 2e-3 of the JAX package's cv2 ``ResizeSquare`` + ``ToNormalized``
-(labels exact). Flips are numpy. So the default pipelines (flips,
-``resize``, ``resize_np``) need neither OpenCV nor Pillow; the other
-transforms import them when called and raise ``ImportError`` without them.
+The ``resize`` + normalize tail runs fused in the host C++ core
+(``data.native``) as ``FusedResizeNormalize``, bit for bit the JAX
+package's. ``resize_np`` is what the JAX package runs: cv2's
+``ResizeSquare``, then ``ToNormalized``, so its episodes are the JAX
+package's bits too. Flips are numpy. So the default pipelines (flips,
+``resize``) need neither OpenCV nor Pillow; ``resize_np`` and the other
+transforms import them when called and raise ``ImportError`` naming the
+transform without them.
 
 Outputs are float32 HWC images scaled to [0,1] then mean/std normalized, and
 int32 labels. Random decisions draw from Python's ``random`` module (numpy's
@@ -40,14 +41,15 @@ from . import native
 Pair = Tuple[np.ndarray, np.ndarray]
 
 
-def _cv2():
-    """OpenCV, imported when a transform that needs it first runs."""
+def _cv2(transform: str):
+    """OpenCV, imported when ``transform``, a transform that needs it,
+    first runs."""
     try:
         import cv2
     except ImportError as e:
-        raise ImportError("this transform needs OpenCV (cv2), which does not import "
-                          f"here ({e}); the default pipelines (flips, resize, "
-                          "resize_np) run without it") from e
+        raise ImportError(f"{transform} needs OpenCV (cv2), which does not import "
+                          f"here ({e}); the default pipelines (flips, resize) run "
+                          "without it") from e
     return cv2
 
 
@@ -94,7 +96,7 @@ class ResizeKeepAspect:
         self.padding = padding  # image pad value per channel (None = zeros)
 
     def __call__(self, image, label):
-        cv2 = _cv2()
+        cv2 = _cv2("ResizeKeepAspect")
         size = self.size
 
         def new_hw(h: int, w: int) -> Tuple[int, int]:
@@ -132,7 +134,7 @@ class ResizeSquare:
         self.size = (size, size) if isinstance(size, int) else tuple(size)
 
     def __call__(self, image, label):
-        cv2 = _cv2()
+        cv2 = _cv2("ResizeSquare")
         img = cv2.resize(np.asarray(image, np.float32), dsize=self.size,
                          interpolation=cv2.INTER_LINEAR)
         lbl = cv2.resize(np.asarray(label, np.float32), dsize=self.size,
@@ -152,7 +154,7 @@ class RandScale:
         self.padding = padding
 
     def __call__(self, image, label):
-        cv2 = _cv2()
+        cv2 = _cv2("RandScale")
         s = self.scale[0] + (self.scale[1] - self.scale[0]) * random.random()
         ar = 1.0
         if self.aspect_ratio is not None:
@@ -199,7 +201,7 @@ class Crop:
         self.ignore_label = ignore_label
 
     def __call__(self, image, label):
-        cv2 = _cv2()
+        cv2 = _cv2("Crop")
         h, w = image.shape[:2]
         pad_h = max(self.crop_h - h, 0)
         pad_w = max(self.crop_w - w, 0)
@@ -249,7 +251,7 @@ class FitCrop:
         return int(h0), int(h1), int(w0), int(w1)
 
     def __call__(self, image, label):
-        cv2 = _cv2()
+        cv2 = _cv2("FitCrop")
         h, w = image.shape[:2]
         binary = np.asarray(label).copy()
         binary[binary == 255] = 0
@@ -279,7 +281,7 @@ class RandRotate:
         self.p = p
 
     def __call__(self, image, label):
-        cv2 = _cv2()
+        cv2 = _cv2("RandRotate")
         if random.random() < self.p:
             angle = self.rotate[0] + (self.rotate[1] - self.rotate[0]) * random.random()
             h, w = label.shape
@@ -320,7 +322,7 @@ class RandomGaussianBlur:
         self.radius = radius
 
     def __call__(self, image, label):
-        cv2 = _cv2()
+        cv2 = _cv2("RandomGaussianBlur")
         if random.random() < 0.5:
             image = cv2.GaussianBlur(image, (self.radius, self.radius), 0)
         return image, label
@@ -333,7 +335,7 @@ class ColorJitter:
         self.cj_type = cj_type
 
     def __call__(self, img, label):
-        cv2 = _cv2()
+        cv2 = _cv2("ColorJitter")
         img = np.asarray(img, np.float32)
         if self.cj_type == "b":
             hsv = cv2.cvtColor(img.astype(np.uint8), cv2.COLOR_BGR2HSV)
@@ -378,16 +380,15 @@ def build_aug_pipeline(cfg, names: Sequence[str]) -> Compose:
     # the [resize -> normalize] tail runs fused in the host C++ core
     if len(ts) >= 2 and isinstance(ts[-2], ResizeKeepAspect):
         ts[-2:] = [FusedResizeNormalize(cfg.image_size, cfg.mean, cfg.std, padding=padding)]
-    elif len(ts) >= 2 and isinstance(ts[-2], ResizeSquare):
-        ts[-2:] = [FusedResizeSquareNormalize(cfg.image_size, cfg.mean, cfg.std)]
     return Compose(ts)
 
 
 def build_val_pipeline(cfg) -> Compose:
-    """Validation pipeline: resize + normalize only (reference: dataset.py:78-84),
-    fused in the host C++ core."""
+    """Validation pipeline: resize + normalize only (reference: dataset.py:78-84);
+    ``resize`` fused in the host C++ core, ``resize_np`` through cv2."""
     if "resize_np" in cfg.augmentations:
-        return Compose([FusedResizeSquareNormalize(cfg.image_size, cfg.mean, cfg.std)])
+        return Compose([ResizeSquare((cfg.image_size, cfg.image_size)),
+                        ToNormalized(cfg.mean, cfg.std)])
     padding = [v * 255 for v in cfg.mean] if cfg.get("padding") == "avg" else None
     return Compose([FusedResizeNormalize(cfg.image_size, cfg.mean, cfg.std,
                                          padding=padding)])
@@ -488,23 +489,3 @@ class FusedResizeNormalize:
         lab = np.asarray(label)
         nh2, nw2 = self._new_hw(lab.shape[0], lab.shape[1])
         return out_img, native.resize_pad_label(lab.astype(np.uint8), self.size, nh2, nw2)
-
-
-class FusedResizeSquareNormalize(FusedResizeNormalize):
-    """``ResizeSquare`` + ``ToNormalized`` (the ``resize_np`` tail) in one pass
-    of the host C++ core: the canvas is filled, nothing is padded. Labels are
-    cv2's nearest resize exactly; images are within 2e-3 of cv2's bilinear
-    resize after normalization (another summation order), the one place the
-    port's episodes are not the JAX package's bits."""
-
-    def __init__(self, size: int, mean, std):
-        super().__init__(size, mean, std)
-
-    def __call__(self, image, label):
-        img = np.asarray(image, np.float32)
-        out_img = native.resize_pad_normalize(img, self.size, self.size, self.size,
-                                              self.mean, self.std)
-        if label is None:
-            return out_img
-        return out_img, native.resize_label_square(np.asarray(label).astype(np.uint8),
-                                                   self.size)

@@ -15,12 +15,14 @@ walks a fresh wrap-around stream of the loader; a replayed episode log
 r * test_num onwards, as the reference's persistent iterator does.
 ``episodic_validate`` is the same protocol without the transformer, scoring
 the adapted inner-loop classifier (stage-1 pretraining's episodic
-validation). Single process; the mesh and multi-process branches of the JAX
+validation). ``profile_dir`` traces ``validate_transformer``'s runs with
+``torch.profiler``. Single process; the mesh and multi-process branches of the JAX
 package are not ported yet (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterable, Optional, Tuple
@@ -75,7 +77,9 @@ def validate_transformer(cfg, engine, loader: Iterable[Dict],
 
     ``loader`` is re-iterable with a ``batch_size`` E (``EpisodeLoader``); a
     run takes ``ceil(test_num / E)`` batches and scores exactly ``test_num``
-    episodes.
+    episodes. With ``profile_dir`` a ``torch.profiler`` trace of the runs
+    (host and, on the card, device activity) is written there as Chrome-trace
+    JSON (``trace_path``), as the JAX package's ``jax.profiler`` trace is.
     """
     test_num = cfg.test_num
     e_batch = loader.batch_size
@@ -92,6 +96,9 @@ def validate_transformer(cfg, engine, loader: Iterable[Dict],
             f"replay: episode_batch {e_batch} must divide test_num {test_num} so "
             "run boundaries match the recorded stream")
     persistent_stream = infinite(loader) if replaying else None
+
+    profile_dir = cfg.get("profile_dir")
+    profiler = start_trace(engine.device) if profile_dir else None
 
     for run in range(cfg.n_runs):
         cls_inter: Dict[int, float] = defaultdict(float)
@@ -131,9 +138,38 @@ def validate_transformer(cfg, engine, loader: Iterable[Dict],
         run_losses[run] = loss_meter.avg
         runtimes[run] = t_run
 
+    if profiler is not None:
+        log(f"=> profile trace written to {stop_trace(profiler, profile_dir)}")
     log(f"Average mIoU over {cfg.n_runs} runs --- {run_mious.mean():.4f}.")
     log(f"Average runtime / run --- {runtimes.mean():.4f}.")
     return float(run_mious.mean()), float(run_losses.mean())
+
+
+def start_trace(device) -> torch.profiler.profile:
+    """A started ``torch.profiler`` session: host activity, and the card's
+    kernels when ``device`` is a CUDA device."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def trace_path(profile_dir: str) -> str:
+    """Where ``stop_trace`` writes: one file a process and second."""
+    return os.path.join(profile_dir, f"validate_transformer.{os.getpid()}."
+                                     f"{int(time.time())}.trace.json")
+
+
+def stop_trace(profiler: torch.profiler.profile, profile_dir: str) -> str:
+    """Stop ``profiler`` and write its Chrome trace under ``profile_dir``;
+    returns the file's path."""
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = trace_path(profile_dir)
+    profiler.export_chrome_trace(path)
+    return path
 
 
 def episodic_validate(cfg, engine, loader: Iterable[Dict],

@@ -54,7 +54,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda_pivot import pivot_conv_flat, pivot_impl, pivot_kernel_available
+from ..ops.cuda_pivot import pivot_fwd, pivot_impl, pivot_kernel_available
 
 
 def check_no_int8() -> None:
@@ -202,7 +202,7 @@ class CenterPivotConv4d(nn.Module):
                 self.kernel_size, self.stride, self.padding):
             kq, ks = _hwio(self.conv1, x.dtype), _hwio(self.conv2, x.dtype)
             wa, wb = (ks, kq) if swap_roles else (kq, ks)
-            return pivot_conv_flat(x, wa, wb, bias, dims, relu=fuse_relu)
+            return pivot_fwd(x, wa, wb, bias, dims, relu=fuse_relu)
         hq, wq, hs, ws = dims
         b = x.shape[0]
         x6 = x.reshape(b, -1, hq, wq, hs, ws).permute(0, 2, 3, 4, 5, 1)

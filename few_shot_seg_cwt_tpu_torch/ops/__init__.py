@@ -1,3 +1,10 @@
+"""The port's ops. Importing the package registers the hand-written kernels
+as PyTorch operators (``fss::adapt_binary``, ``fss::adapt_binary_tiled``,
+``fss::pivot_fwd``, ``fss::pivot_dw``), so a program saved by
+``torch.export`` that calls them loads with this package alone; each
+kernel is built at its first launch."""
+
+from . import cuda_inner_loop, cuda_pivot  # noqa: F401  (registers the operators)
 from .resize import (
     adaptive_avg_pool,
     adaptive_pool_matrix,

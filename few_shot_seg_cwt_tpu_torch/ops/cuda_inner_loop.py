@@ -12,6 +12,16 @@ is decided here from the card's SM count and the kernel's occupancy.
 (the XLA scan of ``episodic/inner_loop.py:_adapt_binary``), batched over the
 episode axis.
 
+Both kernels are PyTorch operators, ``fss::adapt_binary`` and
+``fss::adapt_binary_tiled`` (``torch.library.custom_op``): the CUDA
+implementation launches the kernel on the current stream and counts the
+launch, the CPU implementation is the plain version, and a fake
+implementation gives the (E, C) result's shape, so ``torch.export`` and
+``FakeTensor`` tracing see one opaque node. The work plan, the shared-memory
+sizing and the tap table are host work inside the CUDA implementation. The
+operators have no gradient: the inner loop's result enters the transformer
+detached, as in the JAX package.
+
 Dispatch is by the tensors' device only: CPU tensors go to the plain
 version; CUDA tensors go to the kernel, or the call raises. There is no
 fallback from the card to the plain version.
@@ -150,9 +160,8 @@ def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
 
 
 def _check_inputs(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
-                  u0: torch.Tensor) -> torch.device:
-    """Layout, type and device checks shared by both wrappers; returns the
-    inputs' one device."""
+                  u0: torch.Tensor) -> None:
+    """Layout, type and device checks shared by both wrappers."""
     if f_s.ndim != 5:
         raise ValueError(f"f_s: (E, shot, h, w, C) expected, got {tuple(f_s.shape)}")
     e, shot, h, w, c = f_s.shape
@@ -166,10 +175,8 @@ def _check_inputs(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
     devices = {t.device for t in (f_s, pw, pwy, u0)}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
-    device = f_s.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"adapt_binary: unsupported device {device}")
-    return device
+    if f_s.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"adapt_binary: unsupported device {f_s.device}")
 
 
 def adapt_binary(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
@@ -180,11 +187,8 @@ def adapt_binary(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
     and pw * y; u0 (E, C) = W1 - W0 of the initial classifier. All fp32 and
     contiguous. The caller forms [W0 + lr*acc, W1 - lr*acc].
     """
-    if _check_inputs(f_s, pw, pwy, u0).type == "cpu":
-        return adapt_binary_reference(f_s, pw, pwy, u0, num_steps, lr)
-    if num_steps < 0 or f_s.shape[1] < 1:
-        raise ValueError(f"num_steps {num_steps} / shot {f_s.shape[1]}")
-    return launch(load_library(), f_s, pw, pwy, u0, num_steps, lr)
+    _check_inputs(f_s, pw, pwy, u0)
+    return torch.ops.fss.adapt_binary(f_s, pw, pwy, u0, int(num_steps), float(lr))
 
 
 def adapt_binary_tiled(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
@@ -198,17 +202,58 @@ def adapt_binary_tiled(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
     and its shared memory must fit a block (``smem_bytes``); the call raises
     otherwise.
     """
-    device = _check_inputs(f_s, pw, pwy, u0)
+    _check_inputs(f_s, pw, pwy, u0)
     e, shot = f_s.shape[:2]
     if shot != 1 or tile < 1 or e % tile != 0:
         raise ValueError(f"adapt_binary_tiled: shot 1 and E % tile == 0 needed, "
                          f"got shot {shot}, E {e}, tile {tile}")
-    if device.type == "cpu":
-        return adapt_binary_reference(f_s, pw, pwy, u0, num_steps, lr)
+    return torch.ops.fss.adapt_binary_tiled(f_s, pw, pwy, u0, int(num_steps), float(lr),
+                                            int(tile))
+
+
+# --------------------------------------------------------------------------- #
+# the operators
+# --------------------------------------------------------------------------- #
+
+
+@torch.library.custom_op("fss::adapt_binary", mutates_args=(), device_types="cpu")
+def _adapt_binary_op(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
+                     u0: torch.Tensor, num_steps: int, lr: float) -> torch.Tensor:
+    """K1 as an operator; this is its CPU implementation, the plain version."""
+    return adapt_binary_reference(f_s, pw, pwy, u0, num_steps, lr)
+
+
+@_adapt_binary_op.register_kernel("cuda")
+def _adapt_binary_cuda(f_s, pw, pwy, u0, num_steps, lr):
+    if num_steps < 0 or f_s.shape[1] < 1:
+        raise ValueError(f"num_steps {num_steps} / shot {f_s.shape[1]}")
+    return launch(load_library(), f_s, pw, pwy, u0, num_steps, lr)
+
+
+@_adapt_binary_op.register_fake
+def _adapt_binary_fake(f_s, pw, pwy, u0, num_steps, lr):
+    return u0.new_empty(u0.shape)
+
+
+@torch.library.custom_op("fss::adapt_binary_tiled", mutates_args=(), device_types="cpu")
+def _adapt_binary_tiled_op(f_s: torch.Tensor, pw: torch.Tensor, pwy: torch.Tensor,
+                           u0: torch.Tensor, num_steps: int, lr: float,
+                           tile: int) -> torch.Tensor:
+    """K2 as an operator; this is its CPU implementation, the plain version."""
+    return adapt_binary_reference(f_s, pw, pwy, u0, num_steps, lr)
+
+
+@_adapt_binary_tiled_op.register_kernel("cuda")
+def _adapt_binary_tiled_cuda(f_s, pw, pwy, u0, num_steps, lr, tile):
     if num_steps < 0 or tile not in TILES:
         raise ValueError(f"adapt_binary_tiled: num_steps {num_steps}, tile {tile} "
                          f"(the kernel takes {TILES})")
     return launch(load_library(), f_s, pw, pwy, u0, num_steps, lr, tile)
+
+
+@_adapt_binary_tiled_op.register_fake
+def _adapt_binary_tiled_fake(f_s, pw, pwy, u0, num_steps, lr, tile):
+    return u0.new_empty(u0.shape)
 
 
 def _taps_on(big_h: int, big_w: int, h: int, w: int, device) -> torch.Tensor:

@@ -15,14 +15,22 @@ bound with ctypes) take the place of the four Pallas kernels: ``pivot_fwd``
 (K3a and K4a; fp32 on the CUDA cores from a staged query window, a
 persistent grid, ``csrc/pivot_fwd.cuh``) and ``pivot_dw`` (K3b and K4b, the
 weight and bias gradient, on the tensor cores in 3xTF32 form).
-``pivot_conv_flat`` wraps them in a ``torch.autograd.Function``: dx is
-``pivot_fwd`` of the ReLU-masked cotangent with spatially flipped,
-(ci, co)-transposed weights, and (dwa, dwb, db) come from ``pivot_dw``.
-Around the fp32 kernels it does what the JAX wrappers do around the Pallas
-calls (``pallas_pivot_mxu.py:243,266-268,276-277,334-335``): x, the
-weights and the cotangent go to fp32 before a kernel, y comes out in the
-promoted dtype of x and the weights, and dx, dW, db in their inputs'
-dtypes, so a bf16 volume (``use_amp``) runs the same kernels.
+
+Both are PyTorch operators, ``fss::pivot_fwd`` and ``fss::pivot_dw``
+(``torch.library.custom_op``): a CUDA implementation that launches the
+kernel on the current stream and counts the launch, a CPU implementation
+that is the plain version, and a fake implementation that gives the
+output shapes, so ``torch.export`` and ``FakeTensor`` tracing see one
+opaque node. ``fss::pivot_fwd`` has its gradient registered
+(``register_autograd``, the JAX ``custom_vjp``): dx is ``pivot_fwd`` of the
+ReLU-masked cotangent with spatially flipped, (ci, co)-transposed weights,
+and (dwa, dwb, db) come from ``pivot_dw``. Around the fp32 kernels the
+operator does what the JAX wrappers do around the Pallas calls
+(``pallas_pivot_mxu.py:243,266-268,276-277,334-335``): bf16 x, weights
+and cotangent go to fp32 before a kernel, y comes out in the promoted
+dtype of x and the weights, and dx, dW, db in their inputs' dtypes, so a
+bf16 volume (``use_amp``) runs the same kernels and stays bf16 while
+autograd holds it. ``pivot_fwd`` is the differentiable entry.
 
 Dispatch is by device only: CPU tensors run the plain versions
 (``pivot_conv_flat_reference``, ``pivot_dw_reference``: ``F.conv2d`` and its
@@ -34,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -214,16 +222,17 @@ def flatten_weights(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
 
 
 def pivot_fwd(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
-              bias: torch.Tensor, dims: Dims, relu: bool = False) -> torch.Tensor:
-    """y (B, Co, Q, S) from x (B, Ci, Q, S): the forward kernel on CUDA
-    tensors (any batch; Ci while one support row of its staged window fits
-    a block's shared memory), the plain version on CPU tensors."""
-    dims = tuple(int(d) for d in dims)
-    if x.device.type == "cpu":
-        return pivot_conv_flat_reference(x, wa, wb, bias, dims, relu)
-    y = launch_fwd(load_library(), x, wa, wb, bias, dims, relu)
-    LAUNCHES["pivot_fwd"] += 1
-    return y
+              bias: torch.Tensor, dims: Sequence[int], relu: bool = False) -> torch.Tensor:
+    """Centre-pivot conv pair on a flat volume, differentiable.
+
+    x (B, Ci, Q, S) with Q = hq*wq, S = hs*ws (dims = (hq, wq, hs, ws));
+    wa/wb (3, 3, Ci, Co) query-/support-plane kernels; bias (Co,). Returns
+    y (B, Co, Q, S): the forward kernel on CUDA tensors (any batch; Ci while
+    one support row of its staged window fits a block's shared memory), the
+    plain version on CPU tensors; bf16 / fp16 operands run in fp32 and y
+    comes back in their promoted type."""
+    return torch.ops.fss.pivot_fwd(x.contiguous(), wa, wb, bias, [int(d) for d in dims],
+                                   bool(relu))
 
 
 def launch_fwd(lib: ctypes.CDLL, x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
@@ -266,12 +275,7 @@ def pivot_dw(x: torch.Tensor, g: torch.Tensor, dims: Dims
     cotangent g (B, Co, Q, S), summed over the batch: the two-pass kernel on
     CUDA tensors (a persistent grid of tensor-core CTAs, then their partials
     summed in order), the plain version on CPU tensors."""
-    dims = tuple(int(d) for d in dims)
-    if x.device.type == "cpu":
-        return pivot_dw_reference(x, g, dims)
-    out = launch_dw(load_library(), x, g, dims)
-    LAUNCHES["pivot_dw"] += 1
-    return out
+    return tuple(torch.ops.fss.pivot_dw(x, g, [int(d) for d in dims]))
 
 
 def launch_dw(lib: ctypes.CDLL, x: torch.Tensor, g: torch.Tensor, dims: Dims
@@ -308,8 +312,59 @@ def launch_dw(lib: ctypes.CDLL, x: torch.Tensor, g: torch.Tensor, dims: Dims
 
 
 # --------------------------------------------------------------------------- #
-# differentiable op
+# the operators
 # --------------------------------------------------------------------------- #
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """bf16 and fp16 go to fp32, the kernels' type; other types as they are."""
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
+@torch.library.custom_op("fss::pivot_fwd", mutates_args=(), device_types="cpu")
+def _pivot_fwd_op(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor, bias: torch.Tensor,
+                  dims: List[int], relu: bool) -> torch.Tensor:
+    """``pivot_fwd`` as an operator; this is its CPU implementation, the
+    plain version. bf16 / fp16 operands run in fp32 and y comes back in the
+    promoted type of x and the weights, as on the card."""
+    y = pivot_conv_flat_reference(_wide(x), _wide(wa), _wide(wb), _wide(bias), tuple(dims),
+                                  relu)
+    return y.to(torch.promote_types(x.dtype, wa.dtype)).contiguous()
+
+
+@_pivot_fwd_op.register_kernel("cuda")
+def _pivot_fwd_cuda(x, wa, wb, bias, dims, relu):
+    y = launch_fwd(load_library(), _wide(x), _wide(wa), _wide(wb), _wide(bias), tuple(dims),
+                   relu)
+    LAUNCHES["pivot_fwd"] += 1
+    return y.to(torch.promote_types(x.dtype, wa.dtype))
+
+
+@_pivot_fwd_op.register_fake
+def _pivot_fwd_fake(x, wa, wb, bias, dims, relu):
+    return x.new_empty((x.shape[0], wa.shape[-1]) + tuple(x.shape[2:]),
+                       dtype=torch.promote_types(x.dtype, wa.dtype))
+
+
+@torch.library.custom_op("fss::pivot_dw", mutates_args=(), device_types="cpu")
+def _pivot_dw_op(x: torch.Tensor, g: torch.Tensor, dims: List[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``pivot_dw`` as an operator; this is its CPU implementation, the
+    plain version."""
+    return tuple(t.contiguous() for t in pivot_dw_reference(x, g, tuple(dims)))
+
+
+@_pivot_dw_op.register_kernel("cuda")
+def _pivot_dw_cuda(x, g, dims):
+    out = launch_dw(load_library(), x, g, tuple(dims))
+    LAUNCHES["pivot_dw"] += 1
+    return tuple(t.clone() for t in out)    # views of one buffer -> own tensors
+
+
+@_pivot_dw_op.register_fake
+def _pivot_dw_fake(x, g, dims):
+    ci, co = x.shape[1], g.shape[1]
+    return (x.new_empty((3, 3, ci, co)), x.new_empty((3, 3, ci, co)), x.new_empty((co,)))
 
 
 def flip_t(w: torch.Tensor) -> torch.Tensor:
@@ -318,41 +373,25 @@ def flip_t(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1).transpose(2, 3)
 
 
-class _PivotConv(torch.autograd.Function):
-    """f(x, wa, wb, bias) -> y with the kernels in both directions."""
-
-    @staticmethod
-    def forward(ctx, x, wa, wb, bias, dims, relu):
-        f32 = torch.float32
-        y = pivot_fwd(x.to(f32).contiguous(), wa.to(f32), wb.to(f32), bias.to(f32), dims,
-                      relu).to(torch.promote_types(x.dtype, wa.dtype))
-        ctx.dims, ctx.relu, ctx.bias_dtype = dims, relu, bias.dtype
-        ctx.save_for_backward(x, wa, wb, y if relu else None)
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, wa, wb, y = ctx.saved_tensors
-        f32 = torch.float32
-        g = (dy * (y > 0).to(dy.dtype) if ctx.relu else dy).to(f32).contiguous()
-        dx = dwa = dwb = db = None
-        if ctx.needs_input_grad[0]:
-            zeros = torch.zeros((x.shape[1],), dtype=f32, device=g.device)
-            dx = pivot_fwd(g, flip_t(wa.to(f32)), flip_t(wb.to(f32)), zeros, ctx.dims,
-                           False).to(x.dtype)
-        if any(ctx.needs_input_grad[1:4]):
-            dwa, dwb, db = pivot_dw(x.to(f32).contiguous(), g, ctx.dims)
-            dwa, dwb, db = dwa.to(wa.dtype), dwb.to(wb.dtype), db.to(ctx.bias_dtype)
-        return dx, dwa, dwb, db, None, None
+def _pivot_fwd_setup(ctx, inputs, output):
+    # the operands in their own types (a bf16 volume stays bf16 while saved)
+    x, wa, wb, bias, dims, relu = inputs
+    ctx.dims, ctx.relu, ctx.bias_dtype = dims, relu, bias.dtype
+    ctx.save_for_backward(x, wa, wb, output if relu else None)
 
 
-def pivot_conv_flat(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
-                    bias: torch.Tensor, dims: Sequence[int],
-                    relu: bool = False) -> torch.Tensor:
-    """Centre-pivot conv pair on a flat volume, differentiable.
+def _pivot_fwd_backward(ctx, dy):
+    x, wa, wb, y = ctx.saved_tensors
+    g = _wide(dy * (y > 0).to(dy.dtype) if ctx.relu else dy).contiguous()
+    dx = dwa = dwb = db = None
+    if ctx.needs_input_grad[0]:
+        zeros = torch.zeros((x.shape[1],), dtype=g.dtype, device=g.device)
+        dx = torch.ops.fss.pivot_fwd(g, flip_t(_wide(wa)), flip_t(_wide(wb)), zeros,
+                                     ctx.dims, False).to(x.dtype)
+    if any(ctx.needs_input_grad[1:4]):
+        dwa, dwb, db = torch.ops.fss.pivot_dw(_wide(x).contiguous(), g, ctx.dims)
+        dwa, dwb, db = dwa.to(wa.dtype), dwb.to(wb.dtype), db.to(ctx.bias_dtype)
+    return dx, dwa, dwb, db, None, None
 
-    x (B, Ci, Q, S) with Q = hq*wq, S = hs*ws (dims = (hq, wq, hs, ws));
-    wa/wb (3, 3, Ci, Co) query-/support-plane kernels; bias (Co,). Returns
-    (B, Co, Q, S).
-    """
-    return _PivotConv.apply(x, wa, wb, bias, tuple(int(d) for d in dims), bool(relu))
+
+_pivot_fwd_op.register_autograd(_pivot_fwd_backward, setup_context=_pivot_fwd_setup)

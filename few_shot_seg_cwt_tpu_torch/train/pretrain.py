@@ -39,9 +39,11 @@ lists, or with ``synthetic_data`` from seeded random images and labels.
 The backbone trains in fp32 whatever ``compute_dtype`` says (the JAX step
 casts nothing); uniform bf16 reaches only the episodic validation's
 engine. ``pretrained`` ImageNet trunks are not read (nor does the JAX
-package read them). Not ported: several processes (ROADMAP queue 1 item
-13), a mixed ``bf16_stages`` policy and the TensorBoard scalars, which wait
-for item 14's ``utils/tb`` and are logged as lines.
+package read them). The lines go to ``log`` and ``<sv_path>/log.txt``; the
+epoch's ``train_loss`` and ``mean_iou/val`` to TensorBoard scalars under
+``<sv_path>/model`` (``utils.tb``: an events file, or ``scalars.jsonl``
+without ``tensorboard``). Not ported: several processes (ROADMAP queue 1
+item 13) and a mixed ``bf16_stages`` policy.
 """
 
 from __future__ import annotations
@@ -63,9 +65,11 @@ from ..models.pspnet import PSPNet, build_pspnet, policy_is_noop, stage_dtype_po
 from ..ops.losses import cross_entropy, smoothed_cross_entropy
 from ..ops.metrics import intersection_and_union
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
+from ..utils.logging import get_logger, log_to
 from ..utils.meters import AverageMeter
 from .common import (apply_debug, episodic_val_loader, fp32_parity, maybe_auto_resume,
                      set_seeds)
+from ..utils.tb import SummaryWriter
 from .optim import build_lr_schedule
 
 TRUNK = ("layer0", "layer1", "layer2", "layer3", "layer4")
@@ -231,7 +235,12 @@ def _check_supported(cfg) -> None:
 
 def main(cfg, device="cuda", log=print) -> float:
     """Pretrain the PSPNet for ``epochs`` epochs; returns the best validation
-    mIoU."""
+    mIoU. ``log`` receives every line, and ``<sv_path>/log.txt`` gets them
+    too from the moment the run's directory is known; the epoch's
+    ``train_loss`` and ``mean_iou/val`` go to TensorBoard scalars under
+    ``<sv_path>/model`` (``utils.tb``)."""
+    log_to(None)   # no tee until this run's directory is known
+    log = get_logger(log)
     fp32_parity()
     _check_supported(cfg)
     log(cfg)
@@ -262,6 +271,8 @@ def main(cfg, device="cuda", log=print) -> float:
     step = make_pretrain_step(model, optimizer, scheduler, cfg)
     generator = torch.Generator().manual_seed(seed)
     sv_path = save_dir(cfg)
+    log_to(sv_path)
+    writer = SummaryWriter(os.path.join(sv_path, "model"))
     state_path = os.path.join(sv_path, "train_state.ckpt")
 
     start_epoch, best = 0, 0.0
@@ -295,13 +306,13 @@ def main(cfg, device="cuda", log=print) -> float:
                     f"running loss {loss_meter.avg:.2f}, mIoU {miou:.4f}")
         log(f"===== Epoch {epoch}: running loss {loss_meter.avg:.2f} "
             f"({time.time() - t0:.1f}s) =====")
-        log(f"scalar train_loss {loss_meter.avg:.6f} at epoch {epoch}")
+        writer.add_scalar("train_loss", loss_meter.avg, epoch)
 
         if episodic:
             val_miou, _ = run_episodic_validation(cfg, model, val_loader, device, log)
         else:
             val_miou, _ = standard_validate(cfg, model, val_loader, log)
-        log(f"scalar mean_iou/val {val_miou:.6f} at epoch {epoch}")
+        writer.add_scalar("mean_iou/val", val_miou, epoch)
 
         if val_miou > best:
             best = val_miou
@@ -319,6 +330,7 @@ def main(cfg, device="cuda", log=print) -> float:
 
     if cfg.save_models:
         save_ckpt(os.path.join(sv_path, "final.ckpt"), model.state_dict())
+    writer.close()
     return best
 
 

@@ -30,17 +30,24 @@ from .common import (apply_debug, episodic_val_loader, fp32_parity, load_backbon
                      load_stage1_weights, set_seeds, trans_ckpt_dir)
 
 
-def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
-    """Overlay reference ``.pth`` weights onto the engine's modules, if any:
-    the backbone from a file named by ``resume_weights`` (``gamma`` kept),
-    else by the stage-1 schema (``gamma`` dropped), as the JAX package's
-    ``load_backbone_weights`` does."""
+def load_eval_backbone(cfg, backbone, log=print) -> None:
+    """Overlay reference ``.pth`` weights onto ``backbone``, if any: from a
+    file named by ``resume_weights`` (``gamma`` kept), else by the stage-1
+    schema (``gamma`` dropped), as the JAX package's ``load_backbone_weights``
+    does."""
     path = str(cfg.resume_weights or "")
     if os.path.isfile(path):
-        load_backbone_weights(engine.backbone, path, skip_gamma=False)
+        load_backbone_weights(backbone, path, skip_gamma=False)
         log(f"=> loaded weight '{path}'")
     elif path:
-        load_stage1_weights(cfg, engine.backbone, log)
+        load_stage1_weights(cfg, backbone, log)
+
+
+def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
+    """Overlay reference ``.pth`` weights onto the engine's modules, if any:
+    the backbone by ``load_eval_backbone``, the transformer from
+    ``<ckpt_used>.pth``."""
+    load_eval_backbone(cfg, engine.backbone, log)
     if cfg.ckpt_used is None:
         log("=> Not loading anything")
         return

@@ -17,7 +17,8 @@ transformer is validated on ``test_num`` episodes.
 With ``save_models`` the trainer writes into ``trans_ckpt_dir(cfg)``:
 ``best.pth`` (the transformer's state_dict) when validation mIoU improves,
 ``train_state.pth`` every epoch (transformer, optimizer, the generator's
-state, epoch, best) and ``final.pth``. ``train.test`` with ``ckpt_used
+state, epoch, best), ``final.pth``, and ``log.txt`` with every line of the
+run (``utils.logging``). ``train.test`` with ``ckpt_used
 best`` evaluates ``best.pth``. ``resume_ckpt`` takes a train state (exact
 resume) or a transformer state_dict (weights only); ``auto_resume`` picks
 up this run's own train state; ``stop_after_epochs`` ends the run early.
@@ -36,6 +37,7 @@ from ..config import parse_args
 from ..episodic.engine import EpisodicEngine
 from ..eval.validate import validate_transformer
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
+from ..utils.logging import get_logger, log_to
 from ..utils.meters import AverageMeter
 from .common import (apply_debug, episodic_loaders, fp32_parity, init_backbone, init_cwt,
                      maybe_auto_resume, set_seeds, trans_ckpt_dir)
@@ -44,7 +46,10 @@ from .optim import build_optimizer
 
 def main(cfg, device="cuda", log=print) -> float:
     """Meta-train the transformer for ``epochs`` epochs; returns the best
-    validation mIoU."""
+    validation mIoU. ``log`` receives every line; with ``save_models`` the
+    lines also go to ``<save_dir>/log.txt``."""
+    log_to(None)   # no tee until this run's directory is known
+    log = get_logger(log)
     fp32_parity()
     log(cfg)
     set_seeds(cfg)
@@ -59,6 +64,8 @@ def main(cfg, device="cuda", log=print) -> float:
     train_step_fast = engine.make_train_step(optimizer, with_metrics=False)
     generator = torch.Generator().manual_seed(int(cfg.manual_seed or 0))
     save_dir = trans_ckpt_dir(cfg)
+    if cfg.save_models:             # a run without checkpoints keeps no log.txt
+        log_to(save_dir)
     state_path = os.path.join(save_dir, "train_state.pth")
 
     start_epoch, best = 0, 0.0

@@ -14,10 +14,12 @@ the blended prediction and mIoU1 of the attention-only prediction, the
 reference's dual model-selection criterion, src/train_trans.py:202-215).
 With ``save_models`` the head's ``state_dict`` goes out with ``torch.save``
 as ``best.pt``, ``best1.pt`` and ``final.pt``, and every epoch the full
-train state as ``train_state.pt`` (head, optimizer, scheduler, the state
+train state as ``train_state.pt``; every line of the run goes to
+``log.txt`` beside them (``utils.logging``), with or without
+``save_models``. The train state holds the head, optimizer, scheduler, the state
 of the default generator that the head's dropout draws from, epoch, best
 and best1; each step's classifier inits come from a generator seeded by
-(``manual_seed``, epoch, step)). ``resume_ckpt`` takes such a state (exact
+(``manual_seed``, epoch, step). ``resume_ckpt`` takes such a state (exact
 resume) or a head state_dict (weights only); ``auto_resume`` picks up this
 run's own train state; ``stop_after_epochs`` ends the run early. Not
 ported: the other heads (ROADMAP queue 1 items 8-10).
@@ -37,6 +39,7 @@ from ..episodic.heads import HeadEngine
 from ..data.loader import infinite
 from ..eval.validate import accumulate_fg_iou, batch_generator, exact_batch_sizes, fg_miou
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
+from ..utils.logging import get_logger, log_to
 from ..utils.meters import AverageMeter, CompareMeter
 from .common import (apply_debug, episodic_loaders, fp32_parity, init_backbone,
                      maybe_auto_resume, set_seeds)
@@ -68,6 +71,12 @@ def validate_head(cfg, engine: HeadEngine, loader, log=print):
     return miou, miou1, loss_meter.avg
 
 
+def results_dir(cfg, head_type: str) -> str:
+    """Where the head trainer writes its checkpoints and ``log.txt``."""
+    return os.path.join("./results", f"{head_type}_{cfg.train_name}/{cfg.arch}{cfg.layers}/"
+                        f"split{cfg.train_split}_shot{cfg.shot}/{cfg.exp_name}")
+
+
 def dropout_rng_state(device: torch.device) -> torch.Tensor:
     """State of the generator the head's dropout draws from: torch's default
     generator on ``device``."""
@@ -82,7 +91,11 @@ def set_dropout_rng_state(device: torch.device, state: torch.Tensor) -> None:
 
 
 def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
-    """Train the head for ``epochs`` epochs; returns the best validation mIoU."""
+    """Train the head for ``epochs`` epochs; returns the best validation mIoU.
+    ``log`` receives every line, and ``<sv_path>/log.txt`` gets them too
+    from the moment the run's directory is known."""
+    log_to(None)   # no tee until this run's directory is known
+    log = get_logger(log)
     fp32_parity()
     log(cfg)
     set_seeds(cfg)
@@ -96,11 +109,8 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
         iters_per_epoch=max(1, cfg.iter_per_epoch // cfg.episode_batch))
     step = engine.make_train_step(optimizer, scheduler)
 
-    sv_path = os.path.join(
-        "./results", f"{head_type}_{cfg.train_name}/{cfg.arch}{cfg.layers}/"
-        f"split{cfg.train_split}_shot{cfg.shot}/{cfg.exp_name}")
-    if cfg.save_models:
-        os.makedirs(sv_path, exist_ok=True)
+    sv_path = results_dir(cfg, head_type)
+    log_to(sv_path)
 
     def save(name: str) -> None:
         if cfg.save_models:

@@ -284,7 +284,7 @@ def test_pivot_kernels_match_plain(device, b, ci, co, dims, relu):
     torch.backends.cudnn.allow_tf32 = False
     x, wa, wb, bias, t = _pivot_inputs(device, b, ci, co, dims)
     before = dict(cuda_pivot.LAUNCHES)
-    y_k, g_k = _pivot_grads(cuda_pivot.pivot_conv_flat, x, wa, wb, bias, t, dims, relu)
+    y_k, g_k = _pivot_grads(cuda_pivot.pivot_fwd, x, wa, wb, bias, t, dims, relu)
     torch.cuda.synchronize()
     assert cuda_pivot.LAUNCHES["pivot_fwd"] == before["pivot_fwd"] + 2   # y and dx
     assert cuda_pivot.LAUNCHES["pivot_dw"] == before["pivot_dw"] + 1
@@ -374,9 +374,10 @@ def test_pivot_wrappers_refuse_what_the_kernels_do_not_take(device):
     x, wa, wb, bias, t = _pivot_inputs(device, 1, 3, 4, dims)
     with pytest.raises(TypeError):
         cuda_pivot.pivot_fwd(x.double(), wa, wb, bias, dims)
-    with pytest.raises(ValueError):
-        cuda_pivot.pivot_fwd(x.transpose(2, 3).contiguous().transpose(2, 3), wa, wb, bias,
-                             dims)                                       # not contiguous
+    # a strided x is made contiguous before the operator, not refused
+    strided = x.transpose(2, 3).contiguous().transpose(2, 3)
+    assert torch.equal(cuda_pivot.pivot_fwd(strided, wa, wb, bias, dims),
+                       cuda_pivot.pivot_fwd(x, wa, wb, bias, dims))
     with pytest.raises(ValueError):
         cuda_pivot.pivot_fwd(x, wa, wb, bias, (5, 6, 4, 8))              # wrong planes
     with pytest.raises(ValueError):
@@ -493,16 +494,18 @@ def test_bf16_volume_runs_the_fp32_kernels_between_casts(device):
     """``use_amp``'s flat route: a bf16 volume and bf16 weights go to fp32,
     through the same kernels (counted), and back: y and the gradients equal
     the kernels' fp32 results on the upcast inputs, cast to bf16. The
-    kernels' own wrappers refuse bf16, so nothing reaches a plain version."""
+    ``fss::pivot_fwd`` operator itself casts around the kernel, so a bf16
+    call launches it too, and nothing reaches a plain version."""
     from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
 
     dims = (5, 6, 4, 7)
     x, wa, wb, bias, t = (a.bfloat16() for a in _pivot_inputs(device, 2, 3, 4, dims))
-    with pytest.raises(TypeError):
-        cuda_pivot.pivot_fwd(x, wa, wb, bias, dims)
+    before = dict(cuda_pivot.LAUNCHES)
+    y_op = cuda_pivot.pivot_fwd(x, wa, wb, bias, dims, relu=True)
+    assert cuda_pivot.LAUNCHES["pivot_fwd"] - before["pivot_fwd"] == 1
     before = dict(cuda_pivot.LAUNCHES)
     leaves = [a.clone().requires_grad_(True) for a in (x, wa, wb, bias)]
-    y = cuda_pivot.pivot_conv_flat(*leaves, dims, relu=True)
+    y = cuda_pivot.pivot_fwd(*leaves, dims, relu=True)
     (y.float() * t.float()).sum().backward()
     torch.cuda.synchronize()
     assert cuda_pivot.LAUNCHES["pivot_fwd"] - before["pivot_fwd"] == 2      # y and dx
@@ -510,6 +513,7 @@ def test_bf16_volume_runs_the_fp32_kernels_between_casts(device):
     f32 = [a.float() for a in (x, wa, wb, bias)]
     y32 = cuda_pivot.pivot_fwd(f32[0], *f32[1:], dims, relu=True)
     assert y.dtype == torch.bfloat16 and torch.equal(y, y32.bfloat16())
+    assert torch.equal(y_op, y)
     # the backward's cotangent: the bf16 one, masked by the bf16 y's ReLU
     g = (t * (y > 0).to(t.dtype)).float().contiguous()
     zeros = torch.zeros((x.shape[1],), device=device)
@@ -518,3 +522,67 @@ def test_bf16_volume_runs_the_fp32_kernels_between_casts(device):
     for name, got, w in zip(("dx", "dwa", "dwb", "db"), leaves, want):
         assert got.grad.dtype == torch.bfloat16, name
         assert torch.equal(got.grad, w.bfloat16()), name
+
+
+# --------------------------------------------------------------------------- #
+# the kernels as torch.library operators, and a saved serve program
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("op", ["adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw"])
+def test_operator_passes_opcheck_on_the_card(device, op):
+    """``torch.library.opcheck`` on CUDA tensors (schema, fake against the
+    real CUDA implementation, autograd registration, AOT dispatch); the
+    CUDA implementations launch the kernels (counted)."""
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+
+    rng = np.random.default_rng(5)
+    cuda_inner_loop.reset_launches()
+    cuda_pivot.reset_launches()
+    if op.startswith("adapt"):
+        f_s, pw, pwy, u0 = _inputs(device, 2, 1, 6, 41, 32)
+        args = (f_s, pw, pwy, u0, 3, 0.1) + ((2,) if op.endswith("tiled") else ())
+    else:
+        dims = [5, 6, 4, 5]
+        x = torch.tensor(rng.standard_normal((2, 3, 30, 20)).astype(np.float32), device=device)
+        if op == "pivot_fwd":
+            w = [torch.tensor(rng.standard_normal(s).astype(np.float32), device=device)
+                 .requires_grad_(True) for s in ((3, 3, 3, 4), (3, 3, 3, 4), (4,))]
+            args = (x.requires_grad_(True), *w, dims, True)
+        else:
+            g = torch.tensor(rng.standard_normal((2, 4, 30, 20)).astype(np.float32),
+                             device=device)
+            args = (x, g, dims)
+    torch.library.opcheck(getattr(torch.ops.fss, op), args)
+    launches = {**cuda_inner_loop.LAUNCHES, **cuda_pivot.LAUNCHES}
+    assert launches[op] >= 1, launches
+
+
+def test_saved_serve_program_launches_the_kernels(device, tmp_path, monkeypatch):
+    """The MMN serve program on the flat route at 65 px, exported on the
+    card, saved and loaded: the loaded program launches K1 and pivot_fwd
+    and its masks equal eager ``serve_batch``'s."""
+    from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
+    from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
+    from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+    from few_shot_seg_cwt_tpu_torch.tools.export_serve import build_head_serve_export
+
+    monkeypatch.setenv("FSS_PIVOT_MXU", "1")
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"),
+                              ["image_size", "65", "adapt_iter", "5"])
+    engine = HeadEngine(cfg, "mmn", device="cuda")
+    ep = make_episode_batch(3, 2, size=65)
+    w0 = engine.init_weights(2, torch.Generator().manual_seed(0))
+    torch.export.save(build_head_serve_export(cfg, "mmn", engine, 2), str(tmp_path / "m.pt2"))
+    program = torch.export.load(str(tmp_path / "m.pt2")).module()
+    cuda_inner_loop.reset_launches()
+    cuda_pivot.reset_launches()
+    with torch.no_grad():
+        masks = program(*(torch.as_tensor(ep[k]).to(device) for k in ("s_img", "s_label",
+                                                                         "q_img")), w0)
+    torch.cuda.synchronize()
+    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == 1
+    assert cuda_pivot.LAUNCHES["pivot_fwd"] == 12       # 3 blocks x 2 directions x 2
+    assert torch.equal(masks, engine.serve_batch(ep, w0=w0))

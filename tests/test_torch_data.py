@@ -6,11 +6,10 @@ Each piece gets the same inputs and the same ``random`` / ``np.random``
 seeds on both sides. Tolerances: everything is equal bit for bit (class
 splits, PNG decoding against ``cv2.imread``, the fused resize + normalize of
 the host C++ core against the JAX package's native library, every
-``build_aug_pipeline`` transform, the scan, the episodes and the loader's
-batches), except the ``resize_np`` tail: the port fuses it into the C++
-core where the JAX package calls ``cv2.resize``, so images agree within
-2e-3 after normalization (``tests/test_native.py``'s bound for the same
-two resizes) and labels exactly.
+``build_aug_pipeline`` transform, the ``resize_np`` tail (cv2's
+``ResizeSquare`` + ``ToNormalized`` on both sides) in the train and val
+pipelines and the ``meta_aug`` views, the scan, the episodes and the
+loader's batches).
 """
 
 import ast
@@ -111,14 +110,11 @@ def tree_cfgs(root, image_size=33, opts=()):
     return out
 
 
-def _assert_episodes_equal(a, b, image_tol=0.0):
+def _assert_episodes_equal(a, b):
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
-        if k.endswith("img") and image_tol:
-            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=image_tol, err_msg=k)
-        else:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 # --------------------------------------------------------------------------- #
@@ -274,18 +270,29 @@ def test_fused_resize_normalize_is_the_jax_bits(shape, size, pad):
 
 
 @pytest.mark.parametrize("shape,size", [((100, 65), 65), ((71, 99), 33), ((500, 333), 473)])
-def test_fused_resize_np_is_within_2e3_of_cv2(shape, size):
+def test_resize_np_tail_is_the_jax_bits(shape, size):
+    """The ``resize_np`` val pipeline (cv2 ``ResizeSquare`` + ``ToNormalized``)
+    gives the JAX package's images and labels bit for bit."""
     rng = np.random.default_rng(size)
     img = rng.uniform(0, 255, (*shape, 3)).astype(np.float32)
     lab = rng.integers(0, 3, shape).astype(np.uint8)
     lab[:, :2] = 255
-    got_img, got_lab = T.FusedResizeSquareNormalize(size, MEAN, STD)(img, lab)
-    ref_img, ref_lab = jax_T.Compose([jax_T.ResizeSquare(size),
-                                      jax_T.ToNormalized(MEAN, STD)])(img, lab)
+    jcfg, tcfg = jax_default_cfg(), default_cfg()
+    for cfg in (jcfg, tcfg):
+        cfg.image_size, cfg.augmentations = size, ["hor_flip", "resize_np"]
+    got_img, got_lab = T.build_val_pipeline(tcfg)(img, lab)
+    ref_img, ref_lab = jax_T.build_val_pipeline(jcfg)(img, lab)
     assert got_img.shape == ref_img.shape == (size, size, 3)
-    np.testing.assert_allclose(got_img, ref_img, rtol=0, atol=2e-3)
-    assert got_lab.dtype == ref_lab.dtype == np.int32
+    assert got_img.dtype == ref_img.dtype and got_lab.dtype == ref_lab.dtype == np.int32
+    np.testing.assert_array_equal(got_img, ref_img)
     np.testing.assert_array_equal(got_lab, ref_lab)
+
+
+def test_resize_np_without_cv2_names_the_transform(monkeypatch):
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    img = np.zeros((40, 50, 3), np.float32)
+    with pytest.raises(ImportError, match="ResizeSquare needs OpenCV"):
+        T.ResizeSquare(33)(img, np.zeros((40, 50), np.uint8))
 
 
 REGISTRY = ["randscale", "randrotate", "hor_flip", "vert_flip", "crop", "resize", "resize_np"]
@@ -306,8 +313,7 @@ def test_every_registry_transform_equals_jax(tree, name):
         got = got_t(img.copy(), lab.copy())
         random.seed(seed)
         ref = ref_t(img.copy(), lab.copy())
-        tol = 2e-3 if name == "resize_np" else 0.0
-        np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=tol)
+        np.testing.assert_array_equal(got[0], ref[0])
         np.testing.assert_array_equal(np.asarray(got[1], np.int32), np.asarray(ref[1], np.int32))
     val = T.build_val_pipeline(tcfg)(img.copy(), lab.copy())
     val_ref = jax_T.build_val_pipeline(jcfg)(img.copy(), lab.copy())
@@ -373,13 +379,13 @@ def _sample_both(jcfg, tcfg, train, indices, seed=5):
     (True, (("shot", 5), ("random_shot", True))),
     (False, (("shot", 5),)),
     (True, (("augmentations", ["hor_flip", "resize_np"]), ("image_size", 41))),
+    (False, (("augmentations", ["hor_flip", "resize_np"]), ("image_size", 41))),
 ])
 def test_episodic_dataset_equals_jax(tree, train, opts):
     jcfg, tcfg = tree_cfgs(tree, opts=opts)
     got, ref = _sample_both(jcfg, tcfg, train, list(range(N_IMAGES)) * 2)
-    tol = 2e-3 if "resize_np" in tcfg.augmentations else 0.0
     for g, r in zip(got, ref):
-        _assert_episodes_equal(g, r, image_tol=tol)
+        _assert_episodes_equal(g, r)
     if tcfg.random_shot:
         assert len({int(g["n_shot"]) for g in got}) > 1
 
@@ -387,6 +393,16 @@ def test_episodic_dataset_equals_jax(tree, train, opts):
 def test_meta_aug_support_views_equal_jax(tree):
     jcfg, tcfg = tree_cfgs(tree, image_size=41, opts=[("meta_aug", 2), ("aug_type", 0),
                                                       ("aug_th", [0.3, 0.6])])
+    got, ref = _sample_both(jcfg, tcfg, True, list(range(N_IMAGES)))
+    for g, r in zip(got, ref):
+        assert g["s_img"].shape == (2, 41, 41, 3)
+        _assert_episodes_equal(g, r)
+
+
+def test_meta_aug_support_views_equal_jax_under_resize_np(tree):
+    jcfg, tcfg = tree_cfgs(tree, image_size=41, opts=[
+        ("meta_aug", 2), ("aug_type", 0), ("aug_th", [0.3, 0.6]),
+        ("augmentations", ["hor_flip", "resize_np"])])
     got, ref = _sample_both(jcfg, tcfg, True, list(range(N_IMAGES)))
     for g, r in zip(got, ref):
         assert g["s_img"].shape == (2, 41, 41, 3)

@@ -457,7 +457,7 @@ def test_pivot_pair_on_a_bf16_volume_casts_as_the_jax_wrapper():
             ((2, 3, hq * wq, hs * ws), (3, 3, 3, 4), (3, 3, 3, 4), (4,), (2, 4, hq * wq, hs * ws))]
     arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in arrs]
     leaves = [torch.tensor(a).bfloat16().requires_grad_(True) for a in arrs[:4]]
-    y = cuda_pivot.pivot_conv_flat(*leaves, dims, relu=True)
+    y = cuda_pivot.pivot_fwd(*leaves, dims, relu=True)
     assert y.dtype == torch.bfloat16
     ref = cuda_pivot.pivot_conv_flat_reference(*[torch.tensor(a) for a in arrs[:4]], dims,
                                                relu=True)

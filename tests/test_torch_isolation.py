@@ -64,6 +64,12 @@ mmn_masks = heads.serve_batch(make_episode_batch(1, 2, size=33), torch.Generator
 assert tuple(mmn_masks.shape) == (2, 33, 33)
 import few_shot_seg_cwt_tpu_torch.train.train_head  # noqa: F401
 import few_shot_seg_cwt_tpu_torch.train.train_cwt  # noqa: F401
+import importlib
+for name in ("tools.export_serve", "tools.serve_loaded", "tools.preflight",
+             "tools.record_episodes", "tools.parity_drill", "tools.bench_loader",
+             "tools.bench_head_parts", "utils.logging", "utils.tb", "utils.print_log",
+             "utils.visualize", "utils.extra_metrics", "utils.convert_ckpt"):
+    importlib.import_module("few_shot_seg_cwt_tpu_torch." + name)
 forbidden = sorted(m for m in sys.modules
                    if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "orbax"}
                    or m == "few_shot_seg_cwt_tpu" or m.startswith("few_shot_seg_cwt_tpu."))

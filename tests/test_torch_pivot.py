@@ -1,9 +1,9 @@
 """The port's centre-pivot conv pair (``ops/cuda_pivot.py``) against both
 Pallas formulations of the JAX package, on the CPU.
 
-On CPU tensors ``pivot_conv_flat`` runs its plain version (two ``F.conv2d``
-over reshaped views) inside the same ``torch.autograd.Function`` whose
-backward the card runs with the kernels: dx is the forward with flipped,
+On CPU tensors ``pivot_fwd`` runs its plain version (two ``F.conv2d``
+over reshaped views) inside the same ``fss::pivot_fwd`` operator whose
+gradient the card runs with the kernels: dx is the forward with flipped,
 transposed weights, (dwa, dwb, db) the weight-gradient function. Both are
 held against ``pallas_pivot.pivot_conv_flat`` (VPU form) and
 ``pallas_pivot_mxu.pivot_conv_flat_mxu`` (MXU form) in interpret mode, as
@@ -79,7 +79,7 @@ def _torch(inputs, grad=False):
 @pytest.mark.parametrize("relu", [False, True])
 def test_plain_forward_matches_jax_kernels(inputs, jax_results, form, relu):
     x, wa, wb, bias = _torch(inputs)
-    y = cuda_pivot.pivot_conv_flat(x, wa, wb, bias, DIMS, relu=relu)
+    y = cuda_pivot.pivot_fwd(x, wa, wb, bias, DIMS, relu=relu)
     assert y.shape == (B, CO, DIMS[0] * DIMS[1], DIMS[2] * DIMS[3])
     np.testing.assert_allclose(y.numpy(), jax_results[form, relu], rtol=1e-5, atol=1e-5)
 
@@ -92,7 +92,7 @@ def test_grads_match_jax_custom_vjp(inputs, jax_results, form, route):
     ``plain_autograd``: autograd through the plain version, which
     ``chip_smoke.py`` holds the kernels against."""
     x, wa, wb, bias = _torch(inputs, grad=True)
-    fn = (cuda_pivot.pivot_conv_flat if route == "function"
+    fn = (cuda_pivot.pivot_fwd if route == "function"
           else cuda_pivot.pivot_conv_flat_reference)
     y = fn(x, wa, wb, bias, DIMS, relu=True)
     (y * torch.from_numpy(inputs[4])).sum().backward()
@@ -112,7 +112,7 @@ def test_cpu_tensors_never_reach_the_kernel_library(inputs, monkeypatch):
     monkeypatch.setattr(cuda_pivot, "load_library", refuse)
     before = dict(cuda_pivot.LAUNCHES)
     x, wa, wb, bias = _torch(inputs, grad=True)
-    cuda_pivot.pivot_conv_flat(x, wa, wb, bias, DIMS, relu=True).sum().backward()
+    cuda_pivot.pivot_fwd(x, wa, wb, bias, DIMS, relu=True).sum().backward()
     assert x.grad is not None and wa.grad is not None
     assert cuda_pivot.LAUNCHES == before
 

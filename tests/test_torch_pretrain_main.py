@@ -17,6 +17,7 @@ from few_shot_seg_cwt_tpu_torch.train import pretrain
 from few_shot_seg_cwt_tpu_torch.train import test as test_entry
 from few_shot_seg_cwt_tpu_torch.train.common import load_backbone_weights, stage1_weights_path
 from few_shot_seg_cwt_tpu_torch.utils.ckpt import load_ckpt
+from few_shot_seg_cwt_tpu_torch.utils.tb import read_scalars
 
 torch.set_num_threads(1)
 
@@ -45,11 +46,16 @@ def test_main_one_epoch_writes_stage1_weights(tmp_path, monkeypatch, episodic_va
     best = pretrain.main(cfg, device="cpu", log=lambda l: lines.append(str(l)))
     assert np.isfinite(best) and 0.0 < best <= 1.0
     assert any(l.startswith("===== Epoch 0") for l in lines)
-    assert any(l.startswith("scalar mean_iou/val") for l in lines)
     want = "episodic_validate run 0" if episodic_val else "Testing results"
     assert any(l.startswith(want) for l in lines)
     sv = pretrain.save_dir(cfg)
-    assert sorted(os.listdir(sv)) == ["best.ckpt", "final.ckpt", "train_state.ckpt"]
+    assert sorted(os.listdir(sv)) == ["best.ckpt", "final.ckpt", "log.txt", "model",
+                                      "train_state.ckpt"]
+    with open(os.path.join(sv, "log.txt")) as f:
+        logged = f.read().splitlines()
+    assert logged and logged == lines[len(lines) - len(logged):]
+    assert any(l.startswith(want) for l in logged)
+    assert {"train_loss", "mean_iou/val"} <= set(read_scalars(os.path.join(sv, "model")))
     fresh = build_pspnet(cfg)
     load_backbone_weights(fresh, os.path.join(sv, "best.ckpt"), skip_gamma=True)
     sd = load_ckpt(os.path.join(sv, "best.ckpt"))

@@ -278,8 +278,11 @@ def test_train_cwt_main_saves_resumes_and_hands_best_to_test(tmp_path):
     best = train_cwt.main(whole, device="cpu", log=lines.append)
     assert 0.0 < best <= 1.0
     out = Path(trans_ckpt_dir(whole))
-    assert sorted(p.name for p in out.iterdir()) == ["best.pth", "final.pth",
+    assert sorted(p.name for p in out.iterdir()) == ["best.pth", "final.pth", "log.txt",
                                                      "train_state.pth"]
+    logged = (out / "log.txt").read_text().splitlines()
+    assert logged == [str(line) for line in lines][len(lines) - len(logged):]
+    assert any(line.startswith("mIoU---Val result: mIoU") for line in logged)
     assert is_full_train_state(str(out / "train_state.pth"))
     assert not is_full_train_state(str(out / "best.pth"))
     assert load_ckpt(str(out / "train_state.pth"))["meta"]["epoch"] == 2
