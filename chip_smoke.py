@@ -150,10 +150,39 @@ Phases (any failure raises and the script exits non-zero):
     artifact also runs once with TF32 on, printed without a limit).
     Then ``validate_transformer`` with ``profile_dir`` (1 run x 16
     episodes): its torch.profiler trace must name K1's kernel.
-13. A ``kernels`` JSON line (with each kernel's launches on the real-data
+13. Scale-out (``parallel/dryrun.py``, TF32 off in every process): with
+    two or more cards NCCL over ``min(cards, 4)`` processes, one a card;
+    with one card two processes on ``cuda:0`` over gloo, named explicitly
+    (NCCL refuses two ranks on one card), printed before anything runs. At
+    473 px on the calibrated weights of phases 4 and 6: the CWT train step
+    of 8 episodes on the K1 path and on K2 (FSS_INNER_TILE=2), every
+    dropout off, gradients within 1e-3 of each tensor's largest entry of
+    one process's step on the same 8 episodes and inits; the MMN step of
+    configs/pascal_mmn.yaml as shipped (2 episodes, flat route, head
+    dropout off) at phase 6's fp32 (1e-3) and bf16 (L2, max(5e-2, twice
+    the bf16 head's spread)) limits against one process running the ranks'
+    slices one after another (the backbone's results depend on the batch it
+    runs, and the head's gradients amplify that: the distance from one
+    process on the whole batch is printed beside it); the stage-1 step at
+    batch 10 (pascal_pretrain.yaml, seeded weights, dropout and mixup off)
+    within 3x the distance between two computations of it in one process
+    (its rerun on the batch permuted; torch's batch norm against the
+    global-batch BN; 1e-6 at least), BN running statistics within 1e-5 of
+    each tensor's largest entry; parameters after each step equal on every
+    rank, bit for bit; one eval batch of 8 gathered against one process's
+    run with each rank's inits, ``validate_transformer`` and
+    ``episodic_validate``; the same steps in one process over NCCL (a group
+    of one). Each step's ms per rank, the gradient all-reduce's ms and
+    bytes, peak GiB per rank, and each rank's launches of K1, K2,
+    pivot_fwd and pivot_dw (every one above 0) beside one process's. Then
+    ``torchrun`` of ``train.train_ddp`` and ``train.train_cwt`` on
+    synthetic episodes: one epoch saved, a second launch resuming it;
+    rank 0 alone writes each ``log.txt``.
+14. A ``kernels`` JSON line (with each kernel's launches on the real-data
     path, K1's in (b)'s episodic validation and its VGG figures, the
-    match head's launches and the pivot pair's figures at 1 -> 10, and the
-    loaded artifacts' launches), the card line, and as the last line
+    match head's launches and the pivot pair's figures at 1 -> 10, the
+    loaded artifacts' launches, and the launches per rank of phase 13
+    under ``scale_out``), the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -2317,6 +2346,167 @@ def tools_on_tree(root, load_cfg, merge_cfg_from_list):
           "sampler) is not on this machine")
 
 
+# ---- 13. scale-out: data parallelism over processes ----
+
+
+def scale_out_layout():
+    """(processes, backend, shared card): NCCL one process a card on
+    ``min(cards, 4)`` cards; with one card two processes on ``cuda:0`` over
+    gloo (NCCL refuses two ranks on one card)."""
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        return min(cards, 4), "nccl", False
+    return 2, "gloo", True
+
+
+def scale_out_phase(card, cwt_state, mmn_state):
+    """``parallel/dryrun.py`` at full width (473 px, ResNet-50, adapt_iter
+    200, TF32 off in every process): the CWT train step of 8 on K1 and K2,
+    the MMN step of pascal_mmn.yaml as shipped (flat route, fp32 and bf16
+    head), the stage-1 step at batch 10 (dropout and mixup off, the JAX
+    package's self-calibrating bar), one gathered eval batch of 8,
+    ``validate_transformer`` and ``episodic_validate``, and the collectives;
+    a reference process runs each step alone and in a group of one over
+    NCCL. Every row must hold; every rank must launch K1, K2, pivot_fwd and
+    pivot_dw. Returns the rows by check."""
+    from few_shot_seg_cwt_tpu_torch.parallel import dryrun
+
+    world, backend, shared = scale_out_layout()
+    print(f"scale-out: {world} processes over {backend} on "
+          f"{1 if shared else world} card(s) of {torch.cuda.device_count()}"
+          + (" (both ranks on cuda:0, named explicitly: they time-slice the card, so their "
+             "times are not a scale-out figure)" if shared else "") + f" [{card}]")
+    spec = dryrun.default_spec(IMG, STEPS)
+    spec["cwt"]["weights"] = spec["eval"]["weights"] = spec["validate"]["weights"] = cwt_state
+    spec["mmn"]["weights"] = mmn_state
+    spec["mmn"]["episodes"] = max(2, world)
+    spec["pretrain"]["batch"] = 10 if 10 % world == 0 else -(-10 // world) * world
+    spec["validate"]["episodes"] = max(4, world)
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir="build")
+    t0 = time.perf_counter()
+    try:
+        rows = dryrun.launch(world, backend, "cuda", spec, work, threads=4, timeout=600)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"scale-out dryrun: {time.perf_counter() - t0:.1f} s for the reference process and "
+          f"{world} ranks")
+    brief = ("launches", "plain_launches", "world1_launches")
+    for row in rows:
+        print("scale-out " + json.dumps({k: v for k, v in row.items() if k not in brief},
+                                        default=float))
+    by = {}
+    for row in rows:
+        by.setdefault(row["check"], []).append(row)
+    bad = [r["check"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"scale-out checks failed: {bad}")
+    counts = {
+        "adapt_binary": next(r for r in by["cwt_step"] if r["tile"] == 1),
+        "adapt_binary_tiled": next(r for r in by["cwt_step"] if r["tile"] == 2),
+        "pivot_fwd": next(r for r in by["mmn_step"] if r["head"] == "fp32_head"),
+        "pivot_dw": next(r for r in by["mmn_step"] if r["head"] == "fp32_head"),
+    }
+    scale_out = {}
+    for name, row in counts.items():
+        per_rank = [l[name] for l in row["launches"]]
+        scale_out[name] = {"world": world, "backend": backend, "shared_card": shared,
+                           "launches_per_rank": per_rank,
+                           "world1_launches": row["plain_launches"][name]}
+        print(f"scale-out launches of {name} in the {row['check']} step: per rank {per_rank}, "
+              f"one process on the whole batch {row['plain_launches'][name]}")
+        if min(per_rank) < 1:
+            raise AssertionError(f"a rank did not launch {name} in the scale-out step: {per_rank}")
+    for row in by["cwt_step"] + by["mmn_step"] + by["pretrain_step"]:
+        label = row["check"] + (f" tile {row['tile']}" if "tile" in row else "") + (
+            f" {row['head']}" if "head" in row else "")
+        print(f"scale-out {label}: ms per rank {row['ms']} (warm {row['warm_ms']}), one "
+              f"process {row['plain_ms']} ms (warm {row['plain_warm_ms']}); gradient all-reduce "
+              f"{row['allreduce_ms']} ms per rank for {row['allreduce_bytes']} B; peak "
+              f"{row['peak_gib']} GiB per rank [{card}; "
+              f"{'one card time-sliced by both ranks' if shared else 'one card a rank'}]")
+    return by, scale_out
+
+
+def torchrun_trainers_phase(card):
+    """``torchrun`` (``python -m torch.distributed.run --standalone``) of
+    ``train.train_ddp`` (configs/pascal_ddp.yaml) and ``train.train_cwt``
+    (configs/pascal.yaml) on synthetic episodes at 473 px, both jobs at
+    once: one epoch, saved, then a second launch resuming it by
+    ``auto_resume``. Rank 0 alone writes each ``log.txt`` (one validation
+    line an epoch), both ranks resume (the trainers check every epoch that
+    the ranks' weights and generators agree), and the train state holds
+    every rank's generator state."""
+    world, backend, shared = scale_out_layout()
+    # the trainers run in a directory of their own, and import the port from here
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.abspath(".")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    if shared:
+        env.update(FSS_DIST_DEVICE="cuda:0", FSS_DIST_BACKEND="gloo")
+    e = max(2, world)
+    run_dir = os.path.abspath(tempfile.mkdtemp(prefix="chip_smoke_torchrun_", dir="build"))
+    jobs = {
+        "train_ddp": ("configs/pascal_ddp.yaml", [
+            "synthetic_data", "True", "epochs", "2", "iter_per_epoch", str(2 * e),
+            "episode_batch", str(e), "test_num", str(2 * e), "save_models", "True"]),
+        "train_cwt": ("configs/pascal.yaml", [
+            "synthetic_data", "True", "epochs", "2", "iter_per_epoch", str(2 * E),
+            "episode_batch", str(E), "test_num", str(E), "n_runs", "1", "save_models", "True",
+            "model_dir", os.path.join(run_dir, "model")]),
+    }
+    out = {}
+    try:
+        for launch, extra in (("first", ["stop_after_epochs", "1"]),
+                              ("resume", ["auto_resume", "True"])):
+            t0 = time.perf_counter()
+            procs = {name: subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", str(world), "-m",
+                 f"few_shot_seg_cwt_tpu_torch.train.{name}", "--config",
+                 os.path.abspath(config), "--opts", *opts, *extra],
+                cwd=run_dir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for name, (config, opts) in jobs.items()}
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=400)
+                if proc.returncode != 0:
+                    raise AssertionError(f"torchrun {name} ({launch}) exited {proc.returncode}:\n"
+                                         f"{stdout[-2000:]}\n{stderr[-3000:]}")
+                out[(name, launch)] = stdout
+            print(f"torchrun --nproc_per_node {world} ({launch} launch of train_ddp and "
+                  f"train_cwt at once): {time.perf_counter() - t0:.1f} s [{card}]")
+        for name, val, resumed in (("train_ddp", "val: mIoU",
+                                    "=> resumed full head train state after epoch 1"),
+                                   ("train_cwt", "mIoU---Val result",
+                                    "=> resumed full train state at epoch 1")):
+            logs = [os.path.join(d, "log.txt") for d, _, files in os.walk(run_dir)
+                    if "log.txt" in files and (("model" in d) == (name == "train_cwt"))]
+            if len(logs) != 1:
+                raise AssertionError(f"{name}: log.txt files {logs}")
+            with open(logs[0]) as f:
+                lines = f.read().splitlines()
+            vals = [l for l in lines if l.startswith(val)]
+            states = [os.path.join(d, f) for d, _, files in os.walk(os.path.dirname(logs[0]))
+                      for f in files if f.startswith("train_state")]
+            state = torch.load(states[0], map_location="cpu", weights_only=True)
+            finals = [f for f in os.listdir(os.path.dirname(logs[0])) if f.startswith("final")]
+            print(f"torchrun {name}: log.txt {len(lines)} lines, validation lines {vals}; "
+                  f"resume line in the second launch's output: "
+                  f"{resumed in out[(name, 'resume')]}; train state epoch "
+                  f"{state['meta']['epoch']}, world {state['meta']['world']}, rng_ranks "
+                  f"{tuple(state['rng_ranks'].shape)}; final checkpoint {finals}")
+            if len(vals) != 2:
+                raise AssertionError(f"{name}: {len(vals)} validation lines in log.txt (rank 0 "
+                                     "alone writes one an epoch)")
+            if resumed not in out[(name, "resume")] or not any(resumed in l for l in lines):
+                raise AssertionError(f"{name}: the second launch did not resume")
+            if state["meta"]["world"] != world or state["rng_ranks"].shape[0] != world:
+                raise AssertionError(f"{name}: train state {state['meta']}")
+            if not finals:
+                raise AssertionError(f"{name}: no final checkpoint")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2621,6 +2811,11 @@ def main() -> int:
     tools = tools_phase(card, cwt_state, episodes, w0, mmn_serve, (
         load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine))
 
+    # ---- 13. scale-out: the dryrun's steps over processes, torchrun of two trainers ----
+    torch.cuda.empty_cache()
+    scale, scale_out = scale_out_phase(card, cwt_state, mmn_serve[1])
+    torchrun_trainers_phase(card)
+
     main_block = pivot[(10, 10)]  # the heaviest consensus block stands for each kernel
     kernels = [{
         "name": "adapt_binary",
@@ -2646,6 +2841,9 @@ def main() -> int:
         "shot5": {"launches": cwt_shot5_k1, "max_abs_err": k1_shot5["err"],
                   "ms": k1_shot5["ms"], "plain_ms": k1_shot5["plain_ms"],
                   "bound_ms": k1_shot5["bound_ms"], "bound_by": k1_shot5["bound_by"]},
+        "scale_out": {**scale_out["adapt_binary"],
+                      "eval_launches_per_rank": [l["adapt_binary"]
+                                                 for l in scale["eval_gathered"][0]["launches"]]},
     }, {
         "name": "adapt_binary_tiled",
         "route": "cuda",
@@ -2660,6 +2858,7 @@ def main() -> int:
         "bound_by": k1_bound_by,
         "library_ms": None,
         "dispatch": k2_t,
+        "scale_out": scale_out["adapt_binary_tiled"],
     }, {
         "name": "pivot_fwd",
         "route": "cuda",
@@ -2681,6 +2880,7 @@ def main() -> int:
         "bound_by": main_block["bound_by"],
         "library_ms": None,
         "dispatch": main_block["fwd_t"],
+        "scale_out": scale_out["pivot_fwd"],
     }, {
         "name": "pivot_dw",
         "route": "cuda",
@@ -2701,6 +2901,7 @@ def main() -> int:
         "bound_by": main_block["bound_by"],
         "library_ms": None,
         "dispatch": main_block["dw_t"],
+        "scale_out": scale_out["pivot_dw"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

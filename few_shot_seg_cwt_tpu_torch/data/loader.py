@@ -218,7 +218,11 @@ class EpisodeLoader:
                     raise item
                 yield deliver(item)
         finally:
+            # the producer stops within a batch; joining it here means no
+            # thread of this iterator is still inside a torch call when the
+            # interpreter exits (which aborts the process)
             stop.set()
+            thread.join()
 
 
 def infinite(loader: EpisodeLoader) -> Iterator[Dict[str, Any]]:

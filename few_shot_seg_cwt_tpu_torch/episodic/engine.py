@@ -44,6 +44,7 @@ from ..ops.losses import (binary_weighted_ce_from_diff, class_balance_weights,
                           weighted_cross_entropy)
 from ..ops.metrics import intersection_and_union
 from ..ops.resize import upsample_bilinear_ac
+from ..parallel.mesh import all_reduce_grads, rank_world
 from .inner_loop import adapt_classifier_batch
 
 EPISODE_KEYS = ("s_img", "s_label", "q_img", "q_label", "cls")
@@ -79,13 +80,23 @@ def init_weights(e: int, generator: torch.Generator, num_classes: int, dim: int,
 
 
 def pick_w0(engine, e: int, generator: Optional[torch.Generator],
-            w0: Optional[torch.Tensor]) -> torch.Tensor:
-    """Explicit (E, K, C) inits ``w0``, else E draws from ``generator``."""
+            w0: Optional[torch.Tensor], shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """Explicit (E, K, C) inits ``w0``, else E draws from ``generator``.
+
+    ``shard`` (rank, world), in the train steps under a process group: the
+    E episodes are rank's slice of a global batch of E * world, so the
+    global batch's inits are drawn and rank's E kept. Every rank's generator
+    starts alike and stays alike, and episode rank * E + i gets the init it
+    gets on one process (the JAX step splits one key over the global
+    batch)."""
     if w0 is not None:
         return torch.as_tensor(w0, dtype=torch.float32).to(engine.device)
     if generator is None:
         raise ValueError("pass a torch.Generator or explicit w0")
-    return engine.init_weights(e, generator)
+    rank, world = shard
+    if world == 1:
+        return engine.init_weights(e, generator)
+    return engine.init_weights(e * world, generator)[rank * e:(rank + 1) * e]
 
 
 class EpisodicEngine:
@@ -128,7 +139,8 @@ class EpisodicEngine:
 
     @torch.no_grad()
     def _episode_features(self, batch, support_dropout: bool = False,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None,
+                          shard: Tuple[int, int] = (0, 1)
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Backbone features: ONE pass over the E*(shot+1) images.
 
@@ -139,7 +151,8 @@ class EpisodicEngine:
         features in train mode, where the bottleneck's channel dropout is
         the only difference; the same mask is applied here to f_s alone,
         Bernoulli(1 - ``cfg.dropout``) per (episode, shot, channel) from
-        ``generator``, kept channels scaled by 1/(1 - rate).
+        ``generator``, kept channels scaled by 1/(1 - rate), drawn for the
+        global batch of which this one is rank ``shard[0]``'s slice.
         """
         s_img, q_img = batch["s_img"], batch["q_img"]
         e, shot = s_img.shape[:2]
@@ -148,7 +161,7 @@ class EpisodicEngine:
         f_s = feat[: e * shot].reshape((e, shot) + feat.shape[1:])
         if support_dropout:
             mask_shape = (e, shot, 1, 1, f_s.shape[-1])
-            f_s = dropout(f_s, float(self.cfg.dropout), generator, mask_shape)
+            f_s = dropout(f_s, float(self.cfg.dropout), generator, mask_shape, shard)
         return f_s, feat[e * shot:]
 
     @torch.no_grad()
@@ -286,7 +299,7 @@ class EpisodicEngine:
 
     def _train_losses(self, f_q: torch.Tensor, w: torch.Tensor, q_label: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
-                      with_metrics: bool = True):
+                      with_metrics: bool = True, shard: Tuple[int, int] = (0, 1)):
         """Per-episode query losses (E,), differentiable in the transformer's
         parameters, from the raw query features and the adapted classifier.
 
@@ -300,7 +313,7 @@ class EpisodicEngine:
             f_qn = l2_normalize_channels(f_q)
         self.cwt.train()
         try:
-            w_upd = self.cwt(w, f_qn, f_qn, generator=generator)
+            w_upd = self.cwt(w, f_qn, f_qn, generator=generator, shard=shard)
         finally:
             self.cwt.eval()
         logits60 = apply_classifier(w_upd, f_qn)          # (E, h, w, K)
@@ -332,21 +345,29 @@ class EpisodicEngine:
         Classifier inits come from ``w0`` (E, K, C) or are drawn from
         ``generator``, which then also draws the support-dropout and the
         transformer's dropout masks, in that order. With every dropout rate
-        at 0 no generator is needed.
+        at 0 no generator is needed. Under a process group the E episodes
+        are this rank's slice of the global batch, and every draw is the
+        global batch's, of which this rank keeps its rows (``pick_w0``,
+        ``models.cwt.dropout``).
         """
         batch = self.to_device(episodes)
-        w0 = pick_w0(self, batch["q_img"].shape[0], generator, w0)
-        f_s, f_q = self._episode_features(batch, support_dropout=True, generator=generator)
+        shard = rank_world()
+        w0 = pick_w0(self, batch["q_img"].shape[0], generator, w0, shard)
+        f_s, f_q = self._episode_features(batch, support_dropout=True, generator=generator,
+                                          shard=shard)
         with torch.no_grad():   # no gradient flows into the inner loop
             w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.adapt_iter,
                                        self.cls_lr)
-        return self._train_losses(f_q, w, batch["q_label"], generator, with_metrics)
+        return self._train_losses(f_q, w, batch["q_label"], generator, with_metrics, shard)
 
     def make_train_step(self, optimizer: torch.optim.Optimizer, with_metrics: bool = True):
         """step(episodes, generator=None, w0=None) -> metrics: one optimizer
         step on the transformer over the mean episode loss. ``metrics`` holds
         ``loss`` and, with ``with_metrics``, the (E, K) I/U of the transformed
-        and raw classifiers (the loss-only step skips that tail)."""
+        and raw classifiers (the loss-only step skips that tail). Under a
+        process group the episodes are this rank's slice, and the gradients
+        are averaged over the ranks before the optimizer step
+        (``parallel.mesh.all_reduce_grads``); ``metrics`` stay this rank's."""
 
         def step(episodes, generator=None, w0=None):
             self.cwt.zero_grad(set_to_none=True)
@@ -354,6 +375,7 @@ class EpisodicEngine:
                                                         with_metrics)
             loss = losses.mean()
             loss.backward()
+            all_reduce_grads(self.cwt.parameters())
             optimizer.step()
             metrics["loss"] = loss.detach()
             return metrics

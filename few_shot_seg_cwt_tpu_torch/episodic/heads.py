@@ -50,6 +50,7 @@ from ..ops.episode_utils import att_weighted_out, get_ig_mask
 from ..ops.losses import class_balance_weights, cross_entropy, seg_loss, weighted_cross_entropy
 from ..ops.metrics import intersection_and_union
 from ..ops.resize import upsample_bilinear_ac
+from ..parallel.mesh import all_reduce_grads, rank_world
 from .engine import EPISODE_KEYS, episodes_to_device, init_weights, pick_w0
 from .inner_loop import adapt_classifier_batch
 
@@ -427,11 +428,18 @@ class HeadEngine:
         With ``head_grad_accum`` (default) each episode's backward runs before
         the next episode's forward, so memory is one episode's; otherwise one
         backward over the summed losses. Returns the stacked metrics and
-        ``loss_mean``.
+        ``loss_mean``. Under a process group the episodes are this rank's
+        slice of the global batch and the inits drawn from ``generator`` are
+        the global batch's, of which this rank keeps its rows
+        (``engine.pick_w0``). The head's own dropout draws from torch's
+        default generator on the device, episode after episode inside the
+        forward and backward passes, so no global draw can be sliced there:
+        each rank draws its own (``train.common.set_seeds`` seeds it with
+        ``manual_seed + rank``).
         """
         batch = self.to_device(episodes)
         e = batch["q_img"].shape[0]
-        parts = self.episode_parts(batch, pick_w0(self, e, generator, w0))
+        parts = self.episode_parts(batch, pick_w0(self, e, generator, w0, rank_world()))
         self.head.zero_grad(set_to_none=True)
         accum = self.cfg.get("head_grad_accum", True)
         losses, metrics, total = [], [], 0.0
@@ -454,10 +462,13 @@ class HeadEngine:
 
     def make_train_step(self, optimizer: torch.optim.Optimizer, scheduler=None):
         """step(episodes, generator=None, w0=None) -> metrics: one optimizer
-        step on the mean episode loss (``scheduler`` steps per iteration)."""
+        step on the mean episode loss (``scheduler`` steps per iteration).
+        Under a process group the gradients are averaged over the ranks
+        before the step (``parallel.mesh.all_reduce_grads``)."""
 
         def step(episodes, generator=None, w0=None):
             metrics = self.backward_batch(episodes, generator, w0)
+            all_reduce_grads(self.head.parameters())
             optimizer.step()
             if scheduler is not None:
                 scheduler.step()

@@ -16,8 +16,14 @@ r * test_num onwards, as the reference's persistent iterator does.
 ``episodic_validate`` is the same protocol without the transformer, scoring
 the adapted inner-loop classifier (stage-1 pretraining's episodic
 validation). ``profile_dir`` traces ``validate_transformer``'s runs with
-``torch.profiler``. Single process; the mesh and multi-process branches of the JAX
-package are not ported yet (ROADMAP queue 1 item 13).
+``torch.profiler``.
+
+Under a process group (``parallel.mesh``) each rank scores its slice of
+every batch (``train.common.episodic_val_loader``: rank-strided), draws its
+inits from the generator of (manual_seed, r, b, rank) as the JAX package
+folds ``process_index`` into each batch's key, and the per-episode metrics
+come back to every rank in rank order (``to_host``) before the global
+batch is scored, so every rank computes the same mIoU.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from ..data.loader import infinite
+from ..parallel.mesh import rank_world, to_host
 from ..utils.meters import AverageMeter
 
 
@@ -66,23 +73,27 @@ def fg_miou(inter_acc: Dict[int, float], union_acc: Dict[int, float]) -> float:
     ))
 
 
-def batch_generator(seed: int, run: int, b: int) -> torch.Generator:
-    """The host generator for the classifier inits of batch ``b`` of ``run``."""
-    return torch.Generator().manual_seed(seed + (run * 1_000_003 + b) * 65_537)
+def batch_generator(seed: int, run: int, b: int, rank: int = 0) -> torch.Generator:
+    """The host generator for the classifier inits of batch ``b`` of ``run``
+    on process ``rank`` (the term the JAX package folds into the batch's
+    key; rank 0's is the single-process generator)."""
+    return torch.Generator().manual_seed(seed + (run * 1_000_003 + b) * 65_537 + rank)
 
 
 def validate_transformer(cfg, engine, loader: Iterable[Dict],
                          log=print) -> Tuple[float, float]:
     """Full CWT evaluation; returns (mean mIoU over runs, mean loss).
 
-    ``loader`` is re-iterable with a ``batch_size`` E (``EpisodeLoader``); a
-    run takes ``ceil(test_num / E)`` batches and scores exactly ``test_num``
-    episodes. With ``profile_dir`` a ``torch.profiler`` trace of the runs
+    ``loader`` is re-iterable with a ``batch_size`` E (``EpisodeLoader``; a
+    rank's E under a process group, of a global batch of E * world); a run
+    takes ``ceil(test_num / (E * world))`` batches and scores exactly
+    ``test_num`` episodes. With ``profile_dir`` a ``torch.profiler`` trace of the runs
     (host and, on the card, device activity) is written there as Chrome-trace
     JSON (``trace_path``), as the JAX package's ``jax.profiler`` trace is.
     """
     test_num = cfg.test_num
-    e_batch = loader.batch_size
+    rank, world = rank_world()
+    e_batch = loader.batch_size * world
     seed = int(cfg.manual_seed if cfg.manual_seed is not None else 0)
     run_mious = np.zeros(cfg.n_runs)
     run_losses = np.zeros(cfg.n_runs)
@@ -112,8 +123,8 @@ def validate_transformer(cfg, engine, loader: Iterable[Dict],
         for b, valid_n in enumerate(exact_batch_sizes(test_num, e_batch)):
             batch = next(stream)
             t0 = time.time()
-            out = engine.eval_metrics_batch(batch, batch_generator(seed, run, b))
-            out = {k: v.cpu().numpy() for k, v in out.items()}  # waits for the device
+            out = engine.eval_metrics_batch(batch, batch_generator(seed, run, b, rank))
+            out = to_host(out)  # waits for the device; gathers the ranks' episodes
             t_run += time.time() - t0
             seen += valid_n
 
@@ -179,7 +190,8 @@ def episodic_validate(cfg, engine, loader: Iterable[Dict],
     classifier's own query logits (``eval_metrics_batch_no_cwt``) and its
     own CE. Each run walks a fresh stream of ``loader``; returns (mean
     mIoU over runs, mean loss)."""
-    e_batch = loader.batch_size
+    rank, world = rank_world()
+    e_batch = loader.batch_size * world
     seed = int(cfg.manual_seed if cfg.manual_seed is not None else 0)
     run_mious = np.zeros(cfg.n_runs)
     run_losses = np.zeros(cfg.n_runs)
@@ -189,9 +201,8 @@ def episodic_validate(cfg, engine, loader: Iterable[Dict],
         loss_meter = AverageMeter()
         stream = infinite(loader)
         for b, valid_n in enumerate(exact_batch_sizes(cfg.test_num, e_batch)):
-            out = engine.eval_metrics_batch_no_cwt(next(stream),
-                                                   batch_generator(seed, run, b))
-            out = {k: v.cpu().numpy() for k, v in out.items()}
+            out = to_host(engine.eval_metrics_batch_no_cwt(
+                next(stream), batch_generator(seed, run, b, rank)))
             accumulate_fg_iou(cls_inter, cls_union, out, suffix="0", limit=valid_n)
             loss_meter.update(float(out["loss0"][:valid_n].mean()), n=valid_n)
         run_mious[run] = fg_miou(cls_inter, cls_union)

@@ -24,17 +24,25 @@ import torch.nn as nn
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            mask_shape: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+            mask_shape: Optional[Tuple[int, ...]] = None,
+            shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale the kept ones by 1/(1 - rate). ``mask_shape`` broadcasts one draw
     over axes of size 1 (channel dropout). The mask is drawn on the
-    generator's device (the host for a CPU generator) and moved to ``x``'s."""
+    generator's device (the host for a CPU generator) and moved to ``x``'s.
+
+    ``shard`` (rank, world): ``x``'s leading axis is this rank's slice of a
+    global batch world times as long, so the mask of the global batch is
+    drawn and this rank's rows kept; every rank's generator then advances
+    alike and row i gets the mask it gets on one process."""
     if rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs a torch.Generator in training mode")
-    keep = torch.rand(mask_shape or x.shape, generator=generator,
-                      device=generator.device) >= rate
+    shape = tuple(mask_shape or x.shape)
+    rank, world = shard
+    keep = torch.rand((shape[0] * world,) + shape[1:], generator=generator,
+                      device=generator.device)[rank * shape[0]:(rank + 1) * shape[0]] >= rate
     return torch.where(keep.to(x.device), x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -67,10 +75,12 @@ class MultiHeadAttentionOne(nn.Module):
         self.layer_norm.reset_parameters()
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """q: (B, len_q, d_model); k, v: (B, h, w, d_model) or (B, L, d_model).
         In training mode the dropout masks are drawn from ``generator``
-        (attention weights first, then the output)."""
+        (attention weights first, then the output), for the global batch
+        of which B is rank ``shard[0]``'s slice (``dropout``)."""
         attn_rate, out_rate = (self.attn_dropout, self.dropout) if self.training else (0.0, 0.0)
         if k.ndim == 4:
             k = k.reshape(k.shape[0], -1, k.shape[-1])
@@ -83,10 +93,10 @@ class MultiHeadAttentionOne(nn.Module):
         kp = self.w_qkvs(k).view(b, k.shape[1], self.n_head, self.d_k).transpose(1, 2)
         vp = self.w_qkvs(v).view(b, v.shape[1], self.n_head, self.d_v).transpose(1, 2)
         attn = torch.matmul(qp, kp.transpose(-1, -2)) / self.temperature
-        attn = dropout(torch.softmax(attn, dim=-1), attn_rate, generator)
+        attn = dropout(torch.softmax(attn, dim=-1), attn_rate, generator, shard=shard)
         out = torch.matmul(attn, vp)
         out = out.transpose(1, 2).reshape(b, len_q, self.n_head * self.d_v)
-        out = dropout(self.fc(out), out_rate, generator)
+        out = dropout(self.fc(out), out_rate, generator, shard=shard)
         return self.layer_norm(out + residual)
 
 

@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import upsample_bilinear_ac
+from ..parallel.mesh import rank_world
 from .cwt import dropout
 from .resnet import BatchNorm2d, DilatedResNet, reset_parameters, run_trunk, stage_cast
 from .vgg import VGG16BN
@@ -308,7 +309,9 @@ class PSPNet(nn.Module):
         x = self.ppm(stage_cast(self, x, "ppm"))
         x = self.bottleneck(stage_cast(self, x, "bottleneck"))
         if self.training:
-            x = dropout(x, self.dropout, generator, (x.shape[0], x.shape[1], 1, 1))
+            # under a process group x is this rank's slice of the global batch
+            x = dropout(x, self.dropout, generator, (x.shape[0], x.shape[1], 1, 1),
+                        shard=rank_world())
         return x
 
     def stage_modules(self) -> Dict[str, nn.Module]:

@@ -10,7 +10,8 @@ Counterpart of ``few_shot_seg_cwt_tpu.models.resnet``: ResNet-50/101 with
 * ``BatchNorm2d``: eps 1e-5, momentum 0.1, run on its running statistics
   in eval mode; in train mode (stage-1 pretraining) it normalises with the
   batch statistics and updates the running variance with the biased batch
-  variance, as flax's ``nn.BatchNorm`` does.
+  variance, as flax's ``nn.BatchNorm`` does; inside a process group
+  (``parallel.mesh``) the batch is the global one of every rank (SyncBN).
 
 Parameter names are the reference repo's (``layerN.i.convK`` / ``bnK`` /
 ``downsample.{0,1}``), so a reference state_dict loads with
@@ -25,12 +26,69 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import active, all_reduce_sum, gather_rows
+
 # block counts per stage (reference: src/model/resnet.py:198,210)
 RESNET_DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of every rank (SyncBN).
+
+    Forward: each rank's per-channel count, mean and sum of squared
+    deviations (two passes over its slice) are gathered by one all-reduce
+    and combined in rank order (Chan's update), so every rank normalises
+    with the same global mean and biased variance; that is the statistic
+    flax computes over a batch sharded on a mesh. Backward: the two
+    per-channel sums of the input gradient (Σdy, Σdy·x̂) are all-reduced,
+    since every rank's normalisation depends on every rank's inputs; the
+    weight and bias gradients stay this rank's sums, and the trainer's
+    gradient all-reduce averages them with the rest. The per-channel sums
+    accumulate in float64 (as torch's CPU batch norm does), so the
+    statistics do not depend on how the batch is split or ordered beyond
+    the last rounding."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = (0, 2, 3)
+        n = torch.full((x.shape[1],), x.numel() // x.shape[1], dtype=torch.float64,
+                       device=x.device)
+        mean = x.sum(dims, dtype=torch.float64) / n
+        m2 = ((x.double() - mean[None, :, None, None]) ** 2).sum(dims)
+        stats = gather_rows(torch.stack([n, mean, m2])[None])
+        n_all, mean, m2 = stats[0, 0], stats[0, 1], stats[0, 2]
+        for r in range(1, stats.shape[0]):
+            n_r, mean_r, m2_r = stats[r]
+            total = n_all + n_r
+            delta = mean_r - mean
+            mean = mean + delta * (n_r / total)
+            m2 = m2 + m2_r + delta * delta * (n_all * n_r / total)
+            n_all = total
+        var = m2 / n_all
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (x - mean[None, :, None, None]) * invstd[None, :, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, n_all)
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * weight[None, :, None, None] + bias[None, :, None, None], mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, invstd, n_all = ctx.saved_tensors
+        dims = (0, 2, 3)
+        sum_dy = dy.sum(dims, dtype=torch.float64)
+        sum_dy_xhat = (dy.double() * xhat).sum(dims)
+        total = all_reduce_sum(torch.stack([sum_dy, sum_dy_xhat]))
+        mean_dy = (total[0] / n_all).to(dy.dtype)
+        mean_dy_xhat = (total[1] / n_all).to(dy.dtype)
+        scale = (weight * invstd)[None, :, None, None]
+        dx = scale * (dy - mean_dy[None, :, None, None] - xhat * mean_dy_xhat[None, :, None, None])
+        return dx, sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype), None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose running variance follows flax's update.
+    """``nn.BatchNorm2d`` whose running variance follows flax's update, with
+    global-batch statistics under a process group.
 
     In train mode torch folds the *unbiased* batch variance into
     ``running_var`` and flax the *biased* one; the output (normalised with
@@ -40,7 +98,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistic, torch's copy holds (1-f) v_old + f v n/(n-1) and flax's is
     (1-f) v_old + f v = copy (n-1)/n + (1-f) v_old / n. The copies keep the
     buffers out of autograd's saved tensors, which an in-place update after
-    the op would invalidate. Eval mode is ``nn.BatchNorm2d`` itself."""
+    the op would invalidate. Eval mode is ``nn.BatchNorm2d`` itself.
+
+    In train mode inside a process group (``parallel.mesh``) the statistics
+    are the global batch's (``_GlobalBatchNorm``: the PPM's bin-1 branch
+    has one value an image and channel, so a rank's slice alone would give
+    other statistics), and the running statistics take the global mean and
+    biased variance, as flax's update does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
@@ -49,6 +113,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
         f = (self.momentum if self.momentum is not None
              else 1.0 / float(self.num_batches_tracked))
+        if active():
+            out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - f).add_(mean, alpha=f)
+                self.running_var.mul_(1.0 - f).add_(var, alpha=f)
+            return out
         mean, var = self.running_mean.clone(), self.running_var.clone()
         out = F.batch_norm(x, mean, var, self.weight, self.bias, True, f, self.eps)
         n = x.numel() // x.shape[1]

@@ -32,8 +32,10 @@ instead (frozen backbone -> inner loop -> the head's refined query feature
 needs ``ignore False``, as in JAX. ``--head-ckpt`` is a head checkpoint of
 ``train_head`` (``best.pt``, ``final.pt`` or a full ``train_state.pt``),
 random init without it. The ``chm``, ``detr`` and ``fuse`` heads are not
-ported (ROADMAP queue 1 items 8, 9 and 10) and ``--mesh`` is scale-out
-(item 13): each raises ``NotImplementedError``.
+ported (ROADMAP queue 1 items 8, 9 and 10) and raise
+``NotImplementedError``, as does ``--mesh``: an exported program runs on
+one device, and the port's scale-out (item 13, ``parallel/``) serves over
+several cards by one serving process a card, each loading the artifact.
 
 The program is traced at a fixed batch, as JAX's is, on the device the
 export runs on (``cuda`` unless ``--device cpu``): exported on the card it
@@ -99,8 +101,10 @@ def example_inputs(cfg, batch: int, device, num_classes: int) -> tuple:
 
 def _single_device(mesh) -> None:
     if mesh:
-        raise NotImplementedError("--mesh (a data-parallel artifact over several "
-                                  "devices) is scale-out, ROADMAP queue 1 item 13")
+        raise NotImplementedError("--mesh: an exported program runs on one device; the "
+                                  "port's scale-out (ROADMAP queue 1 item 13) serves over "
+                                  "several cards by one serving process a card, each "
+                                  "loading this artifact")
 
 
 def _export(engine, cfg, batch: int, mesh) -> torch.export.ExportedProgram:
@@ -205,8 +209,8 @@ def main(argv=None) -> Dict:
     p.add_argument("--batch", type=int, default=8,
                    help="episodes per serving call (fixed in the artifact)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="export data-parallel over this many devices (ROADMAP item 13; "
-                        "0 = single-device artifact)")
+                   help="raises: an artifact runs on one device (serve over several "
+                        "cards by one process a card); 0 = single-device artifact")
     p.add_argument("--head", default=None,
                    help="export this extension head's predictor instead of the CWT "
                         "one (mmn|match; chm|detr|fuse are not ported)")

@@ -42,8 +42,18 @@ engine. ``pretrained`` ImageNet trunks are not read (nor does the JAX
 package read them). The lines go to ``log`` and ``<sv_path>/log.txt``; the
 epoch's ``train_loss`` and ``mean_iou/val`` to TensorBoard scalars under
 ``<sv_path>/model`` (``utils.tb``: an events file, or ``scalars.jsonl``
-without ``tensorboard``). Not ported: several processes (ROADMAP queue 1
-item 13) and a mixed ``bf16_stages`` policy.
+without ``tensorboard``). Not ported: a mixed ``bf16_stages`` policy.
+
+Over several cards (``torchrun --nproc_per_node N -m
+few_shot_seg_cwt_tpu_torch.train.pretrain ...``, ``parallel.mesh``) every
+rank takes ``batch_size / N`` records of each global batch by a
+rank-strided index stream over one shuffle (the JAX trainer's loaders),
+BN normalises over the global batch (``models.resnet.BatchNorm2d``), the
+losses are the global batch's means (each rank's pixel sums over the
+global valid-pixel count), mixup's lambda and permutation are the global
+batch's, drawn alike on every rank, with the partner images gathered from
+the other ranks, the gradients are averaged, validation sums the ranks'
+I/U, and rank 0 alone writes the log, the scalars and the checkpoints.
 """
 
 from __future__ import annotations
@@ -64,11 +74,14 @@ from ..eval.validate import episodic_validate
 from ..models.pspnet import PSPNet, build_pspnet, policy_is_noop, stage_dtype_policy
 from ..ops.losses import cross_entropy, smoothed_cross_entropy
 from ..ops.metrics import intersection_and_union
+from ..parallel.mesh import (active, all_reduce_grads, all_reduce_sum, barrier,
+                             broadcast_module, check_replicas, distributed_init, gather_rows,
+                             is_main_process, rank_world, shutdown)
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
 from ..utils.logging import get_logger, log_to
 from ..utils.meters import AverageMeter
-from .common import (apply_debug, episodic_val_loader, fp32_parity, maybe_auto_resume,
-                     set_seeds)
+from .common import (apply_debug, episodic_val_loader, fp32_parity, local_batch,
+                     maybe_auto_resume, rank_rng_state, set_seeds, with_rank_states)
 from ..utils.tb import SummaryWriter
 from .optim import build_lr_schedule
 
@@ -112,7 +125,15 @@ def make_pretrain_step(model: PSPNet, optimizer: torch.optim.Optimizer, schedule
     on the model's device. Under ``mixup`` lambda and the permutation come
     from ``generator`` unless given; the dropout mask always does (no
     generator is needed at ``dropout 0``). ``metrics``: ``loss`` and the
-    (C,) train ``inter``, ``union`` and ``target`` areas."""
+    (C,) train ``inter``, ``union`` and ``target`` areas.
+
+    Under a process group ``img`` and ``gt`` are this rank's slice of the
+    global batch (B a rank): the permutation (``perm``) is over the global
+    batch and the partners come from every rank (``gather_rows``), each
+    loss term is this rank's pixel sum over the global valid count times
+    the world size (so the averaged gradients are the global mean's), the
+    gradients are averaged before the update, and ``metrics`` are the
+    global batch's."""
     num_classes = int(cfg.num_classes_tr)
     smoothing = 0.1 if cfg.smoothing else 0.0
     params = [p for g in optimizer.param_groups for p in g["params"]]
@@ -122,32 +143,70 @@ def make_pretrain_step(model: PSPNet, optimizer: torch.optim.Optimizer, schedule
             return smoothed_cross_entropy(logits, target, num_classes, smoothing)
         return cross_entropy(logits, target)
 
+    def shares(*targets):
+        """Per target: this rank's valid pixels times the world size over the
+        global count (1 without a group), turning a local mean into this
+        rank's part of the global one."""
+        if not active():
+            return [1.0] * len(targets)
+        world = rank_world()[1]
+        local = torch.stack([(t != 255).sum() for t in targets]).double()
+        total = all_reduce_sum(local)
+        return [local[i] * world / total[i].clamp(min=1) for i in range(len(targets))]
+
     def step(img, gt, generator: Optional[torch.Generator] = None,
              lam: Optional[float] = None, perm: Optional[torch.Tensor] = None):
+        rank, world = rank_world()
         model.train()
         optimizer.zero_grad(set_to_none=True)
         if cfg.mixup:
+            b = img.shape[0]
             lam = _beta(generator) if lam is None else float(lam)
             if perm is None:
-                perm = torch.randperm(img.shape[0], generator=generator)
+                perm = torch.randperm(b * world, generator=generator)
             perm = torch.as_tensor(perm).to(img.device)
-            logits = model(lam * img + (1.0 - lam) * img[perm], generator)
-            loss = lam * ce(logits, gt) + (1.0 - lam) * ce(logits, gt[perm])
+            if active():
+                mine = perm[rank * b:(rank + 1) * b]
+                partner_img, partner_gt = gather_rows(img)[mine], gather_rows(gt)[mine]
+            else:
+                partner_img, partner_gt = img[perm], gt[perm]
+            logits = model(lam * img + (1.0 - lam) * partner_img, generator)
+            s_gt, s_partner = shares(gt, partner_gt)
+            loss = (lam * ce(logits, gt) * s_gt
+                    + (1.0 - lam) * ce(logits, partner_gt) * s_partner)
         else:
             logits = model(img, generator)
-            loss = ce(logits, gt)
+            loss = ce(logits, gt) * shares(gt)[0]
         loss.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        all_reduce_grads(params)
         optimizer.step()
         scheduler.step()
         with torch.no_grad():
             inter, union, target = intersection_and_union(logits.argmax(-1), gt, num_classes)
-        return {"loss": loss.detach(), "inter": inter.sum(0), "union": union.sum(0),
-                "target": target.sum(0)}
+            metrics = {"loss": loss.detach().float(), "inter": inter.sum(0),
+                       "union": union.sum(0), "target": target.sum(0)}
+            if active():
+                metrics = _global_metrics(metrics, world)
+        return metrics
 
     return step
+
+
+def _global_metrics(metrics: Dict[str, torch.Tensor], world: int) -> Dict[str, torch.Tensor]:
+    """A step's metrics over every rank: the mean of the ranks' losses (each
+    a share of the global mean, so this is the global batch's loss) and the
+    sums of their areas; one all-reduce in float64 (exact pixel counts)."""
+    keys = ("inter", "union", "target")
+    flat = torch.cat([metrics["loss"].reshape(1)] + [metrics[k] for k in keys]).double()
+    total = all_reduce_sum(flat)
+    c = metrics["inter"].numel()
+    out = {"loss": (total[0] / world).float()}
+    for i, k in enumerate(keys):
+        out[k] = total[1 + i * c:1 + (i + 1) * c].float()
+    return out
 
 
 @torch.no_grad()
@@ -162,7 +221,10 @@ def standard_eval(model: PSPNet, img, gt, num_classes: int):
 def standard_validate(cfg, model: PSPNet, loader, log=print) -> Tuple[float, float]:
     """Pixel mIoU over the val list at train-class indexing (reference
     src/pretrain.py:222-249), in eval mode; the model's mode is restored
-    after. Returns (mIoU, mean batch loss)."""
+    after. Returns (mIoU, mean batch loss). Under a process group ``loader``
+    is this rank's rank-strided slice, and the I/U sums and the batch losses
+    are summed over the ranks before scoring, so every rank gets the same
+    mIoU (the loss is the mean of the ranks' batch means)."""
     was_training = model.training
     model.eval()
     inters = np.zeros(cfg.num_classes_tr)
@@ -177,6 +239,12 @@ def standard_validate(cfg, model: PSPNet, loader, log=print) -> Tuple[float, flo
             loss_meter.update(float(loss))
     finally:
         model.train(was_training)
+    if active():
+        total = all_reduce_sum(torch.from_numpy(np.concatenate(
+            [inters, unions, [loss_meter.sum, loss_meter.count]])))
+        c = len(inters)
+        inters, unions = total[:c].numpy(), total[c:2 * c].numpy()
+        loss_meter.avg = float(total[-2] / max(float(total[-1]), 1.0))
     miou = float((inters / (unions + 1e-10)).mean())
     acc = float(inters.sum() / max(unions.sum(), 1e-10))
     log(f"Testing results: running loss {loss_meter.avg:.2f}, Acc {acc:.4f}, mIoU {miou:.4f}")
@@ -224,9 +292,6 @@ def save_dir(cfg) -> str:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.get("multi_host") or cfg.get("distributed"):
-        raise NotImplementedError("pretraining runs in one process; several processes wait "
-                                  "for ROADMAP queue 1 item 13")
     if len(set(stage_dtype_policy(cfg).values())) > 1:
         raise NotImplementedError(
             f"bf16_stages {cfg.bf16_stages!r}: pretraining runs the backbone in fp32 "
@@ -239,6 +304,7 @@ def main(cfg, device="cuda", log=print) -> float:
     too from the moment the run's directory is known; the epoch's
     ``train_loss`` and ``mean_iou/val`` go to TensorBoard scalars under
     ``<sv_path>/model`` (``utils.tb``)."""
+    device = distributed_init(cfg, device=device)
     log_to(None)   # no tee until this run's directory is known
     log = get_logger(log)
     fp32_parity()
@@ -260,19 +326,25 @@ def main(cfg, device="cuda", log=print) -> float:
     else:
         train_ds, val_ds = StandardDataset(cfg, train=True), StandardDataset(cfg, train=False)
     seed = int(cfg.manual_seed or 0)
-    train_loader = EpisodeLoader(train_ds, batch_size=int(cfg.batch_size), shuffle=True,
-                                 num_workers=cfg.workers, seed=seed, device=device)
+    # every rank shuffles with the same seed and takes a rank-strided slice,
+    # so the ranks' slices make up the one-process batches (the JAX loaders)
+    rank, world = rank_world()
+    batch = local_batch(int(cfg.batch_size))
+    train_loader = EpisodeLoader(train_ds, batch_size=batch, shuffle=True,
+                                 num_workers=cfg.workers, seed=seed, device=device,
+                                 rank=rank, world=world)
     episodic = bool(cfg.get("episodic_val", False))
     val_loader = (episodic_val_loader(cfg, device=device) if episodic else
-                  EpisodeLoader(val_ds, batch_size=int(cfg.batch_size), shuffle=False,
-                                num_workers=cfg.workers, drop_last=False, device=device))
+                  EpisodeLoader(val_ds, batch_size=batch, shuffle=False,
+                                num_workers=cfg.workers, drop_last=False, device=device,
+                                rank=rank, world=world))
 
     optimizer, scheduler = build_pretrain_optimizer(model, cfg, len(train_loader))
     step = make_pretrain_step(model, optimizer, scheduler, cfg)
     generator = torch.Generator().manual_seed(seed)
     sv_path = save_dir(cfg)
     log_to(sv_path)
-    writer = SummaryWriter(os.path.join(sv_path, "model"))
+    writer = SummaryWriter(os.path.join(sv_path, "model")) if is_main_process() else None
     state_path = os.path.join(sv_path, "train_state.ckpt")
 
     start_epoch, best = 0, 0.0
@@ -284,12 +356,13 @@ def main(cfg, device="cuda", log=print) -> float:
             model.load_state_dict(state["model"])
             optimizer.load_state_dict(state["optimizer"])
             scheduler.load_state_dict(state["scheduler"])
-            generator.set_state(state["rng"])
+            generator.set_state(rank_rng_state(state))
             start_epoch, best = int(state["meta"]["epoch"]), float(state["meta"]["best"])
             log(f"=> resumed full pretrain state at epoch {start_epoch} (best {best:.3f})")
         else:
             model.load_state_dict(load_ckpt(path))
             log(f"=> resumed pretrain weights from {path}")
+    broadcast_module(model)
 
     log("==> Start training")
     for epoch in range(start_epoch, cfg.epochs):
@@ -306,33 +379,43 @@ def main(cfg, device="cuda", log=print) -> float:
                     f"running loss {loss_meter.avg:.2f}, mIoU {miou:.4f}")
         log(f"===== Epoch {epoch}: running loss {loss_meter.avg:.2f} "
             f"({time.time() - t0:.1f}s) =====")
-        writer.add_scalar("train_loss", loss_meter.avg, epoch)
+        if writer is not None:
+            writer.add_scalar("train_loss", loss_meter.avg, epoch)
 
         if episodic:
             val_miou, _ = run_episodic_validation(cfg, model, val_loader, device, log)
         else:
             val_miou, _ = standard_validate(cfg, model, val_loader, log)
-        writer.add_scalar("mean_iou/val", val_miou, epoch)
+        if writer is not None:
+            writer.add_scalar("mean_iou/val", val_miou, epoch)
 
         if val_miou > best:
             best = val_miou
-            if cfg.save_models:
+            if cfg.save_models and is_main_process():
                 path = os.path.join(sv_path, "best.ckpt")
                 log(f"=> Max_mIoU = {best:.3f}, saving to {path}")
                 save_ckpt(path, model.state_dict())
         if cfg.save_models:
-            save_ckpt(state_path, pack_train_state(model, optimizer, generator.get_state(),
-                                                   epoch + 1, best, scheduler=scheduler))
+            rng = generator.get_state()
+            state = with_rank_states(pack_train_state(model, optimizer, rng, epoch + 1, best,
+                                                      scheduler=scheduler), rng)
+            if is_main_process():
+                save_ckpt(state_path, state)
+        barrier()   # rank 0's files are whole before any rank reads them
+        check_replicas(model, generator.get_state())
         stop_after = cfg.get("stop_after_epochs")
         if stop_after and epoch - start_epoch + 1 >= int(stop_after):
             log(f"=> stop_after_epochs={stop_after}: exiting after epoch {epoch}")
             break
 
-    if cfg.save_models:
+    if cfg.save_models and is_main_process():
         save_ckpt(os.path.join(sv_path, "final.ckpt"), model.state_dict())
-    writer.close()
+    if writer is not None:
+        writer.close()
+    barrier()
     return best
 
 
 if __name__ == "__main__":
     main(parse_args("Stage-1 base pretraining (PyTorch/CUDA)"))
+    shutdown()

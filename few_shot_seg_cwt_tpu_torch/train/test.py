@@ -16,6 +16,12 @@ schema (``train.common.load_stage1_weights``; ``classifier.*`` and ``gamma``
 dropped); transformer weights from ``<ckpt_used>.pth`` under the
 reference's transformer directory schema. Without them the run evaluates the
 seeded random init (plumbing mode).
+
+Over several cards, ``torchrun --nproc_per_node N -m
+few_shot_seg_cwt_tpu_torch.train.test ...``: every rank reads the weights,
+scores its rank-strided slice of each batch of ``episode_batch``, and the
+ranks' episodes are gathered before scoring (``eval.validate``); rank 0
+alone prints.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import os
 from ..config import parse_args
 from ..episodic.engine import EpisodicEngine
 from ..eval.validate import validate_transformer
+from ..parallel.mesh import broadcast_module, distributed_init, is_main_process, shutdown
 from ..utils.convert import load_torch_checkpoint
 from .common import (apply_debug, episodic_val_loader, fp32_parity, load_backbone_weights,
                      load_stage1_weights, set_seeds, trans_ckpt_dir)
@@ -60,12 +67,17 @@ def load_eval_weights(cfg, engine: EpisodicEngine, log=print) -> None:
 
 
 def main(cfg, device="cuda", log=print) -> float:
+    device = distributed_init(cfg, device=device)
+    if not is_main_process():
+        log = lambda *_: None  # noqa: E731 (rank 0 alone prints)
     fp32_parity()
     set_seeds(cfg)
     apply_debug(cfg)
 
     engine = EpisodicEngine(cfg, device=device)
     load_eval_weights(cfg, engine, log)
+    broadcast_module(engine.backbone)
+    broadcast_module(engine.cwt)
     loader = episodic_val_loader(cfg, device=engine.device)
     miou, _ = validate_transformer(cfg, engine, loader, log=log)
     return miou
@@ -73,3 +85,4 @@ def main(cfg, device="cuda", log=print) -> float:
 
 if __name__ == "__main__":
     main(parse_args("Testing (PyTorch/CUDA)"))
+    shutdown()

@@ -7,6 +7,7 @@ view the head reads, ``HeadEngine._select_support_stream``):
 """
 
 from ..config import parse_args
+from ..parallel.mesh import shutdown
 from .train_head import main as head_main
 
 
@@ -16,3 +17,4 @@ def main(cfg, device="cuda", log=print):
 
 if __name__ == "__main__":
     main(parse_args("aug trainer (PyTorch/CUDA)"))
+    shutdown()

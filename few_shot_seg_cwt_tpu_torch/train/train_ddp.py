@@ -1,29 +1,23 @@
 """Alias trainer: the reference's DDP entry point (src/train_ddp.py) over the
-generic head trainer, on one card, as the JAX alias runs on one device:
+generic head trainer, which trains the MMN head over as many processes as
+``torchrun`` starts, one a card (``parallel.mesh``):
 
-    python -m few_shot_seg_cwt_tpu_torch.train.train_ddp --config configs/pascal_ddp.yaml
+    torchrun --nproc_per_node N -m few_shot_seg_cwt_tpu_torch.train.train_ddp \
+        --config configs/pascal_ddp.yaml
 
-The config's ``gpus`` list is read by no one, as in JAX. Training over
-several processes waits for the port's scale-out (ROADMAP queue 1 item
-13): a launch with ``WORLD_SIZE`` > 1, ``distributed`` or ``multi_host``
-raises.
+Without ``torchrun`` it trains on one card. The config's ``gpus`` list is
+read by no one, as in JAX: the cards are the processes ``torchrun`` starts.
 """
 
-import os
-
 from ..config import parse_args
+from ..parallel.mesh import shutdown
 from .train_head import main as head_main
 
 
 def main(cfg, device="cuda", log=print):
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1 or cfg.get("distributed") or cfg.get("multi_host"):
-        raise NotImplementedError(f"WORLD_SIZE={world}, distributed "
-                                  f"{cfg.get('distributed')}, multi_host "
-                                  f"{cfg.get('multi_host')}: training over several "
-                                  "processes is not ported (ROADMAP queue 1 item 13)")
     return head_main(cfg, head_type="mmn", device=device, log=log)
 
 
 if __name__ == "__main__":
-    main(parse_args("ddp trainer (PyTorch/CUDA, one card)"))
+    main(parse_args("ddp trainer (PyTorch/CUDA)"))
+    shutdown()

@@ -23,6 +23,17 @@ and best1; each step's classifier inits come from a generator seeded by
 resume) or a head state_dict (weights only); ``auto_resume`` picks up this
 run's own train state; ``stop_after_epochs`` ends the run early. Not
 ported: the other heads (ROADMAP queue 1 items 8-10).
+
+Over several cards (``parallel.mesh``)::
+
+    torchrun --nproc_per_node N -m few_shot_seg_cwt_tpu_torch.train.train_head \
+        --config configs/pascal_mmn.yaml
+
+each rank trains on ``episode_batch / N`` episodes of every step (the
+inits of the global batch drawn alike on every rank, each keeping its
+own), the gradients are averaged over the ranks, validation gathers the
+ranks' episodes, and rank 0 alone writes ``log.txt`` and the checkpoints;
+the train state holds every rank's dropout generator state.
 """
 
 from __future__ import annotations
@@ -38,11 +49,13 @@ from ..config import parse_args
 from ..episodic.heads import HeadEngine
 from ..data.loader import infinite
 from ..eval.validate import accumulate_fg_iou, batch_generator, exact_batch_sizes, fg_miou
+from ..parallel.mesh import (barrier, broadcast_module, check_replicas, distributed_init,
+                             is_main_process, rank_world, shutdown, to_host)
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
 from ..utils.logging import get_logger, log_to
 from ..utils.meters import AverageMeter, CompareMeter
 from .common import (apply_debug, episodic_loaders, fp32_parity, init_backbone,
-                     maybe_auto_resume, set_seeds)
+                     maybe_auto_resume, rank_rng_state, set_seeds, with_rank_states)
 from .optim import build_optimizer
 
 
@@ -55,14 +68,16 @@ def init_head_trainables(engine: HeadEngine) -> Dict[str, torch.Tensor]:
 
 def validate_head(cfg, engine: HeadEngine, loader, log=print):
     """Per-class foreground IoU over ``test_num`` episodes for the blended
-    (mIoU) and the attention-only (mIoU1) predictions."""
+    (mIoU) and the attention-only (mIoU1) predictions; under a process
+    group over the ranks' gathered episodes, as ``eval.validate`` scores."""
     seed = int(cfg.manual_seed or 0)
+    rank, world = rank_world()
     acc = {k: defaultdict(float) for k in ("i", "u", "i1", "u1")}
     loss_meter = AverageMeter()
     stream = infinite(loader)
-    for b, valid_n in enumerate(exact_batch_sizes(cfg.test_num, loader.batch_size)):
-        out = engine.eval_metrics_batch(next(stream), batch_generator(seed, 0, b))
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+    for b, valid_n in enumerate(exact_batch_sizes(cfg.test_num, loader.batch_size * world)):
+        out = to_host(engine.eval_metrics_batch(next(stream),
+                                                batch_generator(seed, 0, b, rank)))
         accumulate_fg_iou(acc["i"], acc["u"], out, limit=valid_n)
         accumulate_fg_iou(acc["i1"], acc["u1"], out, suffix="1", limit=valid_n)
         loss_meter.update(float(out["loss"][:valid_n].mean()), n=valid_n)
@@ -94,6 +109,7 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
     """Train the head for ``epochs`` epochs; returns the best validation mIoU.
     ``log`` receives every line, and ``<sv_path>/log.txt`` gets them too
     from the moment the run's directory is known."""
+    device = distributed_init(cfg, device=device)
     log_to(None)   # no tee until this run's directory is known
     log = get_logger(log)
     fp32_parity()
@@ -113,7 +129,7 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
     log_to(sv_path)
 
     def save(name: str) -> None:
-        if cfg.save_models:
+        if cfg.save_models and is_main_process():
             save_ckpt(os.path.join(sv_path, name), engine.head.state_dict())
 
     steps_per_epoch = 5 if cfg.debug else max(
@@ -130,7 +146,7 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
             engine.head.load_state_dict(state["model"])
             optimizer.load_state_dict(state["optimizer"])
             scheduler.load_state_dict(state["scheduler"])
-            set_dropout_rng_state(engine.device, state["rng"])
+            set_dropout_rng_state(engine.device, rank_rng_state(state))
             start_epoch = int(state["meta"]["epoch"]) + 1
             best, best1 = float(state["meta"]["best"]), float(state["meta"]["best1"])
             log(f"=> resumed full head train state after epoch {start_epoch - 1} "
@@ -138,6 +154,8 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
         else:
             engine.head.load_state_dict(load_ckpt(path))
             log(f"=> resumed head weights from {path}")
+    broadcast_module(engine.backbone)
+    broadcast_module(engine.head)
 
     log(f"==> Start training head '{head_type}'")
     for epoch in range(start_epoch, cfg.epochs + 1):
@@ -153,10 +171,10 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
                 batch = next(it)
             metrics = step(batch, batch_generator(seed, epoch, i))
             if i % 10 == 0 or (epoch == 1 and i <= 2):
-                m = {k: v.detach().cpu() for k, v in metrics.items()}
+                m = to_host(metrics)   # the ranks' episodes, on every rank
                 iou1 = float((m["inter1"] / (m["union1"] + 1e-10)).mean())
                 iou0 = float((m["inter0"] / (m["union0"] + 1e-10)).mean())
-                loss_meter.update(float(m["loss_mean"]))
+                loss_meter.update(float(m["loss_mean"].mean()))
                 compare.update(iou1, iou0)
                 if i % 100 == 0 or (epoch == 1 and i <= 2):
                     log(f"Ep{epoch}/{i * cfg.episode_batch} loss {loss_meter.val:.3f} "
@@ -172,16 +190,22 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
             save("best1.pt")
         log(f"=> best mIoU {best:.3f} best mIoU1 {best1:.3f}")
         if cfg.save_models:
-            save_ckpt(state_path, pack_train_state(engine.head, optimizer,
-                                                   dropout_rng_state(engine.device), epoch, best,
-                                                   scheduler=scheduler, best1=best1))
+            rng = dropout_rng_state(engine.device)
+            state = with_rank_states(pack_train_state(engine.head, optimizer, rng, epoch, best,
+                                                      scheduler=scheduler, best1=best1), rng)
+            if is_main_process():
+                save_ckpt(state_path, state)
+        barrier()   # rank 0's files are whole before any rank reads them
+        check_replicas(engine.head)
         stop_after = cfg.get("stop_after_epochs")
         if stop_after and epoch - start_epoch + 1 >= int(stop_after):
             log(f"=> stop_after_epochs={stop_after}: exiting after epoch {epoch}")
             break
     save("final.pt")
+    barrier()
     return best
 
 
 if __name__ == "__main__":
     main(parse_args("Extension-head episodic training (PyTorch/CUDA)"))
+    shutdown()

@@ -6,6 +6,7 @@ CLI parity: `python -m few_shot_seg_cwt_tpu_torch.train.train_kshot --config ...
 """
 
 from ..config import parse_args
+from ..parallel.mesh import shutdown
 from .train_head import main as head_main
 
 
@@ -15,3 +16,4 @@ def main(cfg, device="cuda", log=print):
 
 if __name__ == "__main__":
     main(parse_args("kshot trainer (PyTorch/CUDA)"))
+    shutdown()

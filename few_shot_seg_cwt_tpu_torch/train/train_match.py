@@ -10,6 +10,7 @@ not ported (ROADMAP queue 1 item 8).
 """
 
 from ..config import parse_args
+from ..parallel.mesh import shutdown
 from .train_head import main as head_main
 
 
@@ -22,3 +23,4 @@ def main(cfg, device="cuda", log=print):
 
 if __name__ == "__main__":
     main(parse_args("match trainer (PyTorch/CUDA)"))
+    shutdown()

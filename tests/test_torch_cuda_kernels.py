@@ -586,3 +586,30 @@ def test_saved_serve_program_launches_the_kernels(device, tmp_path, monkeypatch)
     assert cuda_inner_loop.LAUNCHES["adapt_binary"] == 1
     assert cuda_pivot.LAUNCHES["pivot_fwd"] == 12       # 3 blocks x 2 directions x 2
     assert torch.equal(masks, engine.serve_batch(ep, w0=w0))
+
+
+def test_dryrun_two_ranks_over_gloo_on_the_card(device, tmp_path):
+    """``parallel/dryrun.py --world 2 --backend gloo --device cuda`` at 33 px:
+    every check holds (the steps against one process, parameters equal on
+    both ranks, the gathers, SyncBN), and each rank launches K1, K2,
+    pivot_fwd and pivot_dw in its steps."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "few_shot_seg_cwt_tpu_torch.parallel.dryrun", "--world", "2",
+         "--backend", "gloo", "--device", "cuda", "--size", "33", "--adapt-iter", "5",
+         "--out", str(tmp_path)],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    assert rows and all(r["ok"] for r in rows)
+    launches = {(r["check"], r.get("tile"), r.get("head")): r["launches"] for r in rows
+                if "launches" in r}
+    for key, kernel in ((("cwt_step", 1, None), "adapt_binary"),
+                        (("cwt_step", 2, None), "adapt_binary_tiled"),
+                        (("mmn_step", None, "fp32_head"), "pivot_fwd"),
+                        (("mmn_step", None, "fp32_head"), "pivot_dw")):
+        assert all(rank[kernel] > 0 for rank in launches[key]), (key, kernel, launches[key])

@@ -36,7 +36,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                     if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     # the port's subpackages mirror the JAX package's layout
-    for sub in ("config", "data", "ops", "models", "episodic", "eval", "train", "utils"):
+    for sub in ("config", "data", "ops", "models", "episodic", "eval", "train", "utils",
+                "parallel"):
         assert (PORT / sub / "__init__.py").exists(), sub
         assert (REPO / "few_shot_seg_cwt_tpu" / sub / "__init__.py").exists(), sub
 
@@ -68,7 +69,8 @@ import importlib
 for name in ("tools.export_serve", "tools.serve_loaded", "tools.preflight",
              "tools.record_episodes", "tools.parity_drill", "tools.bench_loader",
              "tools.bench_head_parts", "utils.logging", "utils.tb", "utils.print_log",
-             "utils.visualize", "utils.extra_metrics", "utils.convert_ckpt"):
+             "utils.visualize", "utils.extra_metrics", "utils.convert_ckpt",
+             "parallel.mesh", "parallel.dryrun", "train.train_ddp", "train.pretrain"):
     importlib.import_module("few_shot_seg_cwt_tpu_torch." + name)
 forbidden = sorted(m for m in sys.modules
                    if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "orbax"}

@@ -551,8 +551,11 @@ def test_disagreement_loss_matches_jax():
 
 
 def test_train_aug_and_ddp_aliases(tmp_path, monkeypatch):
-    """train_aug is the MMN trainer; train_ddp runs on one card and refuses
-    several processes (ROADMAP queue 1 item 13)."""
+    """train_aug is the MMN trainer; train_ddp, the MMN trainer over the
+    processes torchrun starts (tests/test_torch_parallel_trainers.py runs
+    it at WORLD_SIZE 2), refuses a WORLD_SIZE that no launcher set up and a
+    ``distributed`` config without WORLD_SIZE, rather than train on one
+    process."""
     from few_shot_seg_cwt_tpu_torch.train import train_aug, train_ddp
 
     monkeypatch.chdir(tmp_path)
@@ -563,11 +566,13 @@ def test_train_aug_and_ddp_aliases(tmp_path, monkeypatch):
     assert 0.0 <= train_aug.main(cfg, device="cpu", log=lines.append) <= 1.0
     assert any(str(line).startswith("==> Start training head 'mmn'") for line in lines)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="WORLD_SIZE=2 without RANK: start the processes "
+                                         "with torchrun"):
         train_ddp.main(cfg, device="cpu")
-    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.delenv("WORLD_SIZE")
     cfg.distributed = True
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    with pytest.raises(ValueError, match="distributed is set but WORLD_SIZE is not"):
         train_ddp.main(cfg, device="cpu")
 
 
