@@ -76,7 +76,20 @@ Phases (any failure raises and the script exits non-zero):
    entry, episodes/s and peak memory; then ``conv4d cv4`` on each
    ``FSS_CONV4D_IM2COL`` route (q, qp, gemm, loop): an eval batch of 2 and
    a train step of 2, predictions within 1e-4 and gradients within 1e-3 of
-   the q route's, ms and peak memory of each.
+   the q route's, ms and peak memory of each. (6e) The CHM head,
+   configs/pascal_match.yaml with ``crm_type chm`` (fp32; BN statistics
+   calibrated as for MMN): on each ``FSS_CONV4D_IM2COL`` route (q, qp,
+   gemm, loop) eval + serve of 4 and a train step of 2 (its whole-loss
+   checkpoint on), counted (K1 must launch, no pivot kernel), episodes/s
+   and peak memory of each, predictions within 1e-4 and gradients within
+   1e-3 of the q route's; where a q-route eval batch's time goes. (6f)
+   The DeTr head, configs/pascal_trans.yaml as shipped and with ``sf_att
+   True``: on the rank-4 and flat routes eval + serve of 4 and a train
+   step of 2, counted (K1 on both, the pivot kernels on the flat route
+   only), episodes/s and peak memory, argmax of pred and pred1 >= 99.5%
+   equal to rank-4's, fp32 head gradients within 1e-3 of each tensor's
+   largest entry, the flat route's masks >= 99.5% equal to the plain
+   path's (rank-4 consensus, K1's plain version).
 7. The trainer entry points ``train.train_head.main`` on pascal_mmn.yaml as
    shipped and ``train.train_kshot.main`` at shot 5, with synthetic
    episodes; their validation lines are printed.
@@ -116,7 +129,10 @@ Phases (any failure raises and the script exits non-zero):
     route (pivot_fwd and pivot_dw must launch); ``train_match.main`` on
     configs/pascal_match.yaml on the flat route (K1 and both pivot kernels
     must launch), one epoch with its train state saved, then a ``debug``
-    run resuming from it for the second epoch. Every trainer's ``log.txt``
+    run resuming from it for the second epoch; ``train_match.main`` with
+    ``crm_type chm`` (K1 must launch) and ``train_trans.main`` on
+    configs/pascal_trans.yaml on the flat route (K1 and both pivot kernels
+    must launch), one epoch of 2 steps each. Every trainer's ``log.txt``
     must hold its validation line (train_cwt's in phase 9, train_head's in
     phase 7 and here, pretrain's in 11b, whose TensorBoard scalars must
     hold ``train_loss`` and ``mean_iou/val``). The tools on the tree:
@@ -141,11 +157,12 @@ Phases (any failure raises and the script exits non-zero):
 12. The serve artifacts (``tools.export_serve``): the CWT serve program at
     batch 8 on phase 4's calibrated weights and the MMN one
     (configs/pascal_mmn.yaml as shipped, flat route) at batch 4 on phase
-    6's, each exported with ``torch.export`` around the ``fss::``
-    operators, saved, and loaded in a fresh process that imports only
-    torch and the port's ``ops`` (``tools.serve_loaded``): its masks >=
-    99.5% equal to eager ``serve_batch``'s, K1 (and for MMN pivot_fwd)
-    launched there; export seconds, size and episodes/s loaded vs eager
+    6's, and the CHM (q route) and DeTr (flat route) ones at batch 4 on
+    phases 6e and 6f's, each exported with ``torch.export`` around the
+    ``fss::`` operators, saved, and loaded in a fresh process that imports
+    only torch and the port's ``ops`` (``tools.serve_loaded``): its masks
+    >= 99.5% equal to eager ``serve_batch``'s, K1 (and for MMN and DeTr
+    pivot_fwd) launched there; export seconds, size and episodes/s loaded vs eager
     (the serving process turns TF32 off, as the entry points do; the CWT
     artifact also runs once with TF32 on, printed without a limit).
     Then ``validate_transformer`` with ``profile_dir`` (1 run x 16
@@ -180,7 +197,8 @@ Phases (any failure raises and the script exits non-zero):
     rank 0 alone writes each ``log.txt``.
 14. A ``kernels`` JSON line (with each kernel's launches on the real-data
     path, K1's in (b)'s episodic validation and its VGG figures, the
-    match head's launches and the pivot pair's figures at 1 -> 10, the
+    match head's launches and the pivot pair's figures at 1 -> 10, the CHM
+    and DeTr heads' launches (eval, train step, trainer, artifact), the
     loaded artifacts' launches, and the launches per rank of phase 13
     under ``scale_out``), the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -532,7 +550,7 @@ def calibrate_blocks(consensus, x):
 
 @torch.no_grad()
 def calibrate_consensus(engine, calib_episodes, get_corr):
-    """Calibrate the consensus biases of an MMN or match engine on a
+    """Calibrate the consensus biases of an MMN, match or DeTr engine on a
     calibration episode's correlation volume (``calibrate_blocks``).
 
     With the seeded random init (zero biases) the last block's ReLU can zero
@@ -564,6 +582,11 @@ def calibrate_consensus(engine, calib_episodes, get_corr):
             print(f"cv4 consensus calibration: block biases "
                   f"{[round(float(b), 5) for blk in list(consensus.conv)[::2] for b in blk.bias[:2]]}")
             return
+    elif engine.head_type == "detr":
+        # the cross-attention MatchNet reads the 1x1-reduced l34 taps
+        fq_fea, fs_fea = head.compute_feat(part["fq_feats"], part["fs_feats"], True)
+        corr = get_corr(fq_fea, fs_fea)[:, None]
+        consensus = head.cross_trans.NeighConsensus
     else:
         corr = torch.stack([get_corr(q, s) for q, s in zip(
             head.prep_query(part["fq_feats"]), head.prep_query(part["fs_feats"]))], dim=1)
@@ -1038,6 +1061,236 @@ def cv4_phase(cfg, backbone, calib_episodes, episodes, w0, card, modules):
             raise AssertionError(f"cv4 route {route} disagrees with q: {out[route]}")
     if not all(float(r.abs().max()) > 0 for r in ref[1].values()):
         raise AssertionError("cv4: a head tensor has zero gradients")
+    return out
+
+
+@contextlib.contextmanager
+def plain_inner_loop():
+    """The enclosed engines adapt their classifiers with K1's plain version
+    (``adapt_binary_reference``) instead of launching K1."""
+    from few_shot_seg_cwt_tpu_torch.episodic import inner_loop
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_inner_loop
+
+    kernel = inner_loop.adapt_binary
+    inner_loop.adapt_binary = cuda_inner_loop.adapt_binary_reference
+    try:
+        yield
+    finally:
+        inner_loop.adapt_binary = kernel
+
+
+def head_route_run(engine, episodes, w0, e_train, counters, reps):
+    """On the route in effect: eval + serve of ``episodes`` counted (launches,
+    peak GiB, episodes/s of each), the predictions, and one train step of
+    ``e_train`` episodes counted (its gradients, launches, peak GiB and the
+    timed SGD step's episodes/s; the head's weights are put back after)."""
+    cuda_inner_loop, cuda_pivot = counters
+    e = len(episodes["q_img"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_inner_loop.reset_launches()
+    cuda_pivot.reset_launches()
+    metrics = engine.eval_metrics_batch(episodes, w0=w0)
+    masks = engine.serve_batch(episodes, w0=w0)
+    torch.cuda.synchronize()
+    out = dict(metrics=metrics, masks=masks, eval_launches=launch_counts(cuda_inner_loop, cuda_pivot),
+               eval_peak_gib=peak_gib())
+    out["preds"] = engine.predict_batch(episodes, w0=w0)
+    out["serve"] = e / host_seconds(lambda: engine.serve_batch(episodes, w0=w0), reps)
+    out["eval"] = e / host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), reps)
+    sub = {k: v[:e_train] for k, v in episodes.items()}
+    saved = {k: v.clone() for k, v in engine.head.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_inner_loop.reset_launches()
+    cuda_pivot.reset_launches()
+    m = engine.backward_batch(sub, w0=w0[:e_train])
+    torch.cuda.synchronize()
+    out["train_launches"] = launch_counts(cuda_inner_loop, cuda_pivot)
+    out["train_peak_gib"] = peak_gib()
+    out["loss"] = float(m["loss_mean"])
+    out["grads"] = {k: p.grad.clone() for k, p in engine.head.named_parameters()
+                    if p.grad is not None}
+    step = engine.make_train_step(torch.optim.SGD(engine.head.parameters(),
+                                                  lr=engine.cfg.trans_lr))
+    out["train"] = e_train / host_seconds(lambda: step(sub, w0=w0[:e_train]), reps)
+    engine.head.load_state_dict(saved)
+    for k in ("inter", "union", "inter1", "union1", "loss"):
+        if not torch.isfinite(metrics[k].float()).all():
+            raise AssertionError(f"{engine.head_type} eval: non-finite {k}")
+    if tuple(masks.shape) != (e, IMG, IMG) or not set(masks.unique().tolist()) <= {0, 1}:
+        raise AssertionError(f"{engine.head_type} masks {tuple(masks.shape)}")
+    if not np.isfinite(out["loss"]) or not out["grads"]:
+        raise AssertionError(f"{engine.head_type} train step: loss {out['loss']}")
+    return out
+
+
+def route_text(r, e, e_train) -> str:
+    return (f"eval_metrics_batch {r['eval']:.3f} episodes/s, serve_batch {r['serve']:.3f} "
+            f"episodes/s (batch {e}; peak {r['eval_peak_gib']:.2f} GiB; launches "
+            f"{r['eval_launches']}), train step of {e_train} (SGD) {r['train']:.3f} episodes/s "
+            f"(peak {r['train_peak_gib']:.2f} GiB; launches {r['train_launches']})")
+
+
+def worst_grad_rel(grads, ref):
+    """The worst max|g - g_ref| / max|g_ref| over the tensors, and its name."""
+    if sorted(grads) != sorted(ref):
+        raise AssertionError(f"gradient tensors differ: {sorted(grads)} {sorted(ref)}")
+    return max((float((grads[k] - g).abs().max()) / float(g.abs().max()), k)
+               for k, g in ref.items())
+
+
+def chm_phase(card, calib_images, modules):
+    """The CHM head, configs/pascal_match.yaml with ``crm_type chm`` (ResNet-50,
+    ``rmid mid4``, ktype psi, fp32): on each ``FSS_CONV4D_IM2COL`` route
+    (q, the default, then qp, gemm and loop) eval + serve of E_MMN and a
+    train step of 2 (the whole-loss checkpoint on, CHM's default), counted
+    (K1 must launch, no pivot kernel), episodes/s and peak GiB of each;
+    predictions within 1e-4 of the q route's scale and gradients within
+    1e-3 of each tensor's largest entry of the q route's."""
+    (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+     cuda_pivot, build_pspnet) = modules
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal_match.yaml"),
+                              ["crm_type", "chm", "episode_batch", str(E_MMN)])
+    got = (cfg.image_size, cfg.adapt_iter, cfg.layers, cfg.rmid, cfg.ktype, cfg.temp,
+           cfg.att_wt, cfg.dist, cfg.backbone_dim, cfg.shot, cfg.use_amp, cfg.remat_head)
+    if got != (IMG, STEPS, 50, "mid4", "psi", 20.0, 0.2, "cosN", 2048, 1, False, None):
+        raise AssertionError(f"pascal_match.yaml with crm_type chm no longer gives the CHM "
+                             f"path: {got}")
+    backbone = build_pspnet(cfg).to("cuda")
+    calibrate_batchnorm(backbone, calib_images)
+    engine = HeadEngine(cfg, "chm", backbone=backbone, device="cuda")
+    episodes = make_episode_batch(19, E_MMN, size=IMG, shot=SHOT)
+    w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(8))
+    rows = {}
+    for route in CV4_ROUTES:
+        with env_var("FSS_CONV4D_IM2COL", route):
+            r = head_route_run(engine, episodes, w0, 2, (cuda_inner_loop, cuda_pivot), 1)
+        for key in ("eval_launches", "train_launches"):
+            if r[key]["adapt_binary"] < 1 or r[key]["pivot_fwd"] + r[key]["pivot_dw"]:
+                raise AssertionError(f"CHM {route} route {key} {r[key]}: K1 must launch, no "
+                                     "pivot kernel")
+        fg = {k: (r["metrics"][f"inter{k}"][:, 1] / r["metrics"][f"union{k}"][:, 1]
+                  .clamp(min=1)).cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
+        print(f"CHM FSS_CONV4D_IM2COL={route}: {route_text(r, E_MMN, 2)}; per-episode fg IoU "
+              f"of pred, pred1 and the adapted classifier {fg} [{card}; fp32, TF32 off, "
+              f"1-shot, 473 px, adapt_iter {STEPS}]")
+        if route != "q":
+            ref = rows["q"]
+            rel = {k: float((r["preds"][k] - ref["preds"][k]).abs().max()
+                            / ref["preds"][k].abs().max()) for k in ("pred", "pred1")}
+            g_rel = worst_grad_rel(r["grads"], ref["grads"])
+            print(f"CHM {route} vs q route: max|p - p_q| / max|p_q| {rel} (tolerance 1e-4), "
+                  f"worst gradient max|g - g_q| / max|g_q| {g_rel[0]:.3e} ({g_rel[1]}; "
+                  "tolerance 1e-3)")
+            if not (max(rel.values()) <= 1e-4 and g_rel[0] <= 1e-3):
+                raise AssertionError(f"CHM route {route} disagrees with q: {rel} {g_rel}")
+            del r["preds"], r["grads"]
+        rows[route] = r
+    scale = {k: float(g.abs().max()) for k, g in rows["q"]["grads"].items()}
+    if not all(np.isfinite(v) and v > 0 for v in scale.values()):
+        raise AssertionError(f"CHM gradients: zero or non-finite tensor {scale}")
+    device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                   f"CHM eval batch of {E_MMN} (q route), torch.profiler", card,
+                   groups=(("conv (backbone, scale convs, CHM6d/CHM4d)", ("conv", "fprop",
+                                                                       "implicit")),
+                           ("gemm (correlations, interpolation, readout)", ("gemm",)),
+                           ("copies and permutes", ("copy", "permute", "cat")),
+                           ("reductions", ("reduce", "max")),
+                           ("elementwise", ("elementwise", "vectorized"))))
+    state = {"backbone": module_state(engine.backbone), "head": module_state(engine.head)}
+    return dict(cfg=cfg, state=state, episodes=episodes, w0=w0,
+                rows={k: {kk: v for kk, v in r.items() if kk not in ("preds", "grads",
+                                                                    "metrics", "masks")}
+                      for k, r in rows.items()})
+
+
+DETR_ROUTES = ("rank-4", "flat")
+
+
+def detr_phase(card, calib_images, calib_episodes, modules):
+    """The DeTr head, configs/pascal_trans.yaml as shipped (ResNet-50, l34
+    taps reduced to 512, cross-attention only, fp32), then with ``sf_att
+    True`` (the deformable self-attention on top): on the rank-4 and flat
+    routes eval + serve of E_MMN and a train step of 2, counted (K1 on both,
+    pivot_fwd and pivot_dw on the flat route only), episodes/s and peak
+    GiB; the flat route's argmax of pred and pred1 >= 99.5% equal to
+    rank-4's and its fp32 head gradients within 1e-3 of each tensor's
+    largest entry; the kernel path's masks (flat route, K1) >= 99.5% equal
+    to the plain path's (rank-4 cuDNN consensus, K1's plain version)."""
+    (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+     cuda_pivot, get_corr, build_pspnet) = modules
+    base = merge_cfg_from_list(load_cfg("configs/pascal_trans.yaml"),
+                               ["episode_batch", str(E_MMN)])
+    got = (base.image_size, base.adapt_iter, base.layers, base.rmid, base.temp, base.att_wt,
+           base.sf_att, base.cr_att, base.drop, base.reduce_dim, base.cls_lr, base.trans_lr,
+           base.shot, base.use_amp)
+    if got != (IMG, STEPS, 50, "l34", 20.0, 0.2, False, True, False, 512, CLS_LR, 0.0015, 1,
+               False):
+        raise AssertionError(f"configs/pascal_trans.yaml no longer gives the DeTr path: {got}")
+    backbone = build_pspnet(base).to("cuda")
+    calibrate_batchnorm(backbone, calib_images)
+    episodes = make_episode_batch(21, E_MMN, size=IMG, shot=SHOT)
+    out = {}
+    for label, extra in (("shipped", []), ("sf_att", ["sf_att", "True"])):
+        cfg = merge_cfg_from_list(base.clone(), extra)
+        engine = HeadEngine(cfg, "detr", backbone=backbone, device="cuda")
+        with consensus_route("flat"):
+            calibrate_consensus(engine, calib_episodes, get_corr)
+        w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(10))
+        rows = {}
+        for name in DETR_ROUTES:
+            with consensus_route(name):
+                r = head_route_run(engine, episodes, w0, 2, (cuda_inner_loop, cuda_pivot), 1)
+            flat = name == "flat"
+            ev, tr = r["eval_launches"], r["train_launches"]
+            if ev["adapt_binary"] < 1 or tr["adapt_binary"] < 1 \
+                    or (ev["pivot_fwd"] > 0) != flat \
+                    or (min(tr["pivot_fwd"], tr["pivot_dw"]) > 0) != flat \
+                    or (not flat and tr["pivot_fwd"] + tr["pivot_dw"]):
+                raise AssertionError(f"DeTr ({label}) {name} route launches {ev} {tr}: K1 "
+                                     "must launch, the pivot kernels on the flat route only")
+            print(f"DeTr ({label}) {name} route: {route_text(r, E_MMN, 2)} [{card}; fp32, "
+                  f"TF32 off, 1-shot, 473 px, adapt_iter {STEPS}]")
+            rows[name] = r
+        flat, r4 = rows["flat"], rows["rank-4"]
+        agree = {k: float((flat["preds"][k].argmax(-1) == r4["preds"][k].argmax(-1))
+                          .float().mean()) for k in ("pred", "pred1")}
+        g_rel = worst_grad_rel(flat["grads"], r4["grads"])
+        if not all(float(g.abs().max()) > 0 for g in r4["grads"].values()):
+            raise AssertionError(f"DeTr ({label}): a head tensor has zero gradients")
+        with consensus_route("rank-4"), plain_inner_loop():
+            cuda_inner_loop.reset_launches()
+            plain_masks = engine.serve_batch(episodes, w0=w0)
+            torch.cuda.synchronize()
+            if cuda_inner_loop.LAUNCHES["adapt_binary"]:
+                raise AssertionError("the plain path launched K1")
+        plain_agree = float((flat["masks"] == plain_masks).float().mean())
+        print(f"DeTr ({label}) flat vs rank-4 route: argmax agreement {agree} (>= 0.995 "
+              f"needed); worst gradient max|g - g_r4| / max|g_r4| {g_rel[0]:.3e} ({g_rel[1]}; "
+              f"tolerance 1e-3); kernel-path masks (flat, K1) equal to the plain path's "
+              f"(rank-4, K1's plain version) on {plain_agree:.6f} of pixels (>= 0.995 needed)")
+        if min(agree.values()) < 0.995 or g_rel[0] > 1e-3 or plain_agree < 0.995:
+            raise AssertionError(f"DeTr ({label}): flat vs rank-4 {agree} {g_rel}, kernel vs "
+                                 f"plain path {plain_agree}")
+        if label == "shipped":
+            with consensus_route("flat"):
+                device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                               f"DeTr eval batch of {E_MMN} (flat route), torch.profiler",
+                               card, groups=(("conv (backbone, adjust)", ("conv", "fprop")),
+                                             ("gemm (correlation, readout)", ("gemm",)),
+                                             ("copies and permutes", ("copy", "permute")),
+                                             ("reductions", ("reduce", "max")),
+                                             ("elementwise", ("elementwise", "vectorized"))))
+            state = {"backbone": module_state(engine.backbone),
+                     "head": module_state(engine.head)}
+            out["serve"] = dict(cfg=cfg, state=state, episodes=episodes, w0=w0)
+        out[label] = {name: {k: v for k, v in r.items()
+                             if k not in ("preds", "grads", "metrics", "masks")}
+                      for name, r in rows.items()}
+        out[label]["plain_agree"] = plain_agree
+        del engine, rows, flat, r4
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1897,12 +2150,15 @@ def real_data_phase(card, modules):
             raise AssertionError(f"real-data MMN training: {mmn_launches}, {best}")
         match_launches = train_match_entry(root, load_cfg, merge_cfg_from_list,
                                            cuda_inner_loop, cuda_pivot)
+        heads = chm_detr_entries(root, load_cfg, merge_cfg_from_list, cuda_inner_loop,
+                                 cuda_pivot)
         tools_on_tree(root, load_cfg, merge_cfg_from_list)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"eval_launches": launches, "train_cwt_launches": cwt_launches,
             "train_head_launches": mmn_launches, "train_match_launches": match_launches,
-            "feed": feed}
+            "train_match_chm_launches": heads["train_match_chm"],
+            "train_trans_launches": heads["train_trans"], "feed": feed}
 
 
 def train_match_entry(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot):
@@ -1947,6 +2203,48 @@ def train_match_entry(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda
         raise AssertionError(f"real-data match training: {launches}, {resume_line}, "
                              f"{epoch_line}, {best2}")
     return launches
+
+
+def chm_detr_entries(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot):
+    """``train_match.main`` with ``crm_type chm`` (configs/pascal_match.yaml)
+    and ``train_trans.main`` (configs/pascal_trans.yaml as shipped, flat
+    route) on the PNG tree at ``root``: one epoch of 2 steps of 2 and its
+    validation each, counted (K1 in both; pivot_fwd and pivot_dw in
+    train_trans). Runs in ``root`` (their ``results/`` go with the tree)."""
+    from few_shot_seg_cwt_tpu_torch.train import train_head, train_match, train_trans
+
+    root = os.path.abspath(root)
+    data = ["data_root", root, "train_list", os.path.join(root, "train.txt"),
+            "val_list", os.path.join(root, "val.txt"), "workers", "4", "epochs", "1",
+            "iter_per_epoch", "4", "episode_batch", "2", "test_num", "4", "save_models",
+            "False"]
+    out = {}
+    for name, path, extra, entry, head, flat in (
+            ("train_match_chm", "configs/pascal_match.yaml", ["crm_type", "chm"], train_match,
+             "chm", False),
+            ("train_trans", "configs/pascal_trans.yaml", [], train_trans, "detr", True)):
+        cfg = merge_cfg_from_list(load_cfg(path), data + extra)
+        cfg.scan_cache = os.path.join(root, ".scan_cache")
+        lines = []
+        cuda_inner_loop.reset_launches()
+        cuda_pivot.reset_launches()
+        with contextlib.chdir(root), pivot_route(flat):
+            t0 = time.perf_counter()
+            best = entry.main(cfg, device="cuda", log=lines.append)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log = log_txt_val(train_head.results_dir(cfg, head), "val: mIoU")
+        launches = launch_counts(cuda_inner_loop, cuda_pivot)
+        val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
+        print(f"real data: {name}.main ({path}{' ' + ' '.join(extra) if extra else ''}, "
+              f"{'FSS_PIVOT_MXU=1, ' if flat else ''}2 steps of 2, test_num 4): {val_line}; "
+              f"best {best:.4f}; {wall:.1f} s wall; launches {launches}; log.txt {log}")
+        need = ("adapt_binary", "pivot_fwd", "pivot_dw") if flat else ("adapt_binary",)
+        if min(launches[k] for k in need) < 1 or not np.isfinite(best) \
+                or (not flat and launches["pivot_fwd"] + launches["pivot_dw"]):
+            raise AssertionError(f"real-data {name}: launches {launches}, best {best}")
+        out[name] = launches
+    return out
 
 
 # ---- stage-1 pretraining, VGG and the bench ----
@@ -2226,12 +2524,15 @@ def serve_artifact(name, engine, export, episodes, w0, work, card, flat=False):
             "episodes_per_s": loaded["episodes_per_s"], "eager_episodes_per_s": e / eager_s}
 
 
-def tools_phase(card, cwt_state, episodes, w0, mmn, modules):
+def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
     """(a) the CWT serve artifact at batch 8 on the calibrated weights of
     phase 4, (b) the MMN one on configs/pascal_mmn.yaml as shipped on the
-    flat route at batch 4 (weights of phase 6), each loaded in a fresh
-    process; (c) ``validate_transformer`` with ``profile_dir`` (1 run x 16
-    episodes): the trace names K1's kernel."""
+    flat route at batch 4 (weights of phase 6), (b2) the CHM one
+    (pascal_match.yaml with crm_type chm, q route) and the DeTr one
+    (pascal_trans.yaml as shipped, flat route) at batch 4 on the weights of
+    phase 6e, each loaded in a fresh process; (c) ``validate_transformer``
+    with ``profile_dir`` (1 run x 16 episodes): the trace names K1's
+    kernel."""
     load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine = modules
     from few_shot_seg_cwt_tpu_torch.eval.validate import validate_transformer
     from few_shot_seg_cwt_tpu_torch.tools import export_serve
@@ -2262,6 +2563,24 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, modules):
             raise AssertionError(f"the loaded MMN artifact launched {mmn_art['launches']}")
         del mmn_engine
 
+        head_arts = {}
+        for head, flat in (("chm", False), ("detr", True)):
+            h = heads[head]
+            with pivot_route(flat):
+                h_engine = HeadEngine(h["cfg"], head, device="cuda")
+            h_engine.backbone.load_state_dict(h["state"]["backbone"])
+            h_engine.head.load_state_dict(h["state"]["head"])
+            head_arts[head] = serve_artifact(
+                head.upper() if head == "chm" else "DeTr", h_engine,
+                lambda eng, e, c=h["cfg"], ht=head: export_serve.build_head_serve_export(
+                    c, ht, eng, e), h["episodes"], h["w0"], work, card, flat=flat)
+            need = ("adapt_binary", "pivot_fwd") if flat else ("adapt_binary",)
+            got = head_arts[head]["launches"]
+            if min(got.get(k, 0) for k in need) < 1 or (not flat and got.get("pivot_fwd")):
+                raise AssertionError(f"the loaded {head} artifact launched {got}")
+            del h_engine
+            torch.cuda.empty_cache()
+
         # ---- the profiler trace of validate_transformer ----
         pcfg = merge_cfg_from_list(cfg.clone(), [
             "synthetic_data", "True", "test_num", "16", "n_runs", "1",
@@ -2283,7 +2602,8 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, modules):
             raise AssertionError("the profile_dir trace does not name K1's kernel")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"cwt": cwt, "mmn": mmn_art, "trace_k1": len(k1)}
+    return {"cwt": cwt, "mmn": mmn_art, "chm": head_arts["chm"], "detr": head_arts["detr"],
+            "trace_k1": len(k1)}
 
 
 def tools_on_tree(root, load_cfg, merge_cfg_from_list):
@@ -2514,6 +2834,15 @@ def main() -> int:
         return 1
     from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
 
+    t_start = t_lap = time.perf_counter()
+
+    def lap(label: str) -> None:
+        """Print the seconds since the previous lap: where the run's time goes."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"phase {label}: {now - t_lap:.1f} s")
+        t_lap = now
+
     fp32_parity()
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
@@ -2625,6 +2954,8 @@ def main() -> int:
     # ---- 3b. pivot kernels at the MMN path's shapes ----
     pivot = pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card)
 
+    lap("2-3 (build, kernels)")
+
     # ---- 4. main path at full width ----
     cfg = load_cfg("configs/pascal.yaml")
     cfg = merge_cfg_from_list(cfg, ["cls_lr", str(CLS_LR), "episode_batch", str(E)])
@@ -2704,6 +3035,8 @@ def main() -> int:
     bf16_serve_phase(engine, episodes, w0, masks, card,
                                  (EpisodicEngine, cuda_inner_loop, cuda_ms))
 
+    lap("4 (CWT main path, bf16)")
+
     # ---- 5. the evaluation entry point ----
     tcfg = load_cfg("configs/pascal.yaml")
     tcfg = merge_cfg_from_list(tcfg, ["synthetic_data", "True", "test_num", "16",
@@ -2715,6 +3048,8 @@ def main() -> int:
           "synthetic episodes)")
     if not np.isfinite(miou):
         raise AssertionError("entry point returned a non-finite mIoU")
+
+    lap("5 (train.test.main)")
 
     # ---- 6. MMN head: eval, serve and training at full width ----
     mmn_engine, mmn_eval_launches, mmn_train_launches = mmn_phase(
@@ -2737,11 +3072,31 @@ def main() -> int:
     del mmn_engine
     torch.cuda.empty_cache()
 
+    lap("6-6c (MMN)")
+
     # ---- 6d. the match head: three routes, the pivot pair at 1 -> 10, cv4 ----
     match = match_phase(card, calib_images, calib, cuda_ms, (
         load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
         cuda_pivot, get_corr, build_pspnet, CenterPivotConv4d))
     torch.cuda.empty_cache()
+
+    lap("6d (match)")
+
+    # ---- 6e. the CHM head on the true 4D conv's four routes ----
+    chm = chm_phase(card, calib_images, (
+        load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+        cuda_pivot, build_pspnet))
+    torch.cuda.empty_cache()
+
+    lap("6e (CHM)")
+
+    # ---- 6f. the DeTr head, as shipped and with sf_att, on two routes ----
+    detr = detr_phase(card, calib_images, calib, (
+        load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+        cuda_pivot, get_corr, build_pspnet))
+    torch.cuda.empty_cache()
+
+    lap("6f (DeTr)")
 
     # ---- 7. the head trainer's entry point (flat route) ----
     hcfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"), [
@@ -2775,6 +3130,8 @@ def main() -> int:
     if not np.isfinite(best):
         raise AssertionError("the k-shot trainer returned a non-finite mIoU")
 
+    lap("7 (head trainers)")
+
     # ---- 8. CWT meta-train step at full width (calibrated engine of phase 4) ----
     train_counts, _ = cwt_train_phase(engine, episodes, w0, card, (
         cuda_inner_loop, binary_pixel_weights, build_optimizer))
@@ -2786,12 +3143,18 @@ def main() -> int:
     # ---- 8c. the fp32-vs-bf16 A/B tool ----
     ab_dtype_phase(engine, card)
 
+    lap("8-8c (CWT step, shot 5, A/B)")
+
     # ---- 9. the CWT trainer's entry point ----
     train_cwt_entry_phase(load_cfg, merge_cfg_from_list, train_cwt, test_entry,
                           trans_ckpt_dir)
 
+    lap("9 (train_cwt)")
+
     # ---- 10. real data: a PNG tree (cv2 and PIL blocked for pascal.yaml), the tools ----
     real = real_data_phase(card, (load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot))
+
+    lap("10 (real data)")
 
     # ---- 11. stage-1 pretraining, VGG and the bench ----
     cwt_state = {"backbone": module_state(engine.backbone), "cwt": module_state(engine.cwt)}
@@ -2807,14 +3170,21 @@ def main() -> int:
     bench_phase(card)
     torch.cuda.empty_cache()
 
+    lap("11 (stage 1, VGG, bench)")
+
     # ---- 12. the tools: serve artifacts, the profiler trace ----
-    tools = tools_phase(card, cwt_state, episodes, w0, mmn_serve, (
-        load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine))
+    tools = tools_phase(card, cwt_state, episodes, w0, mmn_serve,
+                        {"chm": chm, "detr": detr["serve"]}, (
+                            load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine))
+    del chm["state"], detr["serve"]
+
+    lap("12 (artifacts)")
 
     # ---- 13. scale-out: the dryrun's steps over processes, torchrun of two trainers ----
     torch.cuda.empty_cache()
     scale, scale_out = scale_out_phase(card, cwt_state, mmn_serve[1])
     torchrun_trainers_phase(card)
+    lap("13 (scale-out)")
 
     main_block = pivot[(10, 10)]  # the heaviest consensus block stands for each kernel
     kernels = [{
@@ -2833,6 +3203,15 @@ def main() -> int:
         "real_data": {"launches": real["eval_launches"]["adapt_binary"]},
         "match": {"launches": match["eval_launches"]["adapt_binary"],
                   "train_match_launches": real["train_match_launches"]["adapt_binary"]},
+        "chm": {"launches": chm["rows"]["q"]["eval_launches"]["adapt_binary"],
+                "train_launches": chm["rows"]["q"]["train_launches"]["adapt_binary"],
+                "train_match_chm_launches":
+                    real["train_match_chm_launches"]["adapt_binary"],
+                "loaded_artifact_launches": tools["chm"]["launches"].get("adapt_binary", 0)},
+        "detr": {"launches": detr["shipped"]["flat"]["eval_launches"]["adapt_binary"],
+                 "sf_att_launches": detr["sf_att"]["flat"]["eval_launches"]["adapt_binary"],
+                 "train_trans_launches": real["train_trans_launches"]["adapt_binary"],
+                 "loaded_artifact_launches": tools["detr"]["launches"].get("adapt_binary", 0)},
         "pretrain_episodic_val": {"launches": pre["episodic"]["launches"]},
         "loaded_artifacts": {"cwt_launches": tools["cwt"]["launches"].get("adapt_binary", 0),
                              "mmn_launches": tools["mmn"]["launches"].get("adapt_binary", 0),
@@ -2868,6 +3247,11 @@ def main() -> int:
         "launches": mmn_eval_launches["pivot_fwd"],
         "real_data": {"launches": real["train_head_launches"]["pivot_fwd"]},
         "loaded_artifacts": {"mmn_launches": tools["mmn"]["launches"].get("pivot_fwd", 0)},
+        "detr": {"launches": detr["shipped"]["flat"]["eval_launches"]["pivot_fwd"],
+                 "train_launches": detr["shipped"]["flat"]["train_launches"]["pivot_fwd"],
+                 "sf_att_launches": detr["sf_att"]["flat"]["eval_launches"]["pivot_fwd"],
+                 "train_trans_launches": real["train_trans_launches"]["pivot_fwd"],
+                 "loaded_artifact_launches": tools["detr"]["launches"].get("pivot_fwd", 0)},
         "match_1_to_10": {"launches": match["eval_launches"]["pivot_fwd"],
                           "max_abs_err": match["ci1"]["fwd_err"], "ms": match["ci1"]["fwd_ms"],
                           "plain_ms": match["ci1"]["fwd_plain_ms"],
@@ -2889,6 +3273,9 @@ def main() -> int:
         "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:165",
         "launches": mmn_train_launches["pivot_dw"],
         "real_data": {"launches": real["train_head_launches"]["pivot_dw"]},
+        "detr": {"launches": detr["shipped"]["flat"]["train_launches"]["pivot_dw"],
+                 "sf_att_launches": detr["sf_att"]["flat"]["train_launches"]["pivot_dw"],
+                 "train_trans_launches": real["train_trans_launches"]["pivot_dw"]},
         "match_1_to_10": {"launches": match["train_launches"]["pivot_dw"],
                           "max_abs_err": match["ci1"]["dw_err"], "ms": match["ci1"]["dw_ms"],
                           "plain_ms": match["ci1"]["dw_plain_ms"],
@@ -2903,6 +3290,7 @@ def main() -> int:
         "dispatch": main_block["dw_t"],
         "scale_out": scale_out["pivot_dw"],
     }]
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,17 @@
-"""Episodic engine for the extension heads: MMN and the match head.
+"""Episodic engine for the extension heads: MMN, the match head, CHM and DeTr.
 
 Counterpart of ``few_shot_seg_cwt_tpu.episodic.heads.HeadEngine`` for
-``head_type "mmn"`` (reference: src/train_kshot.py:128-190) and ``"match"``
-(MatchNet, src/train_match.py:123-190 and :318-322):
+``head_type "mmn"`` (reference: src/train_kshot.py:128-190), ``"match"``
+(MatchNet, src/train_match.py:123-190 and :318-322), ``"chm"`` (the
+convolutional Hough matcher, ``crm_type chm`` of src/train_match.py) and
+``"detr"`` (src/train_trans.py:118-175):
 
   frozen backbone features with block-level taps (one pass over the batch)
   -> inner-loop adaptation of the episodic classifier (CUDA kernel K1)
   -> the head's refinement of the query feature (consensus on the pivot
      kernels on the flat route, cuDNN plane convs on the rank-4 route,
-     6D plane convs or the true 4D conv on the 6D route)
+     6D plane convs or the true 4D conv on the 6D route; CHM's 6D and 4D
+     Hough convs on the true 4D conv's routes)
   -> classifier predictions upsampled to the image size
   -> the head's query loss on the head's parameters only.
 
@@ -21,15 +24,19 @@ batched call in eval and serve when the tile divides the batch (its
 (``_mmn_att_shots``) and the readouts are averaged over the valid shots;
 shots padded with all-255 labels take no part; with ``meta_aug > 1`` and
 ``att_type`` 0, 1 or 3 the head reads one view of each [original,
-augmented] support pair (``_select_support_stream``). Match: 1-shot only;
-the cycle-consistency mask and the ``ignore`` re-readout run at eval only,
-as in the reference. Under ``use_amp`` (or another bf16 stage policy) the
-backbone runs bf16 and its features come back to fp32; the train step
-under ``use_amp`` also runs the head in bf16 (``_amp_head``), while eval
-and serve keep the head in fp32, as the JAX package does. Classifier inits
-come from a ``torch.Generator`` or are injected (``w0=``, (E, K, C)).
-Episodes are the NHWC dicts of ``episodic.engine``. Not ported: the other
-heads (ROADMAP queue 1 items 8-10).
+augmented] support pair (``_select_support_stream``). Match, CHM and DeTr:
+1-shot only; the match head's cycle-consistency mask and ``ignore``
+re-readout run at eval only, as in the reference. CHM reads the match
+head's tap, halved, and its readout has the tap's side again. DeTr reads
+the last block of every ``rmid`` stage. ``remat_head`` puts each episode's
+whole loss under ``torch.utils.checkpoint`` in the train step (None: for
+CHM only, ``head_remat_default``). Under ``use_amp`` (or another bf16 stage
+policy) the backbone runs bf16 and its features come back to fp32; the
+train step under ``use_amp`` also runs the head in bf16 (``_amp_head``),
+while eval and serve keep the head in fp32, as the JAX package does.
+Classifier inits come from a ``torch.Generator`` or are injected (``w0=``,
+(E, K, C)). Episodes are the NHWC dicts of ``episodic.engine``. Not ported:
+the other heads (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..models.chm import CHMLearner
 from ..models.conv4d import init_conv_parameters
+from ..models.detr import build_detr, detr_stages
 from ..models.matching import MatchNet, block_remat_default
 from ..models.mmn import FEATURE_CHANNELS, build_mmn
 from ..models.pspnet import apply_classifier, build_pspnet, cast_backbone, stage_dtype_policy
@@ -56,7 +65,17 @@ from .inner_loop import adapt_classifier_batch
 
 HEAD_TYPES = ("mmn", "detr", "match", "chm", "att", "asy", "fuse")
 # ROADMAP queue 1 item of each head that is not ported yet
-_UNPORTED = {"chm": 8, "detr": 9, "att": 10, "asy": 10, "fuse": 10}
+_UNPORTED = {"att": 10, "asy": 10, "fuse": 10}
+
+
+def head_remat_default(cfg, head_type: str) -> bool:
+    """Whole-loss recompute in the train step: cfg ``remat_head`` wins; None
+    means CHM only (the JAX policy: its 4D and 6D convolutions have no
+    block-level recompute, the consensus heads need none)."""
+    want = cfg.get("remat_head", None)
+    if want is not None:
+        return bool(want)
+    return head_type == "chm"
 
 
 def match_stage(cfg):
@@ -78,6 +97,11 @@ def stage_channels(cfg, stage) -> int:
     return FEATURE_CHANNELS[stage - 1]
 
 
+def _seeded(cfg, generator: Optional[torch.Generator]) -> torch.Generator:
+    return generator if generator is not None else torch.Generator().manual_seed(
+        int(cfg.get("manual_seed") or 0) + 1)
+
+
 def build_match(cfg, generator: Optional[torch.Generator] = None) -> MatchNet:
     """MatchNet with the JAX ``build_head("match")`` arguments (one
     correlation channel, symmetric consensus) and a seeded init
@@ -88,10 +112,17 @@ def build_match(cfg, generator: Optional[torch.Generator] = None) -> MatchNet:
                      cyc=bool(cfg.get("cyc", False)), sym_mode=True, in_channel=1,
                      block_remat=block_remat_default(cfg, cv),
                      feat_dim=stage_channels(cfg, match_stage(cfg)))
-    if generator is None:
-        generator = torch.Generator().manual_seed(int(cfg.get("manual_seed") or 0) + 1)
-    init_conv_parameters(model, generator)
+    init_conv_parameters(model, _seeded(cfg, generator))
     return model
+
+
+def build_chm(cfg, generator: Optional[torch.Generator] = None) -> CHMLearner:
+    """CHMLearner with the JAX ``build_head("chm")`` arguments (``ktype``,
+    ``temp``, ``backbone_dim`` // 4 scale-conv outputs) over the match
+    head's tap, with the JAX initialisers drawn from ``generator``."""
+    return CHMLearner(ktype=cfg.get("ktype", "psi"), feat_dim=int(cfg.backbone_dim),
+                      temp=cfg.temp, in_dim=stage_channels(cfg, match_stage(cfg)),
+                      generator=_seeded(cfg, generator))
 
 
 def build_head(cfg, head_type: str):
@@ -99,6 +130,11 @@ def build_head(cfg, head_type: str):
         return build_mmn(cfg)
     if head_type == "match":
         return build_match(cfg)
+    if head_type == "chm":
+        return build_chm(cfg)
+    if head_type == "detr":
+        return build_detr(cfg, in_dim=sum(stage_channels(cfg, s)
+                                          for s in detr_stages(cfg.rmid)))
     if head_type in _UNPORTED:
         raise NotImplementedError(f"head {head_type!r} is not ported (ROADMAP "
                                   f"queue 1 item {_UNPORTED[head_type]})")
@@ -146,8 +182,10 @@ class HeadEngine:
 
     def _stages(self):
         """The backbone taps the head reads."""
-        if self.head_type == "match":
+        if self.head_type in ("match", "chm"):
             return [match_stage(self.cfg)]
+        if self.head_type == "detr":
+            return detr_stages(self.cfg.rmid)
         return list(self.head.bids)
 
     @torch.no_grad()
@@ -344,20 +382,86 @@ class HeadEngine:
                                             episode["q_label"])
         return loss, {"pred1": pred1, "pred": pred}
 
+    # ------------------------------------------------------------------ #
+    # the CHM head
+    # ------------------------------------------------------------------ #
+
+    def _chm_apply(self, parts: Dict) -> torch.Tensor:
+        """CHMLearner on the match head's tap of a batch of 1-shot episodes,
+        both taps halved first (h // 2 a side): readout (B, h, w, C)."""
+        key = match_stage(self.cfg)
+        fq_fea, fs_fea = parts["fq_feats"][key][-1], parts["fs_feats"][key][-1]
+        if fq_fea.shape[1] % 2 or fq_fea.shape[1] != fq_fea.shape[2]:
+            # the readout's side is twice the halved side: it must be the tap's
+            raise ValueError(f"CHM needs a square tap of even side, got "
+                             f"{tuple(fq_fea.shape[1:3])} (image_size 41 gives 6, 473 gives 60)")
+        half = (fq_fea.shape[1] // 2,) * 2
+        return self.head(upsample_bilinear_ac(fq_fea, half), upsample_bilinear_ac(fs_fea, half),
+                         parts["f_s"])
+
+    def _loss_chm(self, parts: Dict, episode: Dict,
+                  head_out: Optional[torch.Tensor] = None):
+        """One episode: class-balanced CE on pred1, the readout alone; pred
+        blends it into the query feature (JAX ``_loss_chm``)."""
+        cfg = self.cfg
+        qw = class_balance_weights(episode["q_label"], self.num_classes)
+        wv = head_out if head_out is not None else self._chm_apply(parts)
+        pred1 = self._cls_up(parts["w"], wv)[0]
+        pred = self._cls_up(parts["w"], (wv * cfg.att_wt + parts["f_q"]) / (1 + cfg.att_wt))[0]
+        return weighted_cross_entropy(pred1, episode["q_label"], qw), {"pred1": pred1,
+                                                                       "pred": pred}
+
+    # ------------------------------------------------------------------ #
+    # the DeTr head
+    # ------------------------------------------------------------------ #
+
+    def _detr_apply(self, parts: Dict, det: bool):
+        """DeTr on a batch of 1-shot episodes: (blended f_q, self-attention
+        readout or None, cross-attention readout or None), (B, h, w, C)."""
+        return self.head(parts["fq_feats"], parts["fs_feats"], parts["f_q"], parts["f_s"],
+                         deterministic=det)
+
+    def _loss_detr(self, parts: Dict, episode: Dict, det: bool = False, head_out=None):
+        """One episode: class-balanced CE on pred1, the classifier on the
+        self-attention readout under ``sf_att``, else on the cross-attention
+        one; ``aux`` adds its multiple of the blended prediction's CE (JAX
+        ``_loss_detr``)."""
+        cfg = self.cfg
+        qw = class_balance_weights(episode["q_label"], self.num_classes)
+        crit = lambda lg: weighted_cross_entropy(lg, episode["q_label"], qw)  # noqa: E731
+        fq_out, sa_fq, ca_fq = head_out if head_out is not None else self._detr_apply(parts, det)
+        att_fq = sa_fq if cfg.get("sf_att", False) else ca_fq
+        pred1 = self._cls_up(parts["w"], att_fq)[0]
+        pred = self._cls_up(parts["w"], fq_out)[0]
+        loss = crit(pred1)
+        aux = cfg.get("aux", False)
+        if aux:
+            loss = loss + aux * crit(pred)
+        return loss, {"pred1": pred1, "pred": pred}
+
     def _loss(self, parts: Dict, episode: Dict, det: bool = False, head_out=None,
               train: bool = False):
         if self.head_type == "match":
             return self._loss_match(parts, episode, det, head_out, train)
+        if self.head_type == "chm":
+            return self._loss_chm(parts, episode, head_out)
+        if self.head_type == "detr":
+            return self._loss_detr(parts, episode, det, head_out)
         return self._loss_mmn(parts, episode, det, head_out)
 
     def _head_chunk(self, pieces) -> list:
         """The head's output for several episodes in one batched
         deterministic call: ``pieces`` are (part, episode) pairs of
         ``_one``; returns each episode's ``head_out`` for ``_loss``."""
-        if self.head_type == "match":
+        if self.head_type in ("match", "chm", "detr"):
             cat = _cat_parts([p for p, _ in pieces])
-            wv, corr = self._match_apply(cat, True)
-            return [(wv[i:i + 1], corr[i:i + 1]) for i in range(len(pieces))]
+            if self.head_type == "chm":
+                wv = self._chm_apply(cat)
+                return [wv[i:i + 1] for i in range(len(pieces))]
+            out = (self._match_apply(cat, True) if self.head_type == "match"
+                   else self._detr_apply(cat, True))
+            return [tuple(None if t is None else t[i:i + 1] for t in out)
+                    for i in range(len(pieces))]
         sel = [self._select_support_stream(p, ep) for p, ep in pieces]
         shot = sel[0]["f_s"].shape[0]
         cat = _cat_parts(sel)
@@ -409,11 +513,20 @@ class HeadEngine:
 
         Under ``use_amp`` the parts go to bf16 at the loss boundary (call it
         inside ``_amp_head``); predictions are upsampled in fp32 (``_up``),
-        so the loss and the metrics keep full precision."""
+        so the loss and the metrics keep full precision. Under
+        ``head_remat_default`` the loss is checkpointed whole: only its
+        inputs stay live, and the backward recomputes it."""
         loss_parts = parts
         if self.cfg.get("use_amp", False):
             loss_parts = _cast_floats(parts, torch.bfloat16)
-        loss, preds = self._loss(loss_parts, episode, det=deterministic, train=True)
+        if head_remat_default(self.cfg, self.head_type) and torch.is_grad_enabled():
+            # the leading tensor tells the checkpoint which device's RNG
+            # state to replay (it does not look inside the dicts)
+            loss, preds = checkpoint(
+                lambda _anchor, p, ep: self._loss(p, ep, det=deterministic, train=True),
+                loss_parts["f_q"], loss_parts, episode, use_reentrant=False)
+        else:
+            loss, preds = self._loss(loss_parts, episode, det=deterministic, train=True)
         loss = loss.float()
         metrics = {"loss": loss.detach()}
         with torch.no_grad():

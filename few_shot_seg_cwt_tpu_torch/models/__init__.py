@@ -16,6 +16,9 @@ from .conv4d import CenterPivotConv4d, Conv4d, conv4d
 from .matching import MatchNet, NeighConsensus, SpatialContextEncoder
 from .msm import MSBlock, WeightAverage
 from .mmn import MMN, build_mmn
+from .chm import CHM4d, CHM6d, CHMLearner
+from .deform import DeformAtt, MSDeformAttn, grid_sample_bilinear, sine_positional_encoding
+from .detr import DeTr, build_detr
 
 __all__ = [
     "RESNET_DEPTHS",
@@ -44,4 +47,13 @@ __all__ = [
     "WeightAverage",
     "MMN",
     "build_mmn",
+    "CHM4d",
+    "CHM6d",
+    "CHMLearner",
+    "DeformAtt",
+    "MSDeformAttn",
+    "grid_sample_bilinear",
+    "sine_positional_encoding",
+    "DeTr",
+    "build_detr",
 ]

@@ -33,9 +33,10 @@ src/model/conv4d.py). Two flavours:
   ``loop``/``0`` (shifted ``F.conv3d`` over the first query axis). The JAX
   package computes these outside any Pallas kernel; here they are cuDNN
   and cuBLAS calls, differentiated by autograd (the JAX custom VJP exists
-  only to bound XLA:TPU's compile time). The weight is stored in the
-  reference's pre-permuted layout (k0, O, I, k1, k2, k3), so a reference
-  ``.pth`` loads with ``load_state_dict``.
+  only to bound XLA:TPU's compile time), save ``qp``'s weight gradient,
+  taken one tap row at a time (``_FoldedTapConv``) for its precision. The
+  weight is stored in the reference's pre-permuted layout (k0, O, I, k1,
+  k2, k3), so a reference ``.pth`` loads with ``load_state_dict``.
 
 On every route the volume meets the weights by the JAX ``_promote`` rule:
 bf16 weights (the head under ``use_amp``) cast the volume down and the
@@ -239,6 +240,36 @@ def _pad_query(xc: torch.Tensor, p0: int, p1: int) -> torch.Tensor:
     return F.pad(xc, (0, 0) * (xc.ndim - 3) + (p1, p1, p0, p0))
 
 
+class _FoldedTapConv(torch.autograd.Function):
+    """The ``qp`` route's support-plane conv2d over all k0*k1 folded query
+    taps: one ``F.conv2d`` forward; in the backward the input gradient in
+    one call, the weight gradient ``rows`` channel slices at a time (k1*Ci
+    channels each, the ``q`` route's convs). Over all 225 channels of
+    CHM's (5, 5, 5, 5, 9, 9) kernel at once, cuDNN picks a Winograd weight
+    gradient whose fp32 result lay 2e-2 of its scale from an fp64 run on
+    the H100 (the slices: 1e-6)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, padding, rows):
+        ctx.save_for_backward(x, weight)
+        ctx.padding, ctx.rows = padding, rows
+        return F.conv2d(x, weight, padding=padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, weight, gy, padding=ctx.padding)
+        if ctx.needs_input_grad[1]:
+            step = x.shape[1] // ctx.rows
+            shape = (weight.shape[0], step) + tuple(weight.shape[2:])
+            gw = torch.cat([torch.nn.grad.conv2d_weight(x[:, i:i + step], shape, gy,
+                                                        padding=ctx.padding)
+                            for i in range(0, x.shape[1], step)], dim=1)
+        return gx, gw, None, None
+
+
 def _conv4d_im2col(x: torch.Tensor, kernel: torch.Tensor, fold_all: bool) -> torch.Tensor:
     """Query-plane taps folded into the channels of a support-plane conv2d:
     all k0*k1 taps in one conv (``qp``) or the k1 taps of each of k0 convs
@@ -252,8 +283,11 @@ def _conv4d_im2col(x: torch.Tensor, kernel: torch.Tensor, fold_all: bool) -> tor
     def splane_conv(taps, kf):
         # taps (B, h, w, n*Ci, hs, ws) in [tap slowest, ci fastest] order;
         # kf (k2, k3, n*Ci, Co)
-        o = F.conv2d(taps.reshape(b * h * w, -1, hs, ws), kf.permute(3, 2, 0, 1),
-                     padding=pad_s)
+        t, wt = taps.reshape(b * h * w, -1, hs, ws), kf.permute(3, 2, 0, 1)
+        if fold_all:
+            o = _FoldedTapConv.apply(t, wt, pad_s, k0)
+        else:
+            o = F.conv2d(t, wt, padding=pad_s)
         return o.reshape(b, h, w, co, hs, ws)
 
     if fold_all:

@@ -135,6 +135,20 @@ class NeighConsensus(nn.Module):
         return out.permute(0, 5, 1, 2, 3, 4).reshape(b, out.shape[-1], hq * wq, hs * ws)
 
 
+@torch.no_grad()
+def live_consensus(head: nn.Module, bias: float = 0.1) -> None:
+    """Set every bias of each ``NeighConsensus`` under ``head`` to ``bias``.
+
+    A seeded consensus with zero biases can be dead: its last ReLU zeroes
+    every output, and every head gradient is 0. Checks and tests that draw
+    a head from a seed and need its gradients call this first."""
+    for m in head.modules():
+        if isinstance(m, NeighConsensus):
+            for name, p in m.named_parameters():
+                if name.endswith("bias"):
+                    p.fill_(bias)
+
+
 @functools.lru_cache(maxsize=None)
 def _window_gather_indices(h: int, w: int, ksz: int) -> Tuple[np.ndarray, np.ndarray]:
     """(h*w, ksz*ksz) flat indices into an (h*w,) axis and their validity."""

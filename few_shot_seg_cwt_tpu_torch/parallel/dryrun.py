@@ -28,7 +28,11 @@ rank's inits; ``validate``, ``validate_transformer`` and
 ``episodic_validate`` over ``episode_batch`` episodes a batch; ``trainers``,
 ``train_cwt.main`` and ``train_head.main`` (the ``train_ddp`` path) whole,
 cut after one epoch and resumed, and ``pretrain.main``, in a scratch
-directory, with the files each rank wrote.
+directory, with the files each rank wrote; ``chm`` and ``detr``, the CHM
+head's train step (configs/pascal_match.yaml with ``crm_type chm``, the
+default ``FSS_CONV4D_IM2COL`` route, its whole-loss checkpoint) and the
+DeTr head's (configs/pascal_trans.yaml on the flat consensus route, the
+pivot kernels), in fp32, held as the MMN step's fp32 head is.
 
 Every check prints one JSON line with its error against its limit, the
 ranks' launches of each kernel beside the reference's, each step's ms and
@@ -55,7 +59,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-CHECKS = ("cwt", "mmn", "pretrain", "eval", "validate", "collectives", "trainers")
+CHECKS = ("cwt", "mmn", "pretrain", "eval", "validate", "collectives", "trainers", "chm",
+          "detr")
 KERNELS = ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw")
 PIVOT_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4")
 TILES = (1, 2)   # FSS_INNER_TILE of the CWT step: K1, then K2
@@ -84,7 +89,18 @@ def default_spec(size: int = 473, adapt_iter: int = 200, checks=CHECKS[:6]) -> D
         "validate": {"config": "configs/pascal.yaml", "opts": common + ["cls_lr", "0.1"],
                      "episodes": 4, "test_num": 8},
         "trainers": {"size": 33, "dir": None},
+        "chm": {"config": "configs/pascal_match.yaml", "episodes": 2, "weights": None,
+                "w0": None, "opts": ["image_size", str(even_side_size(size)), "adapt_iter",
+                                     str(adapt_iter), "crm_type", "chm"]},
+        "detr": {"config": "configs/pascal_trans.yaml", "opts": common, "episodes": 2,
+                 "weights": None, "w0": None},
     }
+
+
+def even_side_size(size: int) -> int:
+    """``size``, or 8 px more where its feature side (size - 1) // 8 + 1 is
+    odd: the CHM head halves the side and doubles it back (33 -> 41)."""
+    return size if ((size - 1) // 8 + 1) % 2 == 0 else size + 8
 
 
 # --------------------------------------------------------------------------- #
@@ -261,6 +277,7 @@ def run_mmn_shot(part: Dict, shot: int, seed: int, device, rank: int, world: int
     of the ranks' slices run one after another (``split_grads``)."""
     from ..data.synthetic import make_episode_batch
     from ..episodic.heads import HeadEngine
+    from ..models.matching import live_consensus
 
     e = int(part["episodes"])
     cfg = _cfg(part, "episode_batch", str(e), "att_drop", "0.0", "proj_drop", "0.0",
@@ -280,12 +297,7 @@ def run_mmn_shot(part: Dict, shot: int, seed: int, device, rank: int, world: int
             engine.backbone.load_state_dict(part["weights"]["backbone"])
             engine.head.load_state_dict(part["weights"]["head"])
         else:
-            # a seeded consensus with zero biases can be dead (its last ReLU
-            # zeroes every output, and every head gradient is 0)
-            with torch.no_grad():
-                for name, p in engine.head.named_parameters():
-                    if "NeighConsensus" in name and name.endswith("bias"):
-                        p.fill_(0.1)
+            live_consensus(engine.head)
         start = copy.deepcopy(engine.head.state_dict())
         for amp in ([False, True] if cfg.get("use_amp", False) else [False]):
             engine.cfg.use_amp = amp   # fp32 head: use_amp off in the step, the backbone kept
@@ -304,6 +316,47 @@ def run_mmn_shot(part: Dict, shot: int, seed: int, device, rank: int, world: int
                 rec["split_grads"] = _split_grads(engine, episodes, w0_all, n_ranks)
             out["bf16_head" if amp else "fp32_head"] = rec
     return out
+
+
+def run_head(part: Dict, head_type: str, seed: int, device, rank: int, world: int,
+             keep: bool, n_ranks: int) -> Dict:
+    """The ``chm`` or ``detr`` head's train step in fp32 (DeTr on the flat
+    consensus route); with ``n_ranks`` > 1 one process alone also gives the
+    ranks' slices run one after another (``split_grads``), as for MMN."""
+    from ..data.synthetic import make_episode_batch
+    from ..episodic.heads import HeadEngine
+    from ..models.matching import live_consensus
+
+    e = int(part["episodes"])
+    cfg = _cfg(part, "episode_batch", str(e), "use_amp", "False")
+    switches = {k: None for k in PIVOT_SWITCHES}
+    if head_type == "detr":
+        switches["FSS_PIVOT_MXU"] = "1"
+    episodes = make_episode_batch(seed + 11, e, size=int(cfg.image_size))
+    local = _shard(episodes, rank, world)
+    w0 = part.get("w0")
+    w0_local = None if w0 is None else _shard({"w": w0}, rank, world)["w"]
+    with _env(**switches):
+        engine = HeadEngine(cfg, head_type, device=device)
+        if part.get("weights"):
+            engine.backbone.load_state_dict(part["weights"]["backbone"])
+            engine.head.load_state_dict(part["weights"]["head"])
+        elif head_type == "detr":
+            live_consensus(engine.head)
+        start = copy.deepcopy(engine.head.state_dict())
+        opt = torch.optim.SGD(engine.head.parameters(), lr=LR)
+        step = engine.make_train_step(opt)
+        rec = _step_record(lambda: step(local, torch.Generator().manual_seed(seed), w0_local),
+                           engine.head, device, keep)
+        rec.update(_allreduce_cost(engine.head.parameters(), device))
+        _, rec["warm_ms"] = _timed(
+            lambda: step(local, torch.Generator().manual_seed(seed), w0_local), device)
+        if keep and world == 1 and n_ranks > 1:
+            engine.head.load_state_dict(start)
+            w0_all = (w0 if w0 is not None else
+                      engine.init_weights(e, torch.Generator().manual_seed(seed)))
+            rec["split_grads"] = _split_grads(engine, episodes, w0_all, n_ranks)
+    return rec
 
 
 def pretrain_batch(part: Dict, seed: int, size: int, classes: int):
@@ -561,6 +614,10 @@ def run_steps(spec: Dict, device, n_ranks: int, reference: bool) -> Dict:
         out["validate"] = run_validate(spec["validate"], seed, device, rank, world, n_ranks)
     if "collectives" in checks:
         out["collectives"] = run_collectives(seed, device, rank, world, n_ranks)
+    for head_type in ("chm", "detr"):
+        if head_type in checks:
+            out[head_type] = run_head(spec[head_type], head_type, seed, device, rank, world,
+                                      keep, n_ranks)
     if "trainers" in checks and world > 1:
         out["trainers"] = run_trainers(spec["trainers"], device, rank, world)
     out["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2**30
@@ -726,6 +783,19 @@ def compare(spec: Dict, ref: Dict, ranks: List[Dict], meta: Dict) -> List[Dict]:
                 worst=name, whole_batch_max_rel_err=effect,
                 world1_max_rel_err=err1, grads_live=live, params_equal_across_ranks=equal,
                 **fields, **common(path))
+    for head_type in ("chm", "detr"):
+        if head_type not in spec["checks"]:
+            continue
+        path = lambda d, h=head_type: d[h]  # noqa: E731
+        joint, want = path(plain)["grads"], path(plain)["split_grads"]
+        err, name = _max_rel(path(ranks[0])["grads"], want)
+        err1, _ = _max_rel(path(world1)["grads"], joint)
+        live = all(float(g.abs().max()) > 0 for g in want.values())
+        equal = _ranks_equal(ranks, path)
+        row(f"{head_type}_step", err <= 1e-3 and err1 <= 1e-3 and live and equal,
+            max_rel_err=err, worst=name, whole_batch_max_rel_err=_max_rel(joint, want)[0],
+            world1_max_rel_err=err1, limit=1e-3, grads_live=live,
+            params_equal_across_ranks=equal, **common(path))
     if "pretrain" in spec["checks"]:
         # the JAX package's bar (tests/test_parallel.py): the ranks' step
         # against the one-process step of the same code (the group of one,

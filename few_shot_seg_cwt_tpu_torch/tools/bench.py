@@ -20,9 +20,10 @@ arguments, lower case without the ``BENCH_`` prefix):
 * ``BENCH_IMAGE_SIZE`` (473), ``BENCH_DTYPE`` (``float32`` or ``bfloat16``:
   the backbone's ``compute_dtype``; the MMN modes' ``use_amp``),
   ``BENCH_BF16_STAGES``, ``BENCH_SHOT`` (1), ``BENCH_ADAPT_ITER`` (the
-  config's 200), ``BENCH_HEAD`` (``mmn``, or ``match`` with
-  configs/pascal_match.yaml's model settings; the heads not ported raise
-  with their ROADMAP item), ``BENCH_OPTS`` (``key value ...`` as ``--opts``),
+  config's 200), ``BENCH_HEAD`` (``mmn``; ``match`` or ``chm``
+  with configs/pascal_match.yaml's model settings, ``crm_type chm`` for
+  ``chm``; ``detr`` with configs/pascal_trans.yaml's; the heads not ported
+  raise with their ROADMAP item), ``BENCH_OPTS`` (``key value ...`` as ``--opts``),
   ``BENCH_QUIET=1`` (no progress lines on stderr).
 
 Inputs (three batches, synthetic, seeded) are staged on the device before
@@ -69,6 +70,12 @@ MMN_KNOBS = dict(conv4d="red", temp=20.0, att_wt=0.2, loss_type="wt_dc", rmid="l
 MATCH_KNOBS = dict(crm_type="nc", conv4d="red", ignore=False, temp=20.0, rmid="mid4",
                    att_wt=0.2, sce=False, cyc=True, dist="cosN", cls_type="ooo",
                    trans_lr=0.0001)
+# the CHM head: the match settings with crm_type chm (train_match's route)
+CHM_KNOBS = dict(MATCH_KNOBS, crm_type="chm")
+# DeTr: configs/pascal_trans.yaml's MODEL section and its trans_lr
+DETR_KNOBS = dict(rmid="l34", temp=20.0, att_wt=0.2, sf_att=False, cr_att=True,
+                  trans_lr=0.0015)
+HEAD_KNOBS = {"mmn": MMN_KNOBS, "match": MATCH_KNOBS, "chm": CHM_KNOBS, "detr": DETR_KNOBS}
 
 
 def _knob(knobs: Dict[str, Any], name: str, default):
@@ -97,15 +104,15 @@ def _config(knobs: Dict[str, Any], size: int, dtype: str, shot: int):
 
 
 def _head_engine(cfg, head: str, dtype: str, device):
-    """The head's engine: MMN with ``MMN_KNOBS``, the match head with
-    ``MATCH_KNOBS``; the heads not ported raise with their ROADMAP item
+    """The head's engine with its ``HEAD_KNOBS`` (MMN's for a head without
+    its own); the heads not ported raise with their ROADMAP item
     (``episodic.heads.build_head``)."""
     from ..episodic.heads import HeadEngine
 
     if head == "cca":
         raise NotImplementedError("BENCH_HEAD 'cca': the incremental CCA engine is not "
                                   "ported (ROADMAP queue 1 item 11)")
-    for k, v in (MATCH_KNOBS if head == "match" else MMN_KNOBS).items():
+    for k, v in HEAD_KNOBS.get(head, MMN_KNOBS).items():
         cfg[k] = v
     cfg.use_amp = dtype == "bfloat16"
     return HeadEngine(cfg, head, device=device)

@@ -19,6 +19,16 @@ The port's counterpart of the repository root's ``tools/bench_head_parts.py``
   match_pipeline_fwd / _grad[<route>]
                           mutual matching -> symmetric NeighConsensus
                           (1->10->10->1) -> mutual matching, on each route
+  chm6d_conv_fwd / _grad[<route>], chm4d_conv_fwd / _grad[<route>]
+                          the CHM head's two true 4D convs (``conv4d``) at
+                          its shapes: (1, 30, 30, 30, 30, 9) through the
+                          (5, 5, 5, 5, 9, 9) kernel and (1, 60, 60, 60, 60, 1)
+                          through (5, 5, 5, 5, 1, 1), on each
+                          ``FSS_CONV4D_IM2COL`` route (q, qp, gemm, loop);
+                          the gradient is wrt the kernel and the input
+  chm_glue, chm_glue_vjp  sigmoid -> scale max-pool -> interpolate4d to 60,
+                          the CHM steps between the two convs
+  chm_mutual_nn           softplus -> the (1, 3600, 3600) mutual filter
   readout, readout_vjp    softmax(corr * temp) @ v, forward and + backward
 
 Each part's time is the median of ``reps`` calls after a warm-up, each call
@@ -27,7 +37,6 @@ the part. TF32 is off, as in every entry point of the port. The JAX tool
 instead ran K- and 2K-step ``lax.scan`` chains and took the slope, which
 was what survived the TPU host's per-call transport floor; the card has no
 such floor, so one call is one measurement here.
-The CHM parts of the JAX tool wait for the CHM head (ROADMAP queue 1 item 8).
 
 Usage: python -m few_shot_seg_cwt_tpu_torch.tools.bench_head_parts [fp32|bf16] [reps]
 Prints one JSON line per part: {"part", "ms", "dtype", "chain"}, then the
@@ -44,10 +53,11 @@ from typing import Callable, Dict, List
 
 import torch
 
-from ..models.conv4d import CenterPivotConv4d
+from ..models.chm import interpolate4d
+from ..models.conv4d import CenterPivotConv4d, conv4d
 from ..models.matching import NeighConsensus
 from ..models.msm import WeightAverage
-from ..ops.corr import get_corr, masked_attention_readout, mutual_matching_flat
+from ..ops.corr import get_corr, masked_attention_readout, mutual_matching_flat, mutual_nn_filter
 from ..train.common import fp32_parity
 from .profile_inner_loop import cuda_ms
 from .roofline import card_line
@@ -141,6 +151,31 @@ def main(argv: List[str] = None) -> List[Dict]:
         rec(f"match_pipeline_grad[{route}]", grad_of(pipeline, corr))
     _route(False)
     del corr
+
+    hh = h // 2
+    k6, k4 = rand(5, 5, 5, 5, 9, 9) * 0.02, rand(5, 5, 5, 5, 1, 1) * 0.02
+    x6, x4 = rand(1, hh, hh, hh, hh, 9).abs(), rand(1, h, h, h, h, 1).abs()
+    for route in ("q", "qp", "gemm", "loop"):
+        os.environ["FSS_CONV4D_IM2COL"] = route
+        for name, x, k in (("chm6d", x6, k6), ("chm4d", x4, k4)):
+            with torch.no_grad():
+                rec(f"{name}_conv_fwd[{route}]", lambda: conv4d(x, k))
+            rec(f"{name}_conv_grad[{route}]", grad_of(conv4d, x, k))
+    os.environ.pop("FSS_CONV4D_IM2COL", None)
+    del x4, x6
+
+    def chm_glue(t):
+        y = torch.amax(torch.sigmoid(t).reshape(1, 9, hh, hh, hh, hh), dim=1)
+        return interpolate4d(y, h)
+
+    vol6 = rand(1, 3, 3, hh, hh, hh, hh)
+    with torch.no_grad():
+        rec("chm_glue", lambda: chm_glue(vol6))
+    rec("chm_glue_vjp", grad_of(chm_glue, vol6))
+    del vol6
+    corr2d = rand(1, q, s)
+    with torch.no_grad():
+        rec("chm_mutual_nn", lambda: mutual_nn_filter(torch.nn.functional.softplus(corr2d)))
 
     corr2d, v = rand(1, q, s), rand(1, s, 512)
     with torch.no_grad():

@@ -26,14 +26,14 @@ input of an exported program, so this artifact takes the init ``w0``
 itself, (E, K, 512) float32 (K = 2), which the caller draws with the
 engine's ``init_weights(E, generator)`` (``episodic.engine.init_weights``).
 
-``--head {mmn|match}`` exports an extension head's label-free predictor
-instead (frozen backbone -> inner loop -> the head's refined query feature
--> blended prediction -> argmax; ``HeadEngine.serve_batch``); ``match``
-needs ``ignore False``, as in JAX. ``--head-ckpt`` is a head checkpoint of
-``train_head`` (``best.pt``, ``final.pt`` or a full ``train_state.pt``),
-random init without it. The ``chm``, ``detr`` and ``fuse`` heads are not
-ported (ROADMAP queue 1 items 8, 9 and 10) and raise
-``NotImplementedError``, as does ``--mesh``: an exported program runs on
+``--head {mmn|match|chm|detr}`` exports an extension head's label-free
+predictor instead (frozen backbone -> inner loop -> the head's refined
+query feature -> blended prediction -> argmax; ``HeadEngine.serve_batch``);
+``match`` needs ``ignore False``, as in JAX. ``--head-ckpt`` is a head
+checkpoint of ``train_head`` (``best.pt``, ``final.pt`` or a full
+``train_state.pt``), random init without it. The ``fuse`` head is not
+ported (ROADMAP queue 1 item 10) and raises ``NotImplementedError``, as
+does ``--mesh``: an exported program runs on
 one device, and the port's scale-out (item 13, ``parallel/``) serves over
 several cards by one serving process a card, each loading the artifact.
 
@@ -43,7 +43,9 @@ launches the kernels, exported on the CPU it runs their plain versions.
 The route switches are read when the program is traced and are fixed in
 the artifact, as JAX's "trace-time env vars" are: ``FSS_PIVOT_MXU`` /
 ``FSS_PIVOT_PALLAS`` (the consensus's flat route on ``pivot_fwd``, else the
-rank-4 cuDNN route), ``FSS_INNER_TILE`` (K2 for the batch), and the
+rank-4 cuDNN route; DeTr's cross-attention consensus too),
+``FSS_CONV4D_IM2COL`` (the route of CHM's 4D and 6D convs),
+``FSS_INNER_TILE`` (K2 for the batch), and the
 config's stage dtype policy (``use_amp``: a bf16 backbone, fp32 head).
 
 Weights resolve exactly as in ``train.test`` (``resume_weights`` ``.pth``
@@ -69,8 +71,8 @@ import torch
 from torch import nn
 
 # heads that HeadEngine serves here, and the ROADMAP item of those it cannot
-SERVABLE_HEADS = ("mmn", "match")
-_UNPORTED_HEADS = {"chm": 8, "detr": 9, "fuse": 10}
+SERVABLE_HEADS = ("mmn", "match", "chm", "detr")
+_UNPORTED_HEADS = {"fuse": 10}
 
 
 class ServeProgram(nn.Module):
@@ -213,7 +215,7 @@ def main(argv=None) -> Dict:
                         "cards by one process a card); 0 = single-device artifact")
     p.add_argument("--head", default=None,
                    help="export this extension head's predictor instead of the CWT "
-                        "one (mmn|match; chm|detr|fuse are not ported)")
+                        "one (mmn|match|chm|detr; fuse is not ported)")
     p.add_argument("--head-ckpt", default=None,
                    help="train_head's best.pt / final.pt / train_state.pt; random "
                         "init if omitted")

@@ -1,4 +1,4 @@
-"""Trainer for the extension heads, on the GPU (MMN and the match head).
+"""Trainer for the extension heads, on the GPU (MMN, match, CHM and DeTr).
 
 Counterpart of ``few_shot_seg_cwt_tpu.train.train_head``:
 
@@ -21,8 +21,10 @@ of the default generator that the head's dropout draws from, epoch, best
 and best1; each step's classifier inits come from a generator seeded by
 (``manual_seed``, epoch, step). ``resume_ckpt`` takes such a state (exact
 resume) or a head state_dict (weights only); ``auto_resume`` picks up this
-run's own train state; ``stop_after_epochs`` ends the run early. Not
-ported: the other heads (ROADMAP queue 1 items 8-10).
+run's own train state; ``stop_after_epochs`` ends the run early. The
+aliases ``train_match`` (``crm_type nc`` or ``chm``), ``train_trans``
+(DeTr), ``train_kshot``, ``train_aug`` and ``train_ddp`` pick the head.
+Not ported: the other heads (ROADMAP queue 1 item 10).
 
 Over several cards (``parallel.mesh``)::
 
@@ -61,8 +63,8 @@ from .optim import build_optimizer
 
 def init_head_trainables(engine: HeadEngine) -> Dict[str, torch.Tensor]:
     """The head's trainable parameters by name. The engine built the head
-    with a seeded init (``manual_seed``; U(+-1/sqrt(fan_in)) kernels, zero
-    biases), as the JAX package's init does."""
+    with a seeded init (``manual_seed``) by the JAX package's initialisers
+    (``episodic.heads.build_head``)."""
     return dict(engine.head.named_parameters())
 
 

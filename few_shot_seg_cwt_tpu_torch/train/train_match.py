@@ -5,8 +5,8 @@ src/train_match.py) over the generic head trainer, on the GPU:
         --config configs/pascal_match.yaml --opts data_root <VOC2012 tree>
 
 ``crm_type nc`` trains the MatchNet neighbourhood-consensus head
-(``head "match"``); ``crm_type chm``, the convolutional Hough matcher, is
-not ported (ROADMAP queue 1 item 8).
+(``head "match"``), ``crm_type chm`` the convolutional Hough matcher
+(``head "chm"``).
 """
 
 from ..config import parse_args
@@ -15,10 +15,8 @@ from .train_head import main as head_main
 
 
 def main(cfg, device="cuda", log=print):
-    if cfg.get("crm_type", "nc") == "chm":
-        raise NotImplementedError("crm_type chm: the CHM head is not ported "
-                                  "(ROADMAP queue 1 item 8)")
-    return head_main(cfg, head_type="match", device=device, log=log)
+    head = "chm" if cfg.get("crm_type", "nc") == "chm" else "match"
+    return head_main(cfg, head_type=head, device=device, log=log)
 
 
 if __name__ == "__main__":

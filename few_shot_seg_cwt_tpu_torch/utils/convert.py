@@ -19,7 +19,10 @@ into the port with ``load_state_dict``, and so does a reference ``.pth``.
 * the VGG trunk's ``stage<s>_conv<b>`` / ``stage<s>_bn<b>`` -> the
   reference's Sequential slices ``layer<s>.<3b>`` / ``layer<s>.<3b+1>``;
 * a true 4D conv kernel (k0, k1, k2, k3, I, O) -> the reference's
-  pre-permuted (k0, O, I, k1, k2, k3).
+  pre-permuted (k0, O, I, k1, k2, k3);
+* the CHM and DeTr heads, which the JAX package does not import from
+  ``.pth`` files, keep their flax names (``chm6d.param_0``,
+  ``self_trans.self_trans.value_proj.weight``, ...).
 """
 
 from __future__ import annotations
@@ -181,6 +184,45 @@ def mmn_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Te
                 sd[f"{name}.{conv_name}.bias"] = _t(leaf["bias"])
         elif name.startswith("rd_"):
             sd[f"{name}.0.weight"] = _conv(node["kernel"])
+    return sd
+
+
+def chm_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax CHMLearner variables (or their ``params`` tree) -> torch
+    state_dict: ``scale_conv_{i}/kernel`` HWIO -> ``scale_conv_{i}.weight``
+    OIHW; ``chm6d/param_{i}`` and ``chm6d/bias``, ``chm4d/weight`` and
+    ``chm4d/bias`` as they are (group weights and scalar biases)."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        if name.startswith("scale_conv_"):
+            sd[name + ".weight"] = _conv(node["kernel"])
+        else:
+            for leaf, value in node.items():
+                sd[f"{name}.{leaf}"] = _t(value)
+    return sd
+
+
+def _dense(sd: Dict[str, torch.Tensor], prefix: str, node: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(np.asarray(node["kernel"]).T)
+    sd[prefix + ".bias"] = _t(node["bias"])
+
+
+def detr_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax DeTr variables (or their ``params`` tree) -> torch state_dict:
+    ``adjust`` (1x1, no bias), ``cross_trans`` as a MatchNet
+    (``_matchnet_into``), and under ``sf_att`` the deformable attention:
+    ``self_trans.level_embed`` and the four Dense layers of
+    ``self_trans.self_trans`` as Linear layers."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {"adjust.weight": _conv(params["adjust"]["kernel"])}
+    if "cross_trans" in params:
+        _matchnet_into(sd, params["cross_trans"], "cross_trans.")
+    if "self_trans" in params:
+        node = params["self_trans"]
+        sd["self_trans.level_embed"] = _t(node["level_embed"])
+        for name, dense in node["self_trans"].items():
+            _dense(sd, f"self_trans.self_trans.{name}", dense)
     return sd
 
 

@@ -53,7 +53,7 @@ def test_bench_refuses_without_a_card():
 
 
 @pytest.mark.parametrize("knobs,error", [
-    ({"head": "chm"}, "ROADMAP queue 1 item 8"),
+    ({"head": "att"}, "ROADMAP queue 1 item 10"),
     ({"head": "cca"}, "ROADMAP queue 1 item 11"),
 ])
 def test_heads_not_ported_name_their_item(knobs, error):
@@ -67,6 +67,17 @@ def test_match_head_modes_run_on_the_cpu(mode):
     """BENCH_HEAD match: configs/pascal_match.yaml's model settings."""
     out = bench.run(mode, device="cpu", image_size=33, adapt_iter=2, batches=1,
                     episode_batch=2, quiet=1, head="match")
+    assert out["mode"] == mode and math.isfinite(out["value"]) and out["value"] > 0
+    assert out["flops_per_episode"] > 0 and out["kernel_launches"] == {}
+
+
+@pytest.mark.parametrize("head,size", [("chm", 41), ("detr", 33)])
+@pytest.mark.parametrize("mode", ["head", "head_eval", "head_serve"])
+def test_chm_and_detr_head_modes_run_on_the_cpu(head, size, mode):
+    """BENCH_HEAD chm: pascal_match.yaml's model settings with crm_type chm
+    (41 px: CHM needs an even feature side); detr: pascal_trans.yaml's."""
+    out = bench.run(mode, device="cpu", image_size=size, adapt_iter=2, batches=1,
+                    episode_batch=2, quiet=1, head=head)
     assert out["mode"] == mode and math.isfinite(out["value"]) and out["value"] > 0
     assert out["flops_per_episode"] > 0 and out["kernel_launches"] == {}
 

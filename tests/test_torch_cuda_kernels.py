@@ -490,6 +490,129 @@ def test_conv4d_routes_on_the_card(device, route, monkeypatch):
         assert float((got.double().cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
+# CHM's two true 4D convs at 473 px: (volume, kernel) shapes
+CHM_CONVS = {"chm6d": ((1, 30, 30, 30, 30, 9), (5, 5, 5, 5, 9, 9)),
+             "chm4d": ((1, 60, 60, 60, 60, 1), (5, 5, 5, 5, 1, 1))}
+_CHM_FP64 = {}
+
+
+def _chm_conv_fp64(conv, device, monkeypatch):
+    """The inputs of one CHM conv (uniform volume, N(0, 0.02) kernel, N(0, 1)
+    upstream gradient) and the q route's output and gradients on them in
+    fp64, on the card; computed once a session."""
+    from few_shot_seg_cwt_tpu_torch.models.conv4d import conv4d
+
+    if conv not in _CHM_FP64:
+        g = torch.Generator().manual_seed(5)
+        xs, ks = CHM_CONVS[conv]
+        x = torch.rand(xs, generator=g, dtype=torch.float64).to(device).requires_grad_(True)
+        k = (0.02 * torch.randn(ks, generator=g, dtype=torch.float64)).to(device)
+        k.requires_grad_(True)
+        gy = torch.randn(xs[:5] + ks[-1:], generator=g, dtype=torch.float64).to(device)
+        monkeypatch.setenv("FSS_CONV4D_IM2COL", "q")
+        y = conv4d(x, k)
+        y.backward(gy)
+        _CHM_FP64[conv] = ((x.detach(), k.detach(), gy), (y.detach(), x.grad, k.grad))
+    return _CHM_FP64[conv]
+
+
+@pytest.mark.parametrize("conv", sorted(CHM_CONVS))
+@pytest.mark.parametrize("route", ["q", "qp", "gemm", "loop"])
+def test_conv4d_routes_at_chm_shapes_against_fp64(device, conv, route, monkeypatch):
+    """Each route of the true 4D conv in fp32 at the CHM head's 473 px
+    shapes against the q route in fp64 on the same inputs: output, input
+    gradient and kernel gradient within 1e-4 of the scale (the readings are
+    printed: ``pytest -rP``)."""
+    from few_shot_seg_cwt_tpu_torch.models.conv4d import conv4d
+    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
+
+    fp32_parity()
+    (x64, k64, gy64), want = _chm_conv_fp64(conv, device, monkeypatch)
+    monkeypatch.setenv("FSS_CONV4D_IM2COL", route)
+    x = x64.float().requires_grad_(True)
+    k = k64.float().requires_grad_(True)
+    y = conv4d(x, k)
+    y.backward(gy64.float())
+    rel = {name: float((got.double() - w).abs().max() / w.abs().max())
+           for name, got, w in zip(("y", "dx", "dk"), (y.detach(), x.grad, k.grad), want)}
+    print(f"{conv} {route}: max|v - v64| / max|v64| {rel}")
+    assert max(rel.values()) <= 1e-4, rel
+
+
+def test_folded_tap_weight_gradient_on_the_card(device):
+    """``qp``'s support-plane conv (``_FoldedTapConv``) at CHM6d's 473 px
+    folded shape ((900, 225, 30, 30) taps: 5 tap rows of 5 taps x 9 scales;
+    a (9, 225, 5, 5) kernel): its weight gradient, a tap row at a time as
+    the route takes it, within 1e-4 of an fp64 run. Printed beside it, not
+    held: the same gradient in one call over all 225 channels, the call the
+    slicing avoids (cuDNN picks its algorithm by heuristic)."""
+    from few_shot_seg_cwt_tpu_torch.models.conv4d import _FoldedTapConv
+    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
+
+    fp32_parity()
+    g = torch.Generator().manual_seed(6)
+    x = torch.rand((900, 225, 30, 30), generator=g).to(device)
+    w = (0.02 * torch.randn((9, 225, 5, 5), generator=g)).to(device)
+    gy = torch.randn((900, 9, 30, 30), generator=g).to(device)
+    want = torch.nn.grad.conv2d_weight(x.double(), w.shape, gy.double(), padding=2)
+    rel = {}
+    for rows in (5, 1):
+        wr = w.clone().requires_grad_(True)
+        _FoldedTapConv.apply(x, wr, (2, 2), rows).backward(gy)
+        rel[rows] = float((wr.grad.double() - want).abs().max() / want.abs().max())
+    print(f"qp weight gradient at CHM6d's folded shape, max|dk - dk64| / max|dk64|: a tap row "
+          f"at a time {rel[5]:.3e}, all 225 channels in one call {rel[1]:.3e}")
+    assert rel[5] <= 1e-4, rel
+
+
+@pytest.mark.parametrize("head,route", [("chm", "q"), ("chm", "gemm"), ("detr", "r4"),
+                                        ("detr", "flat")])
+def test_chm_and_detr_eval_on_the_card_match_the_cpu_port(device, head, route, monkeypatch):
+    """The CHM head (41 px: CHM needs an even feature side) and the DeTr head
+    (33 px, rank-4 and flat routes) on the card against the same engine's
+    weights on the CPU: predictions within 1e-2 (atol 2e-3 of the logit
+    scale) with >= 99.5% argmax agreement; K1 runs the inner loop, and the
+    flat route runs pivot_fwd (3 blocks x 2 directions an episode)."""
+    import copy
+
+    from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
+    from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
+    from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
+    from few_shot_seg_cwt_tpu_torch.models.matching import live_consensus
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
+
+    fp32_parity()
+    for var in ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_NCONS_R4"):
+        monkeypatch.delenv(var, raising=False)
+    if head == "chm":
+        monkeypatch.setenv("FSS_CONV4D_IM2COL", route)
+        size, cfg = 41, merge_cfg_from_list(load_cfg("configs/pascal_match.yaml"),
+                                            ["crm_type", "chm"])
+    else:
+        if route == "flat":
+            monkeypatch.setenv("FSS_PIVOT_MXU", "1")
+        size, cfg = 33, load_cfg("configs/pascal_trans.yaml")
+    cfg = merge_cfg_from_list(cfg, ["image_size", str(size), "adapt_iter", "5"])
+    cpu = HeadEngine(cfg, head, device="cpu")
+    live_consensus(cpu.head)
+    card = HeadEngine(cfg, head, backbone=copy.deepcopy(cpu.backbone),
+                      head=copy.deepcopy(cpu.head), device="cuda")
+    ep = make_episode_batch(12, 2, size=size)
+    w0 = cpu.init_weights(2, torch.Generator().manual_seed(3))
+    want = cpu.predict_batch(ep, w0=w0)
+    cuda_inner_loop.reset_launches()
+    cuda_pivot.reset_launches()
+    got = card.predict_batch(ep, w0=w0.to(device))
+    torch.cuda.synchronize()
+    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == 1
+    assert cuda_pivot.LAUNCHES["pivot_fwd"] == (12 if route == "flat" else 0)
+    for key in ("pred1", "pred"):
+        g, w = got[key].cpu(), want[key]
+        torch.testing.assert_close(g, w, rtol=1e-2, atol=2e-3 * float(w.abs().max()))
+        assert float((g.argmax(-1) == w.argmax(-1)).float().mean()) >= 0.995, key
+
+
 def test_bf16_volume_runs_the_fp32_kernels_between_casts(device):
     """``use_amp``'s flat route: a bf16 volume and bf16 weights go to fp32,
     through the same kernels (counted), and back: y and the gradients equal

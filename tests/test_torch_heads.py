@@ -286,12 +286,9 @@ def test_train_step_updates_the_head_with_dropout_on():
 
 
 def test_unported_head_paths_raise_naming_the_roadmap():
-    from few_shot_seg_cwt_tpu_torch.train import train_match
-
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        HeadEngine(_cfg(), "chm", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        train_match.main(_cfg(["crm_type", "chm"]), device="cpu")
+    for head in ("att", "asy", "fuse"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+            HeadEngine(_cfg(), head, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         build_pspnet(_cfg(["inherit_base", "True"]))
 

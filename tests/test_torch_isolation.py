@@ -70,7 +70,9 @@ for name in ("tools.export_serve", "tools.serve_loaded", "tools.preflight",
              "tools.record_episodes", "tools.parity_drill", "tools.bench_loader",
              "tools.bench_head_parts", "utils.logging", "utils.tb", "utils.print_log",
              "utils.visualize", "utils.extra_metrics", "utils.convert_ckpt",
-             "parallel.mesh", "parallel.dryrun", "train.train_ddp", "train.pretrain"):
+             "parallel.mesh", "parallel.dryrun", "train.train_ddp", "train.pretrain",
+             "train.train_trans", "train.train_match", "models.chm", "models.deform",
+             "models.detr", "ops.geometry"):
     importlib.import_module("few_shot_seg_cwt_tpu_torch." + name)
 forbidden = sorted(m for m in sys.modules
                    if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "orbax"}

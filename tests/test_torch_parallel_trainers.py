@@ -10,6 +10,10 @@ trainers`` (17 px, synthetic episodes and records) in a directory under
   ``auto_resume`` ends with the uninterrupted run's weights, bit for bit;
   its train state holds both ranks' generator states and the world size.
 * A world-2 train state resumed by one process raises, naming both sizes.
+* The CHM and DeTr train steps (``--checks chm,detr``, 33 px; CHM at 41)
+  at world 2 equal one process running the ranks' slices, within 1e-3 of
+  each gradient tensor's largest entry, with the parameters equal on both
+  ranks after the step.
 """
 
 import json
@@ -112,3 +116,24 @@ def test_a_world_2_state_does_not_resume_on_one_process(trainers, tmp_path):
     cfg.resume_ckpt = str(state)
     with pytest.raises(ValueError, match="written by 2 process.*this run has 1"):
         train_cwt.main(cfg, device="cpu", log=lambda *_: None)
+
+
+@pytest.fixture(scope="module")
+def head_steps(tmp_path_factory):
+    work = tmp_path_factory.mktemp("head_steps")
+    proc = subprocess.run(
+        [sys.executable, "-m", "few_shot_seg_cwt_tpu_torch.parallel.dryrun", "--world", "2",
+         "--backend", "gloo", "--device", "cpu", "--size", "33", "--adapt-iter", "3",
+         "--checks", "chm,detr", "--out", str(work), "--threads", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:] + proc.stdout[-4000:]
+    return {r["check"]: r for r in (json.loads(line) for line in proc.stdout.splitlines()
+                                    if line.startswith("{"))}
+
+
+@pytest.mark.parametrize("head", ["chm", "detr"])
+def test_chm_and_detr_steps_at_world_2_equal_one_process(head_steps, head):
+    row = head_steps[f"{head}_step"]
+    assert row["ok"], row
+    assert row["max_rel_err"] <= 1e-3 and row["world1_max_rel_err"] <= 1e-3
+    assert row["grads_live"] and row["params_equal_across_ranks"]
