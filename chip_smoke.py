@@ -89,7 +89,24 @@ Phases (any failure raises and the script exits non-zero):
    only), episodes/s and peak memory, argmax of pred and pred1 >= 99.5%
    equal to rank-4's, fp32 head gradients within 1e-3 of each tensor's
    largest entry, the flat route's masks >= 99.5% equal to the plain
-   path's (rank-4 consensus, K1's plain version).
+   path's (rank-4 consensus, K1's plain version). (6g) The attention,
+   transductive and fusion heads (fp32): ``att`` on configs/pascal_asy.yaml
+   (``cross_att``, as no att config ships) eval of 4 and a train step of 2,
+   ``mha`` and ``att_blk`` eval of 4 each, a 5-shot eval of 2 with a padded
+   shot; ``asy`` on the same config, eval of 4 and a step of 2; ``fuse`` on
+   configs/pascal_fuse.yaml, its frozen MatchNet the match head of 6d, on
+   the flat and rank-4 routes eval of 4, serve of 4 and a step of 2. Each
+   run counted alone (K1 1 a batch or step; pivot_fwd 6 an episode on the
+   fuse flat route, none on rank-4; pivot_dw never), episodes/s and peak
+   memory; the kernel path's masks >= 99.5% equal to the plain path's
+   (K1's plain version, rank-4); fuse flat against rank-4: argmax >= 99.5%,
+   FuseNet1's gradients within 1e-3 of each tensor's largest entry; the
+   fuse head's ``_Conv4dStack`` on its 6D route at (1, 60, 60, 60, 60, 1)
+   in fp32 against fp64, and its 16 -> 1 block on 6D against rank-4,
+   outputs and gradients within 1e-4 of the scale; where a fuse flat eval
+   batch's time goes; ``train_att``, ``train_asy`` and ``train_fuse``
+   (``matchnet_ckpt`` a file of the match head of 6d, flat route) at 4
+   steps of 2.
 7. The trainer entry points ``train.train_head.main`` on pascal_mmn.yaml as
    shipped and ``train.train_kshot.main`` at shot 5, with synthetic
    episodes; their validation lines are printed.
@@ -151,54 +168,57 @@ Phases (any failure raises and the script exits non-zero):
     schema (it must log ``=> loaded weight``); (c) an episodic eval batch of
     8 with ``arch vgg``: K1 at VGG's 30x30 features against the plain loop
     (1e-4 * max|acc|), masks against the plain loop's (>= 99.5%), K1 timed
-    beside its bound; (d) ``tools.bench.run`` in every mode with 5 timed
+    beside its bound; (d) ``tools.bench.run`` in every mode with 3 timed
     batches (MMN modes on the flat route, the CWT train step at
     FSS_INNER_TILE=2), each JSON line printed.
 12. The serve artifacts (``tools.export_serve``): the CWT serve program at
     batch 8 on phase 4's calibrated weights and the MMN one
     (configs/pascal_mmn.yaml as shipped, flat route) at batch 4 on phase
-    6's, and the CHM (q route) and DeTr (flat route) ones at batch 4 on
-    phases 6e and 6f's, each exported with ``torch.export`` around the
-    ``fss::`` operators, saved, and loaded in a fresh process that imports
-    only torch and the port's ``ops`` (``tools.serve_loaded``): its masks
-    >= 99.5% equal to eager ``serve_batch``'s, K1 (and for MMN and DeTr
-    pivot_fwd) launched there; export seconds, size and episodes/s loaded vs eager
-    (the serving process turns TF32 off, as the entry points do; the CWT
-    artifact also runs once with TF32 on, printed without a limit).
-    Then ``validate_transformer`` with ``profile_dir`` (1 run x 16
-    episodes): its torch.profiler trace must name K1's kernel.
+    6's, and the CHM (q route), DeTr (flat route) and fuse (flat route,
+    its frozen MatchNet inside) ones at batch 4 on phases 6e, 6f and 6g's,
+    each exported with ``torch.export`` around the ``fss::`` operators,
+    saved, and all loaded in one fresh process that imports only torch and
+    the port's ``ops`` (``tools.serve_loaded``; TF32 off, as the entry
+    points turn it): each one's masks >= 99.5% equal to eager
+    ``serve_batch``'s, K1 (and for MMN, DeTr and fuse pivot_fwd) launched
+    there; export seconds, size, load seconds and episodes/s loaded vs
+    eager (one timed call of each). Then ``validate_transformer`` with
+    ``profile_dir`` (1 run x 8 episodes): its torch.profiler trace must
+    name K1's kernel.
 13. Scale-out (``parallel/dryrun.py``, TF32 off in every process): with
     two or more cards NCCL over ``min(cards, 4)`` processes, one a card;
     with one card two processes on ``cuda:0`` over gloo, named explicitly
     (NCCL refuses two ranks on one card), printed before anything runs. At
     473 px on the calibrated weights of phases 4 and 6: the CWT train step
-    of 8 episodes on the K1 path and on K2 (FSS_INNER_TILE=2), every
+    of 4 episodes on the K1 path and on K2 (FSS_INNER_TILE=2), every
     dropout off, gradients within 1e-3 of each tensor's largest entry of
-    one process's step on the same 8 episodes and inits; the MMN step of
+    one process's step on the same 4 episodes and inits; the MMN step of
     configs/pascal_mmn.yaml as shipped (2 episodes, flat route, head
     dropout off) at phase 6's fp32 (1e-3) and bf16 (L2, max(5e-2, twice
     the bf16 head's spread)) limits against one process running the ranks'
     slices one after another (the backbone's results depend on the batch it
     runs, and the head's gradients amplify that: the distance from one
     process on the whole batch is printed beside it); the stage-1 step at
-    batch 10 (pascal_pretrain.yaml, seeded weights, dropout and mixup off)
+    batch 4 (pascal_pretrain.yaml, seeded weights, dropout and mixup off)
     within 3x the distance between two computations of it in one process
     (its rerun on the batch permuted; torch's batch norm against the
     global-batch BN; 1e-6 at least), BN running statistics within 1e-5 of
     each tensor's largest entry; parameters after each step equal on every
-    rank, bit for bit; one eval batch of 8 gathered against one process's
+    rank, bit for bit; one eval batch of 4 gathered against one process's
     run with each rank's inits, ``validate_transformer`` and
-    ``episodic_validate``; the same steps in one process over NCCL (a group
+    ``episodic_validate`` over 4 episodes; the same steps in one process over NCCL (a group
     of one). Each step's ms per rank, the gradient all-reduce's ms and
     bytes, peak GiB per rank, and each rank's launches of K1, K2,
     pivot_fwd and pivot_dw (every one above 0) beside one process's. Then
-    ``torchrun`` of ``train.train_ddp`` and ``train.train_cwt`` on
-    synthetic episodes: one epoch saved, a second launch resuming it;
+    ``torchrun`` of ``train.train_ddp`` (2 episodes a rank a step) and
+    ``train.train_cwt`` (2 a rank) on synthetic episodes: one epoch saved, a
+    second launch resuming it;
     rank 0 alone writes each ``log.txt``.
 14. A ``kernels`` JSON line (with each kernel's launches on the real-data
     path, K1's in (b)'s episodic validation and its VGG figures, the
-    match head's launches and the pivot pair's figures at 1 -> 10, the CHM
-    and DeTr heads' launches (eval, train step, trainer, artifact), the
+    match head's launches and the pivot pair's figures at 1 -> 10, the CHM,
+    DeTr, att, asy and fuse heads' launches (eval, serve, train step,
+    trainer, artifact), the
     loaded artifacts' launches, and the launches per rank of phase 13
     under ``scale_out``), the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -1007,7 +1027,7 @@ def match_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     cv4 = cv4_phase(cfg, backbone, calib_episodes, episodes, w0, card,
                     (HeadEngine, get_corr))
     return dict(ci1=ci1, eval_launches=launches["flat"], train_launches=train["flat"]["launches"],
-                rates=rates, train=train, cv4=cv4)
+                rates=rates, train=train, cv4=cv4, head_state=module_state(engine.head))
 
 
 def cv4_phase(cfg, backbone, calib_episodes, episodes, w0, card, modules):
@@ -1291,6 +1311,330 @@ def detr_phase(card, calib_images, calib_episodes, modules):
         out[label]["plain_agree"] = plain_agree
         del engine, rows, flat, r4
         torch.cuda.empty_cache()
+    return out
+
+
+# ---- 6g. the attention, transductive and fusion heads ----
+
+
+def counted(fn, counters):
+    """``fn()`` once with the launch counts reset just before it and read just
+    after: (its result, the launches, peak GiB of the call)."""
+    cuda_inner_loop, cuda_pivot = counters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_inner_loop.reset_launches()
+    cuda_pivot.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts(cuda_inner_loop, cuda_pivot), peak_gib()
+
+
+def eval_preds(engine, episodes, w0):
+    """The eval path's (E, H, W, K) ``pred`` and ``pred1`` logits (att and asy
+    have no serving form: their prediction reads the query label)."""
+    with torch.no_grad():
+        preds = [p for _, _, p in engine._predict_batch(engine.to_device(episodes), w0)]
+    return {k: torch.stack([p[k] for p in preds]) for k in ("pred", "pred1")}
+
+
+def eval_step_run(engine, episodes, w0, e_train, counters, serve):
+    """On the route in effect: eval of ``episodes`` counted and timed, its
+    predictions; with ``serve`` serve of them counted and timed (its masks
+    the argmax of the eval path's ``pred``); with ``e_train`` one train step
+    of that many episodes counted (its gradients) and one timed SGD step
+    (the head's weights put back after)."""
+    e = len(episodes["q_img"])
+    r = {}
+    metrics, r["eval_launches"], r["eval_peak_gib"] = counted(
+        lambda: engine.eval_metrics_batch(episodes, w0=w0), counters)
+    r["eval"] = e / host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 1)
+    r["preds"] = eval_preds(engine, episodes, w0)
+    for k in ("inter", "union", "inter1", "union1", "loss"):
+        if not torch.isfinite(metrics[k].float()).all():
+            raise AssertionError(f"{engine.head_type} eval: non-finite {k}")
+    if serve:
+        masks, r["serve_launches"], r["serve_peak_gib"] = counted(
+            lambda: engine.serve_batch(episodes, w0=w0), counters)
+        r["serve"] = e / host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 1)
+        if tuple(masks.shape) != (e, IMG, IMG) or not torch.equal(
+                masks, r["preds"]["pred"].argmax(-1).int()):
+            raise AssertionError(f"{engine.head_type} serve masks differ from the eval path's")
+    if e_train:
+        sub = {k: v[:e_train] for k, v in episodes.items()}
+        saved = {k: v.clone() for k, v in engine.head.state_dict().items()}
+        m, r["train_launches"], r["train_peak_gib"] = counted(
+            lambda: engine.backward_batch(sub, w0=w0[:e_train]), counters)
+        r["loss"] = float(m["loss_mean"])
+        r["grads"] = {k: p.grad.clone() for k, p in engine.head.named_parameters()
+                      if p.grad is not None}
+        step = engine.make_train_step(torch.optim.SGD(engine.head.parameters(),
+                                                      lr=engine.cfg.trans_lr))
+        r["train"] = e_train / host_seconds(lambda: step(sub, w0=w0[:e_train]), 1)
+        engine.head.load_state_dict(saved)
+        if not np.isfinite(r["loss"]) or not r["grads"]:
+            raise AssertionError(f"{engine.head_type} train step: loss {r['loss']}")
+    return r
+
+
+def run_text(r, e, e_train) -> str:
+    parts = [f"eval of {e} {r['eval']:.3f} episodes/s (peak {r['eval_peak_gib']:.2f} GiB; "
+             f"launches {r['eval_launches']})"]
+    if "serve" in r:
+        parts.append(f"serve of {e} {r['serve']:.3f} episodes/s (peak "
+                     f"{r['serve_peak_gib']:.2f} GiB; launches {r['serve_launches']})")
+    if "train" in r:
+        parts.append(f"train step of {e_train} (SGD) {r['train']:.3f} episodes/s (peak "
+                     f"{r['train_peak_gib']:.2f} GiB; launches {r['train_launches']})")
+    return ", ".join(parts)
+
+
+def expect_launches(label, got, k1, pivot_fwd):
+    """K1 ``k1`` times, pivot_fwd ``pivot_fwd`` times, pivot_dw and K2 never."""
+    want = {"adapt_binary": k1, "adapt_binary_tiled": 0, "pivot_fwd": pivot_fwd, "pivot_dw": 0}
+    if {k: got.get(k, 0) for k in want} != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def plain_agreement(engine, episodes, w0, masks, cuda_inner_loop):
+    """The share of pixels where ``masks`` equal the plain path's: the rank-4
+    consensus and K1's plain version."""
+    with consensus_route("rank-4"), plain_inner_loop():
+        cuda_inner_loop.reset_launches()
+        plain = eval_preds(engine, episodes, w0)["pred"].argmax(-1)
+        torch.cuda.synchronize()
+        if cuda_inner_loop.LAUNCHES["adapt_binary"]:
+            raise AssertionError("the plain path launched K1")
+    return float((masks == plain).float().mean())
+
+
+def stack_relu_fixed(stack, x, masks=None):
+    """The fuse stack's two blocks with their ReLUs as masks: each block's
+    own (``y > 0``) or, given ``masks``, another run's. Returns (output,
+    masks). Where a pre-activation lies within rounding of 0, fp32 and fp64
+    mask it differently, and the flip moves the input gradient by a whole
+    term (0.1 of its scale in one run at 473 px): the fp32 run takes the
+    fp64 run's masks, so that the hold reads the convolutions' precision."""
+    y0 = stack[0](x)
+    m0 = (y0 > 0) if masks is None else masks[0]
+    y1 = stack[2](y0 * m0)
+    m1 = (y1 > 0) if masks is None else masks[1]
+    return y1 * m1, (m0, m1)
+
+
+def fuse_stack_holds(stack, card):
+    """The fuse head's ``_Conv4dStack`` on its 6D route at the 473 px shape,
+    (1, 60, 60, 60, 60, 1) -> (1, 60, 60, 30, 30, 1), fp32 against fp64 (the
+    same route, the fp64 run's ReLU masks: ``stack_relu_fixed``); its 16 ->
+    1 block on 6D against rank-4 at its input (1, 60, 60, 30, 30, 16):
+    outputs and gradients within 1e-4 of each one's scale. The stack's
+    biases are set to 0.05 (a seeded stack has zero biases and may be
+    dead)."""
+    import copy
+
+    stack = copy.deepcopy(stack).float()
+    with torch.no_grad():
+        for name, p in stack.named_parameters():
+            if name.endswith("bias"):
+                p.fill_(0.05)
+    g = torch.Generator().manual_seed(12)
+    x64 = torch.rand((1, FEAT, FEAT, FEAT, FEAT, 1), generator=g, dtype=torch.float64).cuda()
+    gy64 = torch.randn((1, FEAT, FEAT, FEAT // 2, FEAT // 2, 1), generator=g,
+                       dtype=torch.float64).cuda()
+    got, masks = {}, None
+    for dtype in (torch.float64, torch.float32):
+        st = copy.deepcopy(stack).to(dtype)
+        x = x64.to(dtype).clone().requires_grad_(True)
+        y, masks = stack_relu_fixed(st, x, masks)
+        y.backward(gy64.to(dtype))
+        got[dtype] = {"y": y.detach(), "dx": x.grad, **{k: p.grad for k, p in
+                                                       st.named_parameters()}}
+        del st, x, y
+    rel64 = {k: float((got[torch.float32][k].double() - w).abs().max() / w.abs().max())
+             for k, w in got[torch.float64].items()}
+    del got, masks
+    c1 = stack[2]
+    x = torch.rand((1, FEAT, FEAT, FEAT // 2, FEAT // 2, 16), generator=g).cuda()
+    gy = torch.randn((1, FEAT, FEAT, FEAT // 2, FEAT // 2, 1), generator=g).cuda()
+    runs = []
+    for bqsc in (False, True):
+        c1.zero_grad(set_to_none=True)
+        xi = (x.reshape(1, FEAT * FEAT, (FEAT // 2) ** 2, 16) if bqsc else x).clone()
+        xi.requires_grad_(True)
+        y = (c1(xi, flat_dims=(FEAT, FEAT, FEAT // 2, FEAT // 2), bqsc=True) if bqsc
+             else c1(xi))
+        y.backward(gy.reshape(y.shape))
+        runs.append({"y": y.detach().reshape(gy.shape), "dx": xi.grad.reshape(x.shape),
+                     **{k: p.grad.clone() for k, p in c1.named_parameters()}})
+    rel_r4 = {k: float((runs[0][k] - w).abs().max() / w.abs().max()) for k, w in runs[1].items()}
+    print(f"fuse _Conv4dStack on the 6D route at (1, 60, 60, 60, 60, 1), fp32 vs fp64 "
+          f"(the fp64 run's ReLU masks): "
+          f"max|v - v64| / max|v64| {rel64} (tolerance 1e-4); its 16 -> 1 block, 6D vs "
+          f"rank-4 at (1, 60, 60, 30, 30, 16): {rel_r4} (tolerance 1e-4) [{card}]")
+    if max(rel64.values()) > 1e-4 or max(rel_r4.values()) > 1e-4:
+        raise AssertionError(f"fuse stack holds: fp64 {rel64}, rank-4 {rel_r4}")
+    return {"fp64": max(rel64.values()), "rank4": max(rel_r4.values())}
+
+
+def att_asy_fuse_phase(card, calib_images, match_state, modules):
+    """Phase 6g: the att head (configs/pascal_asy.yaml, no att config ships)
+    in each ``trans_type`` and at 5 shots, the asy head on the same config,
+    the fuse head (configs/pascal_fuse.yaml) over the match head of 6d on
+    the flat and rank-4 routes, the fuse stack's holds and the three
+    trainers; returns the launch counts and what phase 12 exports."""
+    (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+     cuda_pivot, build_pspnet) = modules
+    counters = (cuda_inner_loop, cuda_pivot)
+    out = {}
+    acfg = merge_cfg_from_list(load_cfg("configs/pascal_asy.yaml"),
+                               ["episode_batch", str(E_MMN)])
+    got = (acfg.image_size, acfg.adapt_iter, acfg.layers, acfg.rmid, acfg.temp, acfg.dist,
+           acfg.trans_type, acfg.heads, acfg.shot, acfg.use_amp)
+    if got != (IMG, STEPS, 50, "nr", 40.0, "cosN", "cross_att", 1, 1, False):
+        raise AssertionError(f"configs/pascal_asy.yaml no longer gives the att/asy path: {got}")
+    backbone = build_pspnet(acfg).to("cuda")
+    calibrate_batchnorm(backbone, calib_images)
+    episodes = make_episode_batch(25, E_MMN, size=IMG, shot=SHOT)
+    for head in ("att", "asy"):
+        engine = HeadEngine(acfg, head, backbone=backbone, device="cuda")
+        w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(11))
+        r = eval_step_run(engine, episodes, w0, 2, counters, serve=False)
+        expect_launches(f"{head} eval", r["eval_launches"], 1, 0)
+        expect_launches(f"{head} train step", r["train_launches"], 1, 0)
+        agree = plain_agreement(engine, episodes, w0, r["preds"]["pred"].argmax(-1),
+                                cuda_inner_loop)
+        live = {k: float(g.abs().max()) for k, g in r["grads"].items()}
+        print(f"{head} ({'cross_att' if head == 'att' else 'gamma'}): {run_text(r, E_MMN, 2)}; "
+              f"kernel-path masks equal to the plain path's (K1's plain version) on "
+              f"{agree:.6f} of pixels (>= 0.995 needed); max|g| per tensor {live} [{card}; fp32, "
+              f"TF32 off, 1-shot, 473 px, adapt_iter {STEPS}]")
+        if agree < 0.995 or not all(v > 0 for v in live.values()):
+            raise AssertionError(f"{head}: kernel vs plain path {agree}, gradients {live}")
+        out[head] = {k: v for k, v in r.items() if k not in ("preds", "grads")}
+        out[head]["plain_agree"] = agree
+        del engine
+    for t in ("mha", "att_blk"):
+        engine = HeadEngine(merge_cfg_from_list(acfg.clone(), ["trans_type", t]), "att",
+                            backbone=backbone, device="cuda")
+        w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(11))
+        r = eval_step_run(engine, episodes, w0, 0, counters, serve=False)
+        expect_launches(f"att {t} eval", r["eval_launches"], 1, 0)
+        print(f"att ({t}): {run_text(r, E_MMN, 0)} [{card}]")
+        out[f"att_{t}"] = {k: v for k, v in r.items() if k != "preds"}
+        del engine
+    engine = HeadEngine(merge_cfg_from_list(acfg.clone(), ["shot", str(SHOT5)]), "att",
+                        backbone=backbone, device="cuda")
+    w0 = engine.init_weights(2, torch.Generator().manual_seed(12))
+    r = eval_step_run(engine, padded_episodes(27, 2, SHOT5), w0, 0, counters, serve=False)
+    expect_launches("att 5-shot eval", r["eval_launches"], 1, 0)
+    print(f"att (cross_att, shot {SHOT5}, episode 0's last shot an all-255 pad): "
+          f"{run_text(r, 2, 0)} [{card}]")
+    out["att_shot5"] = {k: v for k, v in r.items() if k != "preds"}
+    del engine, backbone
+    torch.cuda.empty_cache()
+
+    # ---- fuse over the match head of 6d ----
+    fcfg = merge_cfg_from_list(load_cfg("configs/pascal_fuse.yaml"),
+                               ["episode_batch", str(E_MMN)])
+    got = (fcfg.image_size, fcfg.adapt_iter, fcfg.layers, fcfg.rmid, fcfg.temp, fcfg.att_wt,
+           fcfg.dist, fcfg.shot, fcfg.use_amp, fcfg.matchnet_ckpt)
+    if got != (IMG, STEPS, 50, "mid4", 20.0, 0.4, "cosN", 1, False, None):
+        raise AssertionError(f"configs/pascal_fuse.yaml no longer gives the fuse path: {got}")
+    backbone = build_pspnet(fcfg).to("cuda")
+    calibrate_batchnorm(backbone, calib_images)
+    engine = HeadEngine(fcfg, "fuse", backbone=backbone, device="cuda")
+    engine.frozen_match.load_state_dict(match_state)
+    episodes = make_episode_batch(29, E_MMN, size=IMG, shot=SHOT)
+    w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(13))
+    rows = {}
+    for name in ("flat", "rank-4"):
+        with consensus_route(name):
+            r = eval_step_run(engine, episodes, w0, 2, counters, serve=True)
+        piv = 6 if name == "flat" else 0
+        expect_launches(f"fuse {name} eval", r["eval_launches"], 1, piv * E_MMN)
+        expect_launches(f"fuse {name} serve", r["serve_launches"], 1, piv * E_MMN)
+        expect_launches(f"fuse {name} train step", r["train_launches"], 1, piv * 2)
+        print(f"fuse {name} route: {run_text(r, E_MMN, 2)} [{card}; fp32, TF32 off, 1-shot, "
+              f"473 px, adapt_iter {STEPS}]")
+        rows[name] = r
+    flat, r4 = rows["flat"], rows["rank-4"]
+    agree = {k: float((flat["preds"][k].argmax(-1) == r4["preds"][k].argmax(-1))
+                      .float().mean()) for k in ("pred", "pred1")}
+    g_rel = worst_grad_rel(flat["grads"], r4["grads"])
+    live = all(float(g.abs().max()) > 0 for g in r4["grads"].values())
+    plain_agree = plain_agreement(engine, episodes, w0, flat["preds"]["pred"].argmax(-1),
+                                  cuda_inner_loop)
+    print(f"fuse flat vs rank-4 route: argmax agreement {agree} (>= 0.995 needed); worst "
+          f"FuseNet1 gradient max|g - g_r4| / max|g_r4| {g_rel[0]:.3e} ({g_rel[1]}; tolerance "
+          f"1e-3); kernel-path masks (flat, K1) equal to the plain path's (rank-4, K1's plain "
+          f"version) on {plain_agree:.6f} of pixels (>= 0.995 needed)")
+    if min(agree.values()) < 0.995 or g_rel[0] > 1e-3 or plain_agree < 0.995 or not live:
+        raise AssertionError(f"fuse: flat vs rank-4 {agree} {g_rel} (live {live}), kernel vs "
+                             f"plain path {plain_agree}")
+    with consensus_route("flat"):
+        device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                       f"fuse eval batch of {E_MMN} (flat route), torch.profiler", card,
+                       groups=(("conv (backbone, FuseNet1's 6D plane convs)", ("conv", "fprop",
+                                                                             "implicit")),
+                               ("gemm (correlations, readout, MLP)", ("gemm",)),
+                               ("copies and permutes", ("copy", "permute", "cat")),
+                               ("reductions", ("reduce", "max")),
+                               ("elementwise", ("elementwise", "vectorized"))))
+    out["stack"] = fuse_stack_holds(engine.head.conv4d, card)
+    out["fuse"] = {name: {k: v for k, v in r.items() if k not in ("preds", "grads")}
+                   for name, r in rows.items()}
+    out["fuse"]["plain_agree"] = plain_agree
+    out["serve"] = dict(cfg=fcfg, episodes=episodes, w0=w0, state={
+        "backbone": module_state(engine.backbone), "head": module_state(engine.head),
+        "frozen_match": module_state(engine.frozen_match)})
+    del engine, backbone, rows, flat, r4
+    torch.cuda.empty_cache()
+    out["trainers"] = att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state, counters)
+    return out
+
+
+def att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state, counters):
+    """``train_att`` (configs/pascal_asy.yaml, cross_att), ``train_asy`` and
+    ``train_fuse`` (configs/pascal_fuse.yaml, flat route, ``matchnet_ckpt`` a
+    file of the match head of 6d) on synthetic episodes, 4 steps of 2 and a
+    validation of 4, counted (K1 in each, pivot_fwd in train_fuse only,
+    pivot_dw never); run in a directory of the smoke's own."""
+    from few_shot_seg_cwt_tpu_torch.train import train_asy, train_att, train_fuse, train_head
+
+    os.makedirs("build", exist_ok=True)
+    run_dir = os.path.abspath(tempfile.mkdtemp(prefix="chip_smoke_att_", dir="build"))
+    ckpt = os.path.join(run_dir, "match_best.pt")
+    torch.save(match_state, ckpt)
+    common = ["synthetic_data", "True", "epochs", "1", "iter_per_epoch", "8", "episode_batch",
+              "2", "test_num", "4", "save_models", "False"]
+    out = {}
+    try:
+        for name, path, extra, entry, head, flat in (
+                ("train_att", "configs/pascal_asy.yaml", [], train_att, "att", False),
+                ("train_asy", "configs/pascal_asy.yaml", [], train_asy, "asy", False),
+                ("train_fuse", "configs/pascal_fuse.yaml", ["matchnet_ckpt", ckpt], train_fuse,
+                 "fuse", True)):
+            cfg = merge_cfg_from_list(load_cfg(path), common + extra)
+            lines = []
+            with contextlib.chdir(run_dir), pivot_route(flat):
+                t0 = time.perf_counter()
+                (best, launches, _) = counted(
+                    lambda: entry.main(cfg, device="cuda", log=lines.append), counters)
+                wall = time.perf_counter() - t0
+                log = log_txt_val(train_head.results_dir(cfg, head), "val: mIoU")
+            val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
+            loaded = any(str(l).startswith("=> loaded the frozen MatchNet") for l in lines)
+            print(f"{name}.main ({path}{' ' + ' '.join(extra[:1]) if extra else ''}"
+                  f"{', FSS_PIVOT_MXU=1' if flat else ''}; 4 steps of 2, test_num 4, synthetic "
+                  f"episodes): {val_line}; best {best:.4f}; {wall:.1f} s wall; launches "
+                  f"{launches}; log.txt {log}"
+                  + (f"; frozen MatchNet loaded from matchnet_ckpt: {loaded}" if flat else ""))
+            if launches["adapt_binary"] < 1 or launches["pivot_dw"] or not np.isfinite(best) \
+                    or (launches["pivot_fwd"] > 0) != flat or (flat and not loaded):
+                raise AssertionError(f"{name}: launches {launches}, best {best}, loaded {loaded}")
+            out[name] = launches
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
     return out
 
 
@@ -2440,7 +2784,7 @@ def vgg_phase(card, calib_images, modules):
 
 
 def bench_phase(card):
-    """(d) ``tools.bench.run`` in every mode, 5 timed batches: the pivot
+    """(d) ``tools.bench.run`` in every mode, 3 timed batches: the pivot
     kernels on the flat route in the MMN modes, K2 (FSS_INNER_TILE=2) in
     the CWT train step; each JSON line printed."""
     from few_shot_seg_cwt_tpu_torch.tools import bench
@@ -2449,7 +2793,7 @@ def bench_phase(card):
     for mode in bench.MODES:
         flat = mode.startswith("head")
         with pivot_route(flat), inner_tile(2 if mode == "train" else None):
-            out = bench.run(mode, device="cuda", batches=5, quiet=1)
+            out = bench.run(mode, device="cuda", batches=3, quiet=1)
         print(f"bench {json.dumps(out)}")
         if not (np.isfinite(out["value"]) and np.isfinite(out["mfu"])):
             raise AssertionError(f"bench {mode}: {out}")
@@ -2471,25 +2815,11 @@ def module_state(module) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
 
 
-def run_loaded(path, inputs, out):
-    """``tools/serve_loaded.py`` on an artifact in a fresh process: its
-    JSON result line and its masks."""
-    proc = subprocess.run([sys.executable, "-m", "few_shot_seg_cwt_tpu_torch.tools.serve_loaded",
-                           path, inputs, out, "--reps", "3"],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"{path}: the serving process failed:\n{proc.stderr}")
-    return json.loads(proc.stdout.strip().splitlines()[-1]), torch.load(out, weights_only=True)
-
-
-def serve_artifact(name, engine, export, episodes, w0, work, card, flat=False):
+def stage_artifact(name, engine, export, episodes, w0, work, flat=False):
     """Export ``engine``'s serve program at the batch of ``episodes`` with
-    ``export`` (tracing launches no kernel), save it, and run it in a fresh
-    process that imports only torch and the port's ``ops``
-    (``tools/serve_loaded.py``, TF32 off as in every entry point): its masks
-    against the engine's eager ``serve_batch`` on the same inputs (>= 99.5%
-    equal), its launches, its episodes/s beside eager's. Returns the loaded
-    program's launches and figures."""
+    ``export`` (tracing launches no kernel), save it and its inputs, and run
+    the engine's eager ``serve_batch`` on them once for its masks and once
+    timed. Returns what ``check_artifacts`` reads."""
     e = len(episodes["q_img"])
     path = os.path.join(work, f"{name}_serve.pt2")
     with pivot_route(flat):
@@ -2497,31 +2827,54 @@ def serve_artifact(name, engine, export, episodes, w0, work, card, flat=False):
         exported = export(engine, e)
         export_s = time.perf_counter() - t0
         torch.export.save(exported, path)
-        eager = engine.serve_batch(episodes, w0=w0)
-        eager_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
+        eager = engine.serve_batch(episodes, w0=w0).cpu()
+        eager_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 1)
     inputs = os.path.join(work, f"{name}_inputs.pt")
     torch.save({"s_img": torch.as_tensor(episodes["s_img"]),
                 "s_label": torch.as_tensor(episodes["s_label"]).int(),
                 "q_img": torch.as_tensor(episodes["q_img"]), "w0": w0.cpu()}, inputs)
-    out = os.path.join(work, f"{name}_masks.pt")
-    loaded, masks = run_loaded(path, inputs, out)
-    agree = float((masks == eager.cpu()).float().mean())
-    launches = {k: v for k, v in loaded["launches"].items() if v}
-    heavy = [m for m in loaded["port_modules"]
-             if m.split(".")[1] in ("models", "episodic", "train", "eval", "data")]
-    print(f"{name} serve artifact (batch {e}): export {export_s:.2f} s, "
-          f"{os.path.getsize(path) / 2**20:.1f} MiB; loaded in a fresh process (imports "
-          f"{len(loaded['port_modules'])} port modules, none of models/episodic) in "
-          f"{loaded['load_s']:.2f} s: launches {launches}, masks equal to eager serve_batch "
-          f"on {agree:.6f} of pixels; {loaded['episodes_per_s']:.3f} episodes/s loaded vs "
-          f"{e / eager_s:.3f} eager [{card}]")
-    if heavy:
-        raise AssertionError(f"{name} artifact: the serving process imported {heavy}")
-    if agree < 0.995:
-        raise AssertionError(f"{name} artifact: masks agree with eager on {agree:.4%}")
-    return {"launches": launches, "export_s": export_s,
-            "mib": os.path.getsize(path) / 2**20, "agree": agree,
-            "episodes_per_s": loaded["episodes_per_s"], "eager_episodes_per_s": e / eager_s}
+    return dict(name=name, e=e, path=path, inputs=inputs,
+                out=os.path.join(work, f"{name}_masks.pt"), export_s=export_s, eager=eager,
+                eager_s=eager_s)
+
+
+def check_artifacts(staged, card):
+    """Every staged artifact loaded and served in one fresh process that
+    imports only torch and the port's ``ops`` (``tools/serve_loaded.py``,
+    TF32 off as in every entry point; the artifacts share its start-up):
+    each one's masks against the engine's eager ``serve_batch`` on the same
+    inputs (>= 99.5% equal), its launches, its episodes/s beside eager's.
+    Returns each artifact's launches and figures by name."""
+    args = [a for st in staged for a in (st["path"], st["inputs"], st["out"])]
+    proc = subprocess.run([sys.executable, "-m", "few_shot_seg_cwt_tpu_torch.tools.serve_loaded",
+                           *args, "--reps", "1"], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the serving process failed:\n{proc.stderr}")
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    out = {}
+    for st, line in zip(staged, lines, strict=True):
+        loaded = json.loads(line)
+        name, e = st["name"], st["e"]
+        masks = torch.load(st["out"], weights_only=True)
+        agree = float((masks == st["eager"]).float().mean())
+        launches = {k: v for k, v in loaded["launches"].items() if v}
+        heavy = [m for m in loaded["port_modules"]
+                 if m.split(".")[1] in ("models", "episodic", "train", "eval", "data")]
+        mib = os.path.getsize(st["path"]) / 2**20
+        print(f"{name} serve artifact (batch {e}): export {st['export_s']:.2f} s, {mib:.1f} MiB; "
+              f"loaded in the serving process (imports {len(loaded['port_modules'])} port modules, "
+              f"none of models/episodic) in {loaded['load_s']:.2f} s: launches {launches}, "
+              f"masks equal to eager serve_batch on {agree:.6f} of pixels; "
+              f"{loaded['episodes_per_s']:.3f} episodes/s loaded vs {e / st['eager_s']:.3f} "
+              f"eager [{card}]")
+        if heavy:
+            raise AssertionError(f"{name} artifact: the serving process imported {heavy}")
+        if agree < 0.995:
+            raise AssertionError(f"{name} artifact: masks agree with eager on {agree:.4%}")
+        out[name] = {"launches": launches, "export_s": st["export_s"], "mib": mib,
+                     "agree": agree, "episodes_per_s": loaded["episodes_per_s"],
+                     "eager_episodes_per_s": e / st["eager_s"]}
+    return out
 
 
 def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
@@ -2530,9 +2883,10 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
     flat route at batch 4 (weights of phase 6), (b2) the CHM one
     (pascal_match.yaml with crm_type chm, q route) and the DeTr one
     (pascal_trans.yaml as shipped, flat route) at batch 4 on the weights of
-    phase 6e, each loaded in a fresh process; (c) ``validate_transformer``
-    with ``profile_dir`` (1 run x 16 episodes): the trace names K1's
-    kernel."""
+    phases 6e and 6f, and the fuse one (pascal_fuse.yaml, flat route, its
+    frozen MatchNet inside) on phase 6g's, all loaded in one fresh process;
+    (c) ``validate_transformer`` with ``profile_dir`` (1 run x 8 episodes):
+    the trace names K1's kernel."""
     load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine = modules
     from few_shot_seg_cwt_tpu_torch.eval.validate import validate_transformer
     from few_shot_seg_cwt_tpu_torch.tools import export_serve
@@ -2546,44 +2900,52 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
         engine = EpisodicEngine(cfg, device="cuda")
         engine.backbone.load_state_dict(cwt_state["backbone"])
         engine.cwt.load_state_dict(cwt_state["cwt"])
-        cwt = serve_artifact("CWT", engine, lambda eng, e: export_serve.build_serve_export(
-            cfg, eng, e), episodes, w0, work, card)
-        if cwt["launches"].get("adapt_binary", 0) < 1:
-            raise AssertionError(f"the loaded CWT artifact launched {cwt['launches']}")
+        staged = [stage_artifact("CWT", engine, lambda eng, e: export_serve.build_serve_export(
+            cfg, eng, e), episodes, w0, work)]
 
         mcfg, mmn_state, mmn_episodes, mmn_w0 = mmn
         with pivot_route(True):
             mmn_engine = HeadEngine(mcfg, "mmn", device="cuda")
         mmn_engine.backbone.load_state_dict(mmn_state["backbone"])
         mmn_engine.head.load_state_dict(mmn_state["head"])
-        mmn_art = serve_artifact(
+        staged.append(stage_artifact(
             "MMN", mmn_engine, lambda eng, e: export_serve.build_head_serve_export(
-                mcfg, "mmn", eng, e), mmn_episodes, mmn_w0, work, card, flat=True)
-        if min(mmn_art["launches"].get(k, 0) for k in ("adapt_binary", "pivot_fwd")) < 1:
-            raise AssertionError(f"the loaded MMN artifact launched {mmn_art['launches']}")
+                mcfg, "mmn", eng, e), mmn_episodes, mmn_w0, work, flat=True))
         del mmn_engine
 
-        head_arts = {}
-        for head, flat in (("chm", False), ("detr", True)):
+        names = {"chm": "CHM", "detr": "DeTr", "fuse": "fuse"}
+        flats = {"chm": False, "detr": True, "fuse": True}
+        for head, flat in flats.items():
             h = heads[head]
             with pivot_route(flat):
                 h_engine = HeadEngine(h["cfg"], head, device="cuda")
             h_engine.backbone.load_state_dict(h["state"]["backbone"])
             h_engine.head.load_state_dict(h["state"]["head"])
-            head_arts[head] = serve_artifact(
-                head.upper() if head == "chm" else "DeTr", h_engine,
+            if "frozen_match" in h["state"]:
+                h_engine.frozen_match.load_state_dict(h["state"]["frozen_match"])
+            staged.append(stage_artifact(
+                names[head], h_engine,
                 lambda eng, e, c=h["cfg"], ht=head: export_serve.build_head_serve_export(
-                    c, ht, eng, e), h["episodes"], h["w0"], work, card, flat=flat)
+                    c, ht, eng, e), h["episodes"], h["w0"], work, flat=flat))
+            del h_engine
+            torch.cuda.empty_cache()
+
+        arts = check_artifacts(staged, card)
+        cwt, mmn_art = arts["CWT"], arts["MMN"]
+        if cwt["launches"].get("adapt_binary", 0) < 1:
+            raise AssertionError(f"the loaded CWT artifact launched {cwt['launches']}")
+        if min(mmn_art["launches"].get(k, 0) for k in ("adapt_binary", "pivot_fwd")) < 1:
+            raise AssertionError(f"the loaded MMN artifact launched {mmn_art['launches']}")
+        head_arts = {head: arts[names[head]] for head in flats}
+        for head, flat in flats.items():
             need = ("adapt_binary", "pivot_fwd") if flat else ("adapt_binary",)
             got = head_arts[head]["launches"]
             if min(got.get(k, 0) for k in need) < 1 or (not flat and got.get("pivot_fwd")):
                 raise AssertionError(f"the loaded {head} artifact launched {got}")
-            del h_engine
-            torch.cuda.empty_cache()
 
         # ---- the profiler trace of validate_transformer ----
         pcfg = merge_cfg_from_list(cfg.clone(), [
-            "synthetic_data", "True", "test_num", "16", "n_runs", "1",
+            "synthetic_data", "True", "test_num", str(E), "n_runs", "1",
             "profile_dir", os.path.join(work, "profile")])
         lines = []
         miou, _ = validate_transformer(pcfg, engine, episodic_val_loader(pcfg, device="cuda"),
@@ -2594,7 +2956,7 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
         k1 = [ev for ev in events if ev.get("cat") == "kernel"
               and "adapt_binary_kernel" in ev.get("name", "")]
         ops = sum(1 for ev in events if ev.get("name") == "fss::adapt_binary")
-        print(f"validate_transformer with profile_dir (1 run x 16 episodes, mIoU {miou:.4f}): "
+        print(f"validate_transformer with profile_dir (1 run x {E} episodes, mIoU {miou:.4f}): "
               f"{os.path.getsize(trace) / 2**20:.1f} MiB Chrome trace, {len(events)} events, "
               f"{len(k1)} adapt_binary_kernel launches ({sum(ev['dur'] for ev in k1) / 1e3:.3f} "
               f"ms), {ops} fss::adapt_binary operator calls [{card}]")
@@ -2602,8 +2964,7 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
             raise AssertionError("the profile_dir trace does not name K1's kernel")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"cwt": cwt, "mmn": mmn_art, "chm": head_arts["chm"], "detr": head_arts["detr"],
-            "trace_k1": len(k1)}
+    return {"cwt": cwt, "mmn": mmn_art, **head_arts, "trace_k1": len(k1)}
 
 
 def tools_on_tree(root, load_cfg, merge_cfg_from_list):
@@ -2681,10 +3042,10 @@ def scale_out_layout():
 
 def scale_out_phase(card, cwt_state, mmn_state):
     """``parallel/dryrun.py`` at full width (473 px, ResNet-50, adapt_iter
-    200, TF32 off in every process): the CWT train step of 8 on K1 and K2,
+    200, TF32 off in every process): the CWT train step of 4 on K1 and K2,
     the MMN step of pascal_mmn.yaml as shipped (flat route, fp32 and bf16
-    head), the stage-1 step at batch 10 (dropout and mixup off, the JAX
-    package's self-calibrating bar), one gathered eval batch of 8,
+    head), the stage-1 step at batch 4 (dropout and mixup off, the JAX
+    package's self-calibrating bar), one gathered eval batch of 4,
     ``validate_transformer`` and ``episodic_validate``, and the collectives;
     a reference process runs each step alone and in a group of one over
     NCCL. Every row must hold; every rank must launch K1, K2, pivot_fwd and
@@ -2700,8 +3061,10 @@ def scale_out_phase(card, cwt_state, mmn_state):
     spec["cwt"]["weights"] = spec["eval"]["weights"] = spec["validate"]["weights"] = cwt_state
     spec["mmn"]["weights"] = mmn_state
     spec["mmn"]["episodes"] = max(2, world)
-    spec["pretrain"]["batch"] = 10 if 10 % world == 0 else -(-10 // world) * world
-    spec["validate"]["episodes"] = max(4, world)
+    # batches of 4: the run's time is cut here by depth, every step kept
+    spec["cwt"]["episodes"] = spec["eval"]["episodes"] = max(4, world)
+    spec["pretrain"]["batch"] = max(4, world)
+    spec["validate"]["episodes"] = spec["validate"]["test_num"] = max(4, world)
     os.makedirs("build", exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir="build")
     t0 = time.perf_counter()
@@ -2770,9 +3133,9 @@ def torchrun_trainers_phase(card):
             "synthetic_data", "True", "epochs", "2", "iter_per_epoch", str(2 * e),
             "episode_batch", str(e), "test_num", str(2 * e), "save_models", "True"]),
         "train_cwt": ("configs/pascal.yaml", [
-            "synthetic_data", "True", "epochs", "2", "iter_per_epoch", str(2 * E),
-            "episode_batch", str(E), "test_num", str(E), "n_runs", "1", "save_models", "True",
-            "model_dir", os.path.join(run_dir, "model")]),
+            "synthetic_data", "True", "epochs", "2", "iter_per_epoch", str(2 * 2 * e),
+            "episode_batch", str(2 * e), "test_num", str(2 * e), "n_runs", "1",
+            "save_models", "True", "model_dir", os.path.join(run_dir, "model")]),
     }
     out = {}
     try:
@@ -3098,6 +3461,14 @@ def main() -> int:
 
     lap("6f (DeTr)")
 
+    # ---- 6g. att, asy and fuse (its frozen MatchNet the match head of 6d) ----
+    att = att_asy_fuse_phase(card, calib_images, match.pop("head_state"), (
+        load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
+        cuda_pivot, build_pspnet))
+    torch.cuda.empty_cache()
+
+    lap("6g (att, asy, fuse)")
+
     # ---- 7. the head trainer's entry point (flat route) ----
     hcfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"), [
         "synthetic_data", "True", "epochs", "1", "iter_per_epoch", "8",
@@ -3174,9 +3545,9 @@ def main() -> int:
 
     # ---- 12. the tools: serve artifacts, the profiler trace ----
     tools = tools_phase(card, cwt_state, episodes, w0, mmn_serve,
-                        {"chm": chm, "detr": detr["serve"]}, (
+                        {"chm": chm, "detr": detr["serve"], "fuse": att["serve"]}, (
                             load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine))
-    del chm["state"], detr["serve"]
+    del chm["state"], detr["serve"], att["serve"]
 
     lap("12 (artifacts)")
 
@@ -3212,6 +3583,20 @@ def main() -> int:
                  "sf_att_launches": detr["sf_att"]["flat"]["eval_launches"]["adapt_binary"],
                  "train_trans_launches": real["train_trans_launches"]["adapt_binary"],
                  "loaded_artifact_launches": tools["detr"]["launches"].get("adapt_binary", 0)},
+        "att": {"launches": att["att"]["eval_launches"]["adapt_binary"],
+                "train_launches": att["att"]["train_launches"]["adapt_binary"],
+                "mha_launches": att["att_mha"]["eval_launches"]["adapt_binary"],
+                "att_blk_launches": att["att_att_blk"]["eval_launches"]["adapt_binary"],
+                "shot5_launches": att["att_shot5"]["eval_launches"]["adapt_binary"],
+                "train_att_launches": att["trainers"]["train_att"]["adapt_binary"]},
+        "asy": {"launches": att["asy"]["eval_launches"]["adapt_binary"],
+                "train_launches": att["asy"]["train_launches"]["adapt_binary"],
+                "train_asy_launches": att["trainers"]["train_asy"]["adapt_binary"]},
+        "fuse": {"launches": att["fuse"]["flat"]["eval_launches"]["adapt_binary"],
+                 "serve_launches": att["fuse"]["flat"]["serve_launches"]["adapt_binary"],
+                 "train_launches": att["fuse"]["flat"]["train_launches"]["adapt_binary"],
+                 "train_fuse_launches": att["trainers"]["train_fuse"]["adapt_binary"],
+                 "loaded_artifact_launches": tools["fuse"]["launches"].get("adapt_binary", 0)},
         "pretrain_episodic_val": {"launches": pre["episodic"]["launches"]},
         "loaded_artifacts": {"cwt_launches": tools["cwt"]["launches"].get("adapt_binary", 0),
                              "mmn_launches": tools["mmn"]["launches"].get("adapt_binary", 0),
@@ -3252,6 +3637,11 @@ def main() -> int:
                  "sf_att_launches": detr["sf_att"]["flat"]["eval_launches"]["pivot_fwd"],
                  "train_trans_launches": real["train_trans_launches"]["pivot_fwd"],
                  "loaded_artifact_launches": tools["detr"]["launches"].get("pivot_fwd", 0)},
+        "fuse": {"launches": att["fuse"]["flat"]["eval_launches"]["pivot_fwd"],
+                 "serve_launches": att["fuse"]["flat"]["serve_launches"]["pivot_fwd"],
+                 "train_launches": att["fuse"]["flat"]["train_launches"]["pivot_fwd"],
+                 "train_fuse_launches": att["trainers"]["train_fuse"]["pivot_fwd"],
+                 "loaded_artifact_launches": tools["fuse"]["launches"].get("pivot_fwd", 0)},
         "match_1_to_10": {"launches": match["eval_launches"]["pivot_fwd"],
                           "max_abs_err": match["ci1"]["fwd_err"], "ms": match["ci1"]["fwd_ms"],
                           "plain_ms": match["ci1"]["fwd_plain_ms"],
@@ -3276,6 +3666,8 @@ def main() -> int:
         "detr": {"launches": detr["shipped"]["flat"]["train_launches"]["pivot_dw"],
                  "sf_att_launches": detr["sf_att"]["flat"]["train_launches"]["pivot_dw"],
                  "train_trans_launches": real["train_trans_launches"]["pivot_dw"]},
+        "fuse": {"train_launches": att["fuse"]["flat"]["train_launches"]["pivot_dw"],
+                 "train_fuse_launches": att["trainers"]["train_fuse"]["pivot_dw"]},
         "match_1_to_10": {"launches": match["train_launches"]["pivot_dw"],
                           "max_abs_err": match["ci1"]["dw_err"], "ms": match["ci1"]["dw_ms"],
                           "plain_ms": match["ci1"]["dw_plain_ms"],

@@ -1,10 +1,13 @@
-"""Episodic engine for the extension heads: MMN, the match head, CHM and DeTr.
+"""Episodic engine for the extension heads: MMN, match, CHM, DeTr, att, asy, fuse.
 
 Counterpart of ``few_shot_seg_cwt_tpu.episodic.heads.HeadEngine`` for
 ``head_type "mmn"`` (reference: src/train_kshot.py:128-190), ``"match"``
 (MatchNet, src/train_match.py:123-190 and :318-322), ``"chm"`` (the
-convolutional Hough matcher, ``crm_type chm`` of src/train_match.py) and
-``"detr"`` (src/train_trans.py:118-175):
+convolutional Hough matcher, ``crm_type chm`` of src/train_match.py),
+``"detr"`` (src/train_trans.py:118-175), ``"att"`` (the attention variants,
+src/train_att.py:140-190), ``"asy"`` (the transductive gamma blend,
+src/train_asy.py:130-170) and ``"fuse"`` (FuseNet1 over a frozen MatchNet,
+src/train_fuse.py:130-190):
 
   frozen backbone features with block-level taps (one pass over the batch)
   -> inner-loop adaptation of the episodic classifier (CUDA kernel K1)
@@ -28,15 +31,25 @@ augmented] support pair (``_select_support_stream``). Match, CHM and DeTr:
 1-shot only; the match head's cycle-consistency mask and ``ignore``
 re-readout run at eval only, as in the reference. CHM reads the match
 head's tap, halved, and its readout has the tap's side again. DeTr reads
-the last block of every ``rmid`` stage. ``remat_head`` puts each episode's
+the last block of every ``rmid`` stage. ``att``, ``asy`` and ``fuse`` read
+the match head's tap and run one episode at a time: ``att`` attends from
+the query tap to every shot's (padded shots zeroed and masked), with the
+support ignore mask of ``get_ig_mask`` as a -1000 bias; ``asy`` trains one
+standalone scalar, the ``outer_forward`` blend's gamma (0.2 at init);
+``fuse`` filters the tap's correlation with a frozen MatchNet
+(``frozen_match``, outside the head's parameters and ``state_dict``, run
+under ``torch.no_grad``: the JAX ``stop_gradient``; its consensus takes
+the route in effect, the pivot kernels on the flat route) and learns
+FuseNet1's per-pixel blend of its readout and the query feature. ``att``
+and ``asy`` read the query label in their prediction (the ignore mask), so
+they have no serving form, as in JAX. ``remat_head`` puts each episode's
 whole loss under ``torch.utils.checkpoint`` in the train step (None: for
 CHM only, ``head_remat_default``). Under ``use_amp`` (or another bf16 stage
 policy) the backbone runs bf16 and its features come back to fp32; the
 train step under ``use_amp`` also runs the head in bf16 (``_amp_head``),
 while eval and serve keep the head in fp32, as the JAX package does.
 Classifier inits come from a ``torch.Generator`` or are injected (``w0=``,
-(E, K, C)). Episodes are the NHWC dicts of ``episodic.engine``. Not ported:
-the other heads (ROADMAP queue 1 item 10).
+(E, K, C)). Episodes are the NHWC dicts of ``episodic.engine``.
 """
 
 from __future__ import annotations
@@ -46,16 +59,20 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..models.att_zoo import build_attention_variant
 from ..models.chm import CHMLearner
 from ..models.conv4d import init_conv_parameters
 from ..models.detr import build_detr, detr_stages
+from ..models.fusion import FuseNet1
 from ..models.matching import MatchNet, block_remat_default
 from ..models.mmn import FEATURE_CHANNELS, build_mmn
 from ..models.pspnet import apply_classifier, build_pspnet, cast_backbone, stage_dtype_policy
 from ..models.vgg import VGG16_STAGES
-from ..ops.episode_utils import att_weighted_out, get_ig_mask
+from ..ops.corr import get_corr
+from ..ops.episode_utils import att_weighted_out, get_ig_mask, outer_forward
 from ..ops.losses import class_balance_weights, cross_entropy, seg_loss, weighted_cross_entropy
 from ..ops.metrics import intersection_and_union
 from ..ops.resize import upsample_bilinear_ac
@@ -64,8 +81,10 @@ from .engine import EPISODE_KEYS, episodes_to_device, init_weights, pick_w0
 from .inner_loop import adapt_classifier_batch
 
 HEAD_TYPES = ("mmn", "detr", "match", "chm", "att", "asy", "fuse")
-# ROADMAP queue 1 item of each head that is not ported yet
-_UNPORTED = {"att": 10, "asy": 10, "fuse": 10}
+# heads whose deterministic prediction never reads the query label
+SERVABLE = ("mmn", "match", "chm", "detr", "fuse")
+# heads that read one backbone tap, the match head's (``match_stage``)
+_TAP_HEADS = ("match", "chm", "att", "asy", "fuse")
 
 
 def head_remat_default(cfg, head_type: str) -> bool:
@@ -125,6 +144,27 @@ def build_chm(cfg, generator: Optional[torch.Generator] = None) -> CHMLearner:
                       generator=_seeded(cfg, generator))
 
 
+class AsyGamma(nn.Module):
+    """The ``asy`` head's one trainable: the ``outer_forward`` blend's gamma,
+    a standalone scalar that starts at 0.2 (JAX train/train_head.py:72-73;
+    the backbone's own ``gamma`` is never read)."""
+
+    def __init__(self, value: float = 0.2):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.tensor(float(value)))
+
+
+def build_frozen_match(cfg, generator: Optional[torch.Generator] = None) -> MatchNet:
+    """The ``fuse`` head's frozen MatchNet (src/train_fuse.py:100): centre-pivot,
+    one correlation channel, the config's temperature; a seeded random init
+    (``manual_seed`` + 3) until ``train_head.init_frozen_match`` loads
+    ``matchnet_ckpt``."""
+    model = MatchNet(temp=cfg.temp, cv_type="red", in_channel=1)
+    init_conv_parameters(model, generator if generator is not None else
+                         torch.Generator().manual_seed(int(cfg.get("manual_seed") or 0) + 3))
+    return model
+
+
 def build_head(cfg, head_type: str):
     if head_type == "mmn":
         return build_mmn(cfg)
@@ -135,9 +175,17 @@ def build_head(cfg, head_type: str):
     if head_type == "detr":
         return build_detr(cfg, in_dim=sum(stage_channels(cfg, s)
                                           for s in detr_stages(cfg.rmid)))
-    if head_type in _UNPORTED:
-        raise NotImplementedError(f"head {head_type!r} is not ported (ROADMAP "
-                                  f"queue 1 item {_UNPORTED[head_type]})")
+    if head_type == "att":
+        return build_attention_variant(cfg, stage_channels(cfg, match_stage(cfg)),
+                                       _seeded(cfg, None))
+    if head_type == "fuse":
+        # the pooled correlation's side: the feature side through the
+        # stride-2 pivot conv (473 px -> 60 -> 30); two K-way prediction maps
+        feat_h = (int(cfg.image_size) - 1) // 8 + 1
+        return FuseNet1(im_size=(feat_h - 1) // 2 + 1, mid_dim=256,
+                        pd_channels=2 * int(cfg.num_classes_tr), generator=_seeded(cfg, None))
+    if head_type == "asy":
+        return AsyGamma()
     raise ValueError(f"unknown head {head_type}")
 
 
@@ -145,7 +193,7 @@ class HeadEngine:
     """Eval, serve and train-step programs of one head, on one device."""
 
     def __init__(self, cfg, head_type: str = "mmn", backbone=None, head=None,
-                 device="cuda"):
+                 device="cuda", frozen_match: Optional[MatchNet] = None):
         if head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head {head_type}")
         if head_type in ("detr", "match", "chm") and int(cfg.shot) > 1:
@@ -166,6 +214,11 @@ class HeadEngine:
         self.backbone.requires_grad_(False)
         self.head = (head if head is not None
                      else build_head(cfg, head_type)).to(self.device)
+        self.frozen_match = None
+        if head_type == "fuse":
+            self.frozen_match = (frozen_match if frozen_match is not None
+                                 else build_frozen_match(cfg)).to(self.device).eval()
+            self.frozen_match.requires_grad_(False)
         self.num_classes = cfg.num_classes_tr
         self.image_size = cfg.image_size
 
@@ -182,7 +235,7 @@ class HeadEngine:
 
     def _stages(self):
         """The backbone taps the head reads."""
-        if self.head_type in ("match", "chm"):
+        if self.head_type in _TAP_HEADS:
             return [match_stage(self.cfg)]
         if self.head_type == "detr":
             return detr_stages(self.cfg.rmid)
@@ -439,8 +492,93 @@ class HeadEngine:
             loss = loss + aux * crit(pred)
         return loss, {"pred1": pred1, "pred": pred}
 
+    # ------------------------------------------------------------------ #
+    # the attention, transductive and fusion heads
+    # ------------------------------------------------------------------ #
+
+    def _tap(self, parts: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        key = match_stage(self.cfg)
+        return parts["fq_feats"][key][-1], parts["fs_feats"][key][-1]
+
+    def _loss_att(self, parts: Dict, episode: Dict, det: bool = False):
+        """One episode: the attention variant from the query tap's tokens to
+        every shot's, values the shots' bottleneck features, the support
+        ignore mask (of shot 0, tiled over the shots) as a -1000 bias;
+        class-balanced CE of the classifier on its output (JAX
+        ``_loss_att``). Padded shots' k and v are zeroed before the head and
+        every pixel of theirs masked: the bias is soft, the zeroing makes
+        the mask hard."""
+        qw = class_balance_weights(episode["q_label"], self.num_classes)
+        fq_fea, fs_fea = self._tap(parts)
+        shot = fs_fea.shape[0]
+        _, h, w, dk = fq_fea.shape
+        sim = get_corr(fq_fea, fs_fea[:1])
+        ig_mask = get_ig_mask(sim, episode["s_label"][:1], episode["q_label"][None],
+                              parts["pd_q0"], parts["pd_s"][:1])
+        valid = parts["s_valid"][:, None, None, None].to(fs_fea.dtype)
+        q = fq_fea.reshape(1, h * w, dk)
+        k = (fs_fea * valid).reshape(1, shot * h * w, dk)
+        v = (parts["f_s"] * valid).reshape(1, shot * h * w, -1)
+        idt = parts["f_q"].reshape(1, h * w, -1)
+        if shot > 1:
+            pad_pix = torch.repeat_interleave(parts["s_valid"] < 0.5, h * w)[None, :]
+            ig_mask = ig_mask.repeat(1, shot) | pad_pix
+        upd, _ = self.head(k, v, q, idt, ig_mask, deterministic=det)
+        pred = self._cls_up(parts["w"], upd.reshape(1, h, w, -1))[0]
+        return weighted_cross_entropy(pred, episode["q_label"], qw), {"pred1": pred,
+                                                                      "pred": pred}
+
+    def _loss_asy(self, parts: Dict, episode: Dict):
+        """One episode: the transductive blend of shot 0 (``outer_forward``
+        with the head's gamma, ``temp``, ``dist``), class-balanced CE of the
+        classifier on it (JAX ``_loss_asy``)."""
+        cfg = self.cfg
+        qw = class_balance_weights(episode["q_label"], self.num_classes)
+        fq_fea, fs_fea = self._tap(parts)
+        out, _, _ = outer_forward(parts["f_q"], parts["f_s"][:1], fq_fea, fs_fea[:1],
+                                  episode["s_label"][:1], episode["q_label"][None],
+                                  parts["pd_q0"], parts["pd_s"][:1], self.head.gamma,
+                                  temp=cfg.temp, dist=cfg.get("dist", "dot"))
+        pred = self._cls_up(parts["w"], out)[0]
+        return weighted_cross_entropy(pred, episode["q_label"], qw), {"pred1": pred,
+                                                                      "pred": pred}
+
+    def _loss_fuse(self, parts: Dict, episode: Dict):
+        """One episode (JAX ``_loss_fuse``): the frozen MatchNet filters the
+        tap's correlation and reads out the support features (no gradient);
+        FuseNet1 weighs, per pixel, that readout against the query feature
+        from the filtered and the bottleneck correlations, the support mask
+        (255 -> 0, align-corners resized to im_size) and the raw and readout
+        predictions; the loss is the disagreement-weighted CE."""
+        fq_fea, fs_fea = self._tap(parts)
+        _, h, w, _ = parts["f_q"].shape
+        l_corr0 = get_corr(fq_fea[:1], fs_fea[:1]).reshape(1, h, w, h, w, 1)
+        h_corr = get_corr(parts["f_q"], parts["f_s"][:1]).reshape(1, h, w, h, w)
+        with torch.no_grad():
+            corr2d, wv = self.frozen_match.corr_forward(l_corr0, parts["f_s"][:1],
+                                                        ret_attn=True)
+        l_corr = corr2d.reshape(1, h, w, h, w)
+        pd_q1 = apply_classifier(parts["w"], wv)
+        pred1 = self._up(pd_q1)[0]
+        pred0 = self._up(parts["pd_q0"])[0]
+        im = self.head.im_size
+        s_lab = episode["s_label"][:1]
+        s_mask = torch.where(s_lab == 255, torch.zeros_like(s_lab), s_lab)
+        s_mask = upsample_bilinear_ac(s_mask[..., None].float(), (im, im))
+        wt = self.head([l_corr, h_corr], s_mask, [parts["pd_q0"].detach(), pd_q1.detach()])
+        out = wv * wt[..., 0:1] + parts["f_q"] * wt[..., 1:2]
+        pred = self._cls_up(parts["w"], out)[0]
+        return disagreement_loss(pred, pred0, pred1, episode["q_label"]), {"pred1": pred1,
+                                                                           "pred": pred}
+
     def _loss(self, parts: Dict, episode: Dict, det: bool = False, head_out=None,
               train: bool = False):
+        if self.head_type == "att":
+            return self._loss_att(parts, episode, det)
+        if self.head_type == "asy":
+            return self._loss_asy(parts, episode)
+        if self.head_type == "fuse":
+            return self._loss_fuse(parts, episode)
         if self.head_type == "match":
             return self._loss_match(parts, episode, det, head_out, train)
         if self.head_type == "chm":
@@ -452,7 +590,10 @@ class HeadEngine:
     def _head_chunk(self, pieces) -> list:
         """The head's output for several episodes in one batched
         deterministic call: ``pieces`` are (part, episode) pairs of
-        ``_one``; returns each episode's ``head_out`` for ``_loss``."""
+        ``_one``; returns each episode's ``head_out`` for ``_loss`` (None for
+        att, asy and fuse, which run per episode whatever the tile)."""
+        if self.head_type in ("att", "asy", "fuse"):
+            return [None] * len(pieces)
         if self.head_type in ("match", "chm", "detr"):
             cat = _cat_parts([p for p, _ in pieces])
             if self.head_type == "chm":
@@ -491,11 +632,14 @@ class HeadEngine:
         fp32 master, so the head computes in bf16 and the gradients flow
         back through the casts to the masters (the per-shot and per-block
         checkpoints recompute inside the backward, so they see the same
-        casts). bf16 has fp32's exponent range: no loss scaling."""
+        casts). The fuse head's frozen MatchNet is cast alike (JAX casts
+        the frozen variables too). bf16 has fp32's exponent range: no loss
+        scaling."""
         if not self.cfg.get("use_amp", False):
             yield
             return
-        masters = [(m, name, p) for m in self.head.modules()
+        owners = [self.head] + ([self.frozen_match] if self.frozen_match is not None else [])
+        masters = [(m, name, p) for owner in owners for m in owner.modules()
                    for name, p in m._parameters.items()
                    if p is not None and p.is_floating_point()]
         try:
@@ -630,7 +774,11 @@ class HeadEngine:
                       w0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Label-free deterministic predictions for E episodes: ``pred1`` (the
         attention readout alone) and ``pred`` (blended into the query
-        feature), (E, H, W, K) logits each. The query label is never read."""
+        feature), (E, H, W, K) logits each. The query label is never read:
+        att and asy, whose prediction reads it, raise."""
+        if self.head_type not in SERVABLE:
+            raise ValueError(f"head '{self.head_type}' has no label-free serving form "
+                             "(its prediction consumes the query-label ignore mask)")
         if self.head_type == "match" and self.cfg.get("ignore", False):
             raise ValueError("match-head serving requires `ignore False`: the eval-time "
                              "ig-mask re-readout consumes the query label")

@@ -19,6 +19,8 @@ from .mmn import MMN, build_mmn
 from .chm import CHM4d, CHM6d, CHMLearner
 from .deform import DeformAtt, MSDeformAttn, grid_sample_bilinear, sine_positional_encoding
 from .detr import DeTr, build_detr
+from .att_zoo import MHA, AttentionBlock, CrossAttention, LinearDiag, build_attention_variant
+from .fusion import DynamicFusion, FuseNet, FuseNet1
 
 __all__ = [
     "RESNET_DEPTHS",
@@ -56,4 +58,12 @@ __all__ = [
     "sine_positional_encoding",
     "DeTr",
     "build_detr",
+    "CrossAttention",
+    "MHA",
+    "AttentionBlock",
+    "LinearDiag",
+    "build_attention_variant",
+    "DynamicFusion",
+    "FuseNet",
+    "FuseNet1",
 ]

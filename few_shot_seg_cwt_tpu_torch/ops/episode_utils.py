@@ -1,7 +1,7 @@
-"""Episode-level mask utilities for the match head's ``ignore`` readout.
+"""Episode-level mask utilities: the ignore mask, the readouts.
 
 Counterpart of part of ``few_shot_seg_cwt_tpu.ops.episode_utils``
-(reference: src/model/model_util.py:178-236):
+(reference: src/model/model_util.py:178-236, src/model/pspnet.py:224-256):
 
 * ``masked_quantile``: ``torch.quantile`` over the masked entries, linear
   interpolation, by a sort of the whole vector with masked-out entries
@@ -11,19 +11,23 @@ Counterpart of part of ``few_shot_seg_cwt_tpu.ops.episode_utils``
   support prediction;
 * ``att_weighted_out`` (src:224-236): the softmax readout with ignored
   entries set to 1e-5 (MatchNet's own readout uses 1e-4, as the
-  reference's two sites do).
+  reference's two sites do);
+* ``outer_forward`` (src/model/pspnet.py:224-256): the transductive
+  softmax blend of the ``asy`` head, ``(weighted_v * gamma + f_q) / (1 +
+  gamma)``.
 
-The rest of the JAX module (``outer_forward``, the reset and compress
-helpers of the incremental trainers) is not ported (ROADMAP queue 1 item
-10).
+The rest of the JAX module (``reset_cls_wt``, ``reset_spt_label``,
+``adapt_reset_spt_label_np``, ``compress_pred`` and ``pred2bmask``, the
+incremental trainers' helpers) is not ported (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from .corr import get_corr, l2norm
 from .resize import resize_nearest
 
 
@@ -86,3 +90,32 @@ def att_weighted_out(sim: torch.Tensor, v: torch.Tensor, temp: float = 20.0,
         sim = torch.where(ig_mask[:, None, :], torch.full_like(sim, 1e-5), sim)
     attn = torch.softmax(sim * temp, dim=-1)
     return torch.bmm(attn.float(), v.reshape(b, -1, c).float()).reshape(b, h, w, c)
+
+
+def outer_forward(f_q: torch.Tensor, f_s: torch.Tensor, fq_fea: torch.Tensor,
+                  fs_fea: torch.Tensor, s_label: torch.Tensor, q_label: torch.Tensor,
+                  pd_q0: torch.Tensor, pd_s: torch.Tensor, gamma: torch.Tensor,
+                  temp: float = 20.0, dist: str = "dot"
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The transductive attention blend: (blended query feature (B, h, w, C),
+    correlation (B, h, w, h, w), ignore mask (B, N_s)); the caller
+    classifies.
+
+    f_q, f_s (B, h, w, C) bottleneck features; fq_fea, fs_fea (B, h, w, C2)
+    the tap the correlation reads; labels and logits as ``get_ig_mask``.
+    Ignored support entries are set to 1e-5 before ``softmax(sim * temp)``.
+    Only ``dist "cos"`` L2-normalises f_s and f_q; every other value
+    (``cosN`` too, which configs/pascal_asy.yaml ships) reads them as they
+    are, as the JAX package does."""
+    b, h, w, c = f_q.shape
+    sim = get_corr(fq_fea, fs_fea)
+    corr = sim.reshape(b, h, w, h, w)
+    ig_mask = get_ig_mask(sim, s_label, q_label, pd_q0, pd_s)
+    sim = torch.where(ig_mask[:, None, :], torch.full_like(sim, 1e-5), sim)
+    proj_v = f_s
+    if dist == "cos":
+        proj_v = l2norm(proj_v, dim=-1)
+        f_q = l2norm(f_q, dim=-1)
+    attn = torch.softmax(sim * temp, dim=-1)
+    weighted_v = torch.bmm(attn, proj_v.reshape(b, -1, c).to(attn.dtype)).reshape(b, h, w, c)
+    return (weighted_v * gamma + f_q) / (1.0 + gamma), corr, ig_mask

@@ -32,7 +32,11 @@ directory, with the files each rank wrote; ``chm`` and ``detr``, the CHM
 head's train step (configs/pascal_match.yaml with ``crm_type chm``, the
 default ``FSS_CONV4D_IM2COL`` route, its whole-loss checkpoint) and the
 DeTr head's (configs/pascal_trans.yaml on the flat consensus route, the
-pivot kernels), in fp32, held as the MMN step's fp32 head is.
+pivot kernels); ``att``, ``asy`` and ``fuse``, the attention head's step
+(configs/pascal_asy.yaml, ``cross_att``, its dropout off), the gamma
+step (the same config) and the fusion head's (configs/pascal_fuse.yaml,
+its frozen MatchNet on the flat route with live biases); each in fp32,
+held as the MMN step's fp32 head is.
 
 Every check prints one JSON line with its error against its limit, the
 ranks' launches of each kernel beside the reference's, each step's ms and
@@ -60,7 +64,14 @@ import numpy as np
 import torch
 
 CHECKS = ("cwt", "mmn", "pretrain", "eval", "validate", "collectives", "trainers", "chm",
-          "detr")
+          "detr", "att", "asy", "fuse")
+# the head steps of run_head, and the config each runs on
+HEAD_CONFIGS = {"chm": "configs/pascal_match.yaml", "detr": "configs/pascal_trans.yaml",
+                "att": "configs/pascal_asy.yaml", "asy": "configs/pascal_asy.yaml",
+                "fuse": "configs/pascal_fuse.yaml"}
+# the heads whose consensus (DeTr's, the fuse head's frozen MatchNet) runs
+# on the flat route, the pivot kernels
+FLAT_HEADS = ("detr", "fuse")
 KERNELS = ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw")
 PIVOT_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4")
 TILES = (1, 2)   # FSS_INNER_TILE of the CWT step: K1, then K2
@@ -89,11 +100,11 @@ def default_spec(size: int = 473, adapt_iter: int = 200, checks=CHECKS[:6]) -> D
         "validate": {"config": "configs/pascal.yaml", "opts": common + ["cls_lr", "0.1"],
                      "episodes": 4, "test_num": 8},
         "trainers": {"size": 33, "dir": None},
-        "chm": {"config": "configs/pascal_match.yaml", "episodes": 2, "weights": None,
+        "chm": {"config": HEAD_CONFIGS["chm"], "episodes": 2, "weights": None,
                 "w0": None, "opts": ["image_size", str(even_side_size(size)), "adapt_iter",
                                      str(adapt_iter), "crm_type", "chm"]},
-        "detr": {"config": "configs/pascal_trans.yaml", "opts": common, "episodes": 2,
-                 "weights": None, "w0": None},
+        **{h: {"config": HEAD_CONFIGS[h], "opts": common, "episodes": 2, "weights": None,
+               "w0": None} for h in ("detr", "att", "asy", "fuse")},
     }
 
 
@@ -320,9 +331,10 @@ def run_mmn_shot(part: Dict, shot: int, seed: int, device, rank: int, world: int
 
 def run_head(part: Dict, head_type: str, seed: int, device, rank: int, world: int,
              keep: bool, n_ranks: int) -> Dict:
-    """The ``chm`` or ``detr`` head's train step in fp32 (DeTr on the flat
-    consensus route); with ``n_ranks`` > 1 one process alone also gives the
-    ranks' slices run one after another (``split_grads``), as for MMN."""
+    """A head's train step in fp32 (DeTr and the fuse head's frozen MatchNet
+    on the flat consensus route, the attention head's dropout off); with
+    ``n_ranks`` > 1 one process alone also gives the ranks' slices run one
+    after another (``split_grads``), as for MMN."""
     from ..data.synthetic import make_episode_batch
     from ..episodic.heads import HeadEngine
     from ..models.matching import live_consensus
@@ -330,7 +342,7 @@ def run_head(part: Dict, head_type: str, seed: int, device, rank: int, world: in
     e = int(part["episodes"])
     cfg = _cfg(part, "episode_batch", str(e), "use_amp", "False")
     switches = {k: None for k in PIVOT_SWITCHES}
-    if head_type == "detr":
+    if head_type in FLAT_HEADS:
         switches["FSS_PIVOT_MXU"] = "1"
     episodes = make_episode_batch(seed + 11, e, size=int(cfg.image_size))
     local = _shard(episodes, rank, world)
@@ -341,8 +353,14 @@ def run_head(part: Dict, head_type: str, seed: int, device, rank: int, world: in
         if part.get("weights"):
             engine.backbone.load_state_dict(part["weights"]["backbone"])
             engine.head.load_state_dict(part["weights"]["head"])
+            if "frozen_match" in part["weights"]:
+                engine.frozen_match.load_state_dict(part["weights"]["frozen_match"])
         elif head_type == "detr":
             live_consensus(engine.head)
+        if head_type == "fuse":
+            live_consensus(engine.frozen_match)
+        if head_type == "att":
+            _no_dropout(engine.head)
         start = copy.deepcopy(engine.head.state_dict())
         opt = torch.optim.SGD(engine.head.parameters(), lr=LR)
         step = engine.make_train_step(opt)
@@ -357,6 +375,15 @@ def run_head(part: Dict, head_type: str, seed: int, device, rank: int, world: in
                       engine.init_weights(e, torch.Generator().manual_seed(seed)))
             rec["split_grads"] = _split_grads(engine, episodes, w0_all, n_ranks)
     return rec
+
+
+def _no_dropout(module) -> None:
+    """Every dropout rate of an attention variant set to 0 (the variants
+    draw their dropout from each rank's own generator)."""
+    for m in module.modules():
+        for name in ("dropout", "attn_drop", "proj_drop"):
+            if isinstance(getattr(m, name, None), float):
+                setattr(m, name, 0.0)
 
 
 def pretrain_batch(part: Dict, seed: int, size: int, classes: int):
@@ -614,7 +641,7 @@ def run_steps(spec: Dict, device, n_ranks: int, reference: bool) -> Dict:
         out["validate"] = run_validate(spec["validate"], seed, device, rank, world, n_ranks)
     if "collectives" in checks:
         out["collectives"] = run_collectives(seed, device, rank, world, n_ranks)
-    for head_type in ("chm", "detr"):
+    for head_type in HEAD_CONFIGS:
         if head_type in checks:
             out[head_type] = run_head(spec[head_type], head_type, seed, device, rank, world,
                                       keep, n_ranks)
@@ -783,7 +810,7 @@ def compare(spec: Dict, ref: Dict, ranks: List[Dict], meta: Dict) -> List[Dict]:
                 worst=name, whole_batch_max_rel_err=effect,
                 world1_max_rel_err=err1, grads_live=live, params_equal_across_ranks=equal,
                 **fields, **common(path))
-    for head_type in ("chm", "detr"):
+    for head_type in HEAD_CONFIGS:
         if head_type not in spec["checks"]:
             continue
         path = lambda d, h=head_type: d[h]  # noqa: E731

@@ -22,8 +22,10 @@ arguments, lower case without the ``BENCH_`` prefix):
   ``BENCH_BF16_STAGES``, ``BENCH_SHOT`` (1), ``BENCH_ADAPT_ITER`` (the
   config's 200), ``BENCH_HEAD`` (``mmn``; ``match`` or ``chm``
   with configs/pascal_match.yaml's model settings, ``crm_type chm`` for
-  ``chm``; ``detr`` with configs/pascal_trans.yaml's; the heads not ported
-  raise with their ROADMAP item), ``BENCH_OPTS`` (``key value ...`` as ``--opts``),
+  ``chm``; ``detr`` with configs/pascal_trans.yaml's; ``att``, ``asy`` and
+  ``fuse`` with MMN's, as the JAX bench runs any other head; ``cca`` is not
+  ported and raises with its ROADMAP item), ``BENCH_OPTS`` (``key value
+  ...`` as ``--opts``),
   ``BENCH_QUIET=1`` (no progress lines on stderr).
 
 Inputs (three batches, synthetic, seeded) are staged on the device before
@@ -105,8 +107,7 @@ def _config(knobs: Dict[str, Any], size: int, dtype: str, shot: int):
 
 def _head_engine(cfg, head: str, dtype: str, device):
     """The head's engine with its ``HEAD_KNOBS`` (MMN's for a head without
-    its own); the heads not ported raise with their ROADMAP item
-    (``episodic.heads.build_head``)."""
+    its own: att, asy, fuse); ``cca`` raises with its ROADMAP item."""
     from ..episodic.heads import HeadEngine
 
     if head == "cca":

@@ -26,16 +26,20 @@ input of an exported program, so this artifact takes the init ``w0``
 itself, (E, K, 512) float32 (K = 2), which the caller draws with the
 engine's ``init_weights(E, generator)`` (``episodic.engine.init_weights``).
 
-``--head {mmn|match|chm|detr}`` exports an extension head's label-free
-predictor instead (frozen backbone -> inner loop -> the head's refined
-query feature -> blended prediction -> argmax; ``HeadEngine.serve_batch``);
-``match`` needs ``ignore False``, as in JAX. ``--head-ckpt`` is a head
-checkpoint of ``train_head`` (``best.pt``, ``final.pt`` or a full
-``train_state.pt``), random init without it. The ``fuse`` head is not
-ported (ROADMAP queue 1 item 10) and raises ``NotImplementedError``, as
-does ``--mesh``: an exported program runs on
-one device, and the port's scale-out (item 13, ``parallel/``) serves over
-several cards by one serving process a card, each loading the artifact.
+``--head {mmn|match|chm|detr|fuse}`` exports an extension head's
+label-free predictor instead (frozen backbone -> inner loop -> the head's
+refined query feature -> blended prediction -> argmax;
+``HeadEngine.serve_batch``); ``match`` needs ``ignore False``, as in JAX;
+``att`` and ``asy`` read the query label in their prediction and raise.
+``--head-ckpt`` is a head checkpoint of ``train_head`` (``best.pt``,
+``final.pt`` or a full ``train_state.pt``), random init without it. The
+``fuse`` artifact also holds its frozen MatchNet, read from the config's
+``matchnet_ckpt`` as at training time (``train_head.init_frozen_match``),
+and its consensus runs on the route in effect (``pivot_fwd`` on the flat
+route). ``--mesh`` raises ``NotImplementedError``: an exported program runs
+on one device, and the port's scale-out (item 13, ``parallel/``) serves
+over several cards by one serving process a card, each loading the
+artifact.
 
 The program is traced at a fixed batch, as JAX's is, on the device the
 export runs on (``cuda`` unless ``--device cpu``): exported on the card it
@@ -43,7 +47,8 @@ launches the kernels, exported on the CPU it runs their plain versions.
 The route switches are read when the program is traced and are fixed in
 the artifact, as JAX's "trace-time env vars" are: ``FSS_PIVOT_MXU`` /
 ``FSS_PIVOT_PALLAS`` (the consensus's flat route on ``pivot_fwd``, else the
-rank-4 cuDNN route; DeTr's cross-attention consensus too),
+rank-4 cuDNN route; DeTr's cross-attention consensus and the fuse head's
+frozen MatchNet too),
 ``FSS_CONV4D_IM2COL`` (the route of CHM's 4D and 6D convs),
 ``FSS_INNER_TILE`` (K2 for the batch), and the
 config's stage dtype policy (``use_amp``: a bf16 backbone, fp32 head).
@@ -70,20 +75,21 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-# heads that HeadEngine serves here, and the ROADMAP item of those it cannot
-SERVABLE_HEADS = ("mmn", "match", "chm", "detr")
-_UNPORTED_HEADS = {"fuse": 10}
+from ..episodic.heads import SERVABLE
 
 
 class ServeProgram(nn.Module):
     """An engine's ``serve_batch`` as a module of (s_img, s_label, q_img, w0)
-    -> (E, H, W) int32 masks; the backbone and the transformer or head are
-    its submodules, so the export carries their weights."""
+    -> (E, H, W) int32 masks; the backbone, the transformer or head and the
+    fuse head's frozen MatchNet are its submodules, so the export carries
+    their weights."""
 
     def __init__(self, engine):
         super().__init__()
         self.backbone = engine.backbone
         self.head = engine.cwt if hasattr(engine, "cwt") else engine.head
+        if getattr(engine, "frozen_match", None) is not None:
+            self.frozen_match = engine.frozen_match
         self._engine = engine
 
     def forward(self, s_img, s_label, q_img, w0):
@@ -127,10 +133,7 @@ def build_serve_export(cfg, engine, batch: int, mesh=None) -> torch.export.Expor
 
 def check_servable(cfg, head_type: str) -> None:
     """Raise unless ``head_type`` has a label-free serve program here."""
-    if head_type in _UNPORTED_HEADS:
-        raise NotImplementedError(f"head {head_type!r} is not ported (ROADMAP queue 1 "
-                                  f"item {_UNPORTED_HEADS[head_type]})")
-    if head_type not in SERVABLE_HEADS:
+    if head_type not in SERVABLE:
         raise ValueError(f"head {head_type!r} has no label-free serving form")
     if head_type == "match" and cfg.get("ignore", False):
         raise ValueError("match-head serving requires `ignore False`: the eval-time "
@@ -146,17 +149,21 @@ def build_head_serve_export(cfg, head_type: str, engine, batch: int,
 
 
 def load_head_engine(cfg, head_type: str, head_ckpt: Optional[str], device):
-    """A ``HeadEngine`` with the backbone per the ``train.test`` rules and
-    the head's weights from ``head_ckpt`` (random init without it)."""
+    """A ``HeadEngine`` with the backbone per the ``train.test`` rules, the
+    head's weights from ``head_ckpt`` (random init without it) and, for
+    ``fuse``, the frozen MatchNet from ``matchnet_ckpt``."""
     from ..episodic.heads import HeadEngine
     from ..models.pspnet import build_pspnet
     from ..train.test import load_eval_backbone
+    from ..train.train_head import init_frozen_match
     from ..utils.ckpt import load_ckpt
 
     check_servable(cfg, head_type)
     backbone = build_pspnet(cfg)
     load_eval_backbone(cfg, backbone)
     engine = HeadEngine(cfg, head_type, backbone=backbone, device=device)
+    if head_type == "fuse":
+        init_frozen_match(cfg, engine)
     if head_ckpt:
         state = load_ckpt(str(head_ckpt))
         engine.head.load_state_dict(state["model"] if "optimizer" in state else state)
@@ -215,7 +222,7 @@ def main(argv=None) -> Dict:
                         "cards by one process a card); 0 = single-device artifact")
     p.add_argument("--head", default=None,
                    help="export this extension head's predictor instead of the CWT "
-                        "one (mmn|match|chm|detr; fuse is not ported)")
+                        "one (mmn|match|chm|detr|fuse)")
     p.add_argument("--head-ckpt", default=None,
                    help="train_head's best.pt / final.pt / train_state.pt; random "
                         "init if omitted")

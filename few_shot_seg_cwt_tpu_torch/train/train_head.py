@@ -1,4 +1,5 @@
-"""Trainer for the extension heads, on the GPU (MMN, match, CHM and DeTr).
+"""Trainer for the extension heads, on the GPU (MMN, match, CHM, DeTr, att,
+asy and fuse).
 
 Counterpart of ``few_shot_seg_cwt_tpu.train.train_head``:
 
@@ -23,8 +24,13 @@ and best1; each step's classifier inits come from a generator seeded by
 resume) or a head state_dict (weights only); ``auto_resume`` picks up this
 run's own train state; ``stop_after_epochs`` ends the run early. The
 aliases ``train_match`` (``crm_type nc`` or ``chm``), ``train_trans``
-(DeTr), ``train_kshot``, ``train_aug`` and ``train_ddp`` pick the head.
-Not ported: the other heads (ROADMAP queue 1 item 10).
+(DeTr), ``train_att``, ``train_asy``, ``train_fuse``, ``train_kshot``,
+``train_aug`` and ``train_ddp`` pick the head. The ``asy`` head trains one
+scalar, ``gamma`` (0.2 at init). The ``fuse`` head trains FuseNet1 over a
+frozen MatchNet read from ``matchnet_ckpt`` (``init_frozen_match``: a
+``train_match`` ``best.pt`` or a reference ``.pth``; a seeded random
+MatchNet without one), which stays out of the head's checkpoints and is
+read again on resume.
 
 Over several cards (``parallel.mesh``)::
 
@@ -54,6 +60,7 @@ from ..eval.validate import accumulate_fg_iou, batch_generator, exact_batch_size
 from ..parallel.mesh import (barrier, broadcast_module, check_replicas, distributed_init,
                              is_main_process, rank_world, shutdown, to_host)
 from ..utils.ckpt import is_full_train_state, load_ckpt, pack_train_state, save_ckpt
+from ..utils.convert import load_torch_checkpoint
 from ..utils.logging import get_logger, log_to
 from ..utils.meters import AverageMeter, CompareMeter
 from .common import (apply_debug, episodic_loaders, fp32_parity, init_backbone,
@@ -66,6 +73,23 @@ def init_head_trainables(engine: HeadEngine) -> Dict[str, torch.Tensor]:
     with a seeded init (``manual_seed``) by the JAX package's initialisers
     (``episodic.heads.build_head``)."""
     return dict(engine.head.named_parameters())
+
+
+def init_frozen_match(cfg, engine: HeadEngine, log=print) -> None:
+    """Load the fuse head's frozen MatchNet from ``matchnet_ckpt`` when the
+    file exists (src/train_fuse.py:100; JAX ``init_frozen_match``): a
+    ``train_match`` checkpoint of this package (``best.pt``, ``final.pt``,
+    or the ``model`` of a ``train_state.pt``) or a reference ``.pth``, the
+    same names; otherwise the engine's seeded random MatchNet stays."""
+    path = cfg.get("matchnet_ckpt", None)
+    if not path or not os.path.exists(str(path)):
+        log(f"=> no frozen MatchNet at '{path}': a seeded random init")
+        return
+    state = load_torch_checkpoint(str(path))
+    if "optimizer" in state and "model" in state:
+        state = state["model"]
+    engine.frozen_match.load_state_dict(state)
+    log(f"=> loaded the frozen MatchNet '{path}'")
 
 
 def validate_head(cfg, engine: HeadEngine, loader, log=print):
@@ -121,6 +145,8 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
     head_type = head_type or cfg.get("head", "mmn")
     train_loader, val_loader = episodic_loaders(cfg, device=device)
     engine = HeadEngine(cfg, head_type, backbone=init_backbone(cfg, log=log), device=device)
+    if head_type == "fuse":
+        init_frozen_match(cfg, engine, log)
     trainables = init_head_trainables(engine)
     optimizer, scheduler = build_optimizer(
         trainables.values(), cfg, base_lr=cfg.trans_lr * cfg.scale_lr,
@@ -158,6 +184,8 @@ def main(cfg, head_type: str = "mmn", device="cuda", log=print) -> float:
             log(f"=> resumed head weights from {path}")
     broadcast_module(engine.backbone)
     broadcast_module(engine.head)
+    if engine.frozen_match is not None:
+        broadcast_module(engine.frozen_match)
 
     log(f"==> Start training head '{head_type}'")
     for epoch in range(start_epoch, cfg.epochs + 1):

@@ -22,7 +22,12 @@ into the port with ``load_state_dict``, and so does a reference ``.pth``.
   pre-permuted (k0, O, I, k1, k2, k3);
 * the CHM and DeTr heads, which the JAX package does not import from
   ``.pth`` files, keep their flax names (``chm6d.param_0``,
-  ``self_trans.self_trans.value_proj.weight``, ...).
+  ``self_trans.self_trans.value_proj.weight``, ...);
+* the attention variants keep the reference's names (``qk_fc``,
+  ``layer_norm_q``, ``norm1_v``, ``att_wt.weight``, ``scale_att``, ...; a
+  LayerNorm's ``scale`` becomes ``weight``), the fusion nets become
+  ``conv4d.0``/``conv4d.2`` (``conv1``, ``conv2``) and ``att.0``/``att.2``,
+  and the ``asy`` head is its one ``gamma`` scalar.
 """
 
 from __future__ import annotations
@@ -224,6 +229,56 @@ def detr_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.T
         for name, dense in node["self_trans"].items():
             _dense(sd, f"self_trans.self_trans.{name}", dense)
     return sd
+
+
+def att_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax CrossAttention, MHA or AttentionBlock variables (or their
+    ``params`` tree) -> torch state_dict: Dense ``kernel`` (in, out) ->
+    ``weight`` (out, in) and its ``bias``; LayerNorm ``scale``/``bias`` ->
+    ``weight``/``bias``; the LinearDiag gates' ``weight`` and the scalar
+    ``scale_att`` as they are."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        if not isinstance(node, Mapping):
+            sd[name] = _t(node)
+        elif "kernel" in node:
+            sd[name + ".weight"] = _t(np.asarray(node["kernel"]).T)
+            if "bias" in node:
+                sd[name + ".bias"] = _t(node["bias"])
+        elif "scale" in node:
+            sd[name + ".weight"] = _t(node["scale"])
+            sd[name + ".bias"] = _t(node["bias"])
+        else:
+            for leaf, value in node.items():
+                sd[f"{name}.{leaf}"] = _t(value)
+    return sd
+
+
+def fuse_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax FuseNet1, FuseNet or DynamicFusion variables (or their ``params``
+    tree) -> torch state_dict: ``conv4d/c0|c1/conv_query|conv_support`` ->
+    ``conv4d.0|2.conv1|conv2`` (``conv4d.conv1|conv2`` for DynamicFusion's
+    single block), ``att/att0|att1`` -> ``att.0|2``."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    pairs = (("conv_query", "conv1"), ("conv_support", "conv2"))
+    stack = params["conv4d"]
+    blocks = ({"conv4d.0": stack["c0"], "conv4d.2": stack["c1"]} if "c0" in stack
+              else {"conv4d": stack})
+    for prefix, node in blocks.items():
+        for flax_name, ref_name in pairs:
+            sd[f"{prefix}.{ref_name}.weight"] = _conv(node[flax_name]["kernel"])
+            sd[f"{prefix}.{ref_name}.bias"] = _t(node[flax_name]["bias"])
+    for flax_name, idx in (("att0", 0), ("att1", 2)):
+        sd[f"att.{idx}.weight"] = _conv(params["att"][flax_name]["kernel"])
+        sd[f"att.{idx}.bias"] = _t(params["att"][flax_name]["bias"])
+    return sd
+
+
+def asy_state_dict_from_flax(gamma) -> Dict[str, torch.Tensor]:
+    """The ``asy`` head's trainable, one scalar in JAX -> ``{"gamma": ...}``."""
+    return {"gamma": _t(np.asarray(gamma).reshape(()))}
 
 
 def msblock_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

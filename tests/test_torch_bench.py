@@ -53,7 +53,6 @@ def test_bench_refuses_without_a_card():
 
 
 @pytest.mark.parametrize("knobs,error", [
-    ({"head": "att"}, "ROADMAP queue 1 item 10"),
     ({"head": "cca"}, "ROADMAP queue 1 item 11"),
 ])
 def test_heads_not_ported_name_their_item(knobs, error):

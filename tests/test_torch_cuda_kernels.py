@@ -736,3 +736,76 @@ def test_dryrun_two_ranks_over_gloo_on_the_card(device, tmp_path):
                         (("mmn_step", None, "fp32_head"), "pivot_fwd"),
                         (("mmn_step", None, "fp32_head"), "pivot_dw")):
         assert all(rank[kernel] > 0 for rank in launches[key]), (key, kernel, launches[key])
+
+
+def _fuse_stack(device, dtype, seed=9):
+    """The fuse head's ``_Conv4dStack`` (1 -> 16 at support stride 2, 16 -> 1),
+    seeded, biases 0.05 so that neither ReLU is dead."""
+    from few_shot_seg_cwt_tpu_torch.models.conv4d import init_conv_parameters
+    from few_shot_seg_cwt_tpu_torch.models.fusion import _conv4d_stack
+
+    stack = _conv4d_stack()
+    init_conv_parameters(stack, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in stack.named_parameters():
+            if name.endswith("bias"):
+                p.fill_(0.05)
+    return stack.to(device=device, dtype=dtype)
+
+
+def test_fuse_stack_6d_route_against_fp64(device):
+    """The fuse head's conv stack on its 6D route at the 473 px shape, (1, 60,
+    60, 60, 60, 1) -> (1, 60, 60, 30, 30, 1), in fp32 against the same route
+    in fp64: output, input gradient and each parameter's gradient within
+    1e-4 of its scale (the readings are printed: ``pytest -rP``). The fp32
+    run takes the fp64 run's ReLU masks: a pre-activation within rounding
+    of 0 is masked differently in the two, and such a flip moved the input
+    gradient by 0.1 of its scale in one run at this shape."""
+    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
+
+    fp32_parity()
+    g = torch.Generator().manual_seed(10)
+    x64 = torch.rand((1, 60, 60, 60, 60, 1), generator=g, dtype=torch.float64).to(device)
+    gy64 = torch.randn((1, 60, 60, 30, 30, 1), generator=g, dtype=torch.float64).to(device)
+    got, masks = {}, None
+    for dtype in (torch.float64, torch.float32):
+        stack = _fuse_stack(device, dtype)
+        x = x64.to(dtype).clone().requires_grad_(True)
+        y0 = stack[0](x)
+        m0 = (y0 > 0) if masks is None else masks[0]
+        y = stack[2](y0 * m0)
+        m1 = (y > 0) if masks is None else masks[1]
+        masks = (m0, m1)
+        y = y * m1
+        y.backward(gy64.to(dtype))
+        got[dtype] = {"y": y.detach(), "dx": x.grad,
+                      **{k: p.grad for k, p in stack.named_parameters()}}
+    rel = {k: float((got[torch.float32][k].double() - w).abs().max() / w.abs().max())
+           for k, w in got[torch.float64].items()}
+    print(f"fuse stack 6D fp32 vs fp64, max|v - v64| / max|v64|: {rel}")
+    assert max(rel.values()) <= 1e-4, rel
+
+
+def test_fuse_c1_6d_route_against_rank4(device):
+    """The stack's second block (16 -> 1, stride 1) at its 473 px input (1,
+    60, 60, 30, 30, 16): the 6D route the head runs against the rank-4
+    route, output, input and parameter gradients within 1e-4 of the
+    scale."""
+    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
+
+    fp32_parity()
+    c1 = _fuse_stack(device, torch.float32)[2]
+    g = torch.Generator().manual_seed(11)
+    x = torch.rand((1, 60, 60, 30, 30, 16), generator=g).to(device)
+    gy = torch.randn((1, 60, 60, 30, 30, 1), generator=g).to(device)
+    got = []
+    for bqsc in (False, True):
+        c1.zero_grad(set_to_none=True)
+        xi = (x.reshape(1, 3600, 900, 16) if bqsc else x).clone().requires_grad_(True)
+        y = (c1(xi, flat_dims=(60, 60, 30, 30), bqsc=True) if bqsc else c1(xi))
+        y.backward(gy.reshape(y.shape))
+        got.append({"y": y.detach().reshape(gy.shape), "dx": xi.grad.reshape(x.shape),
+                    **{k: p.grad.clone() for k, p in c1.named_parameters()}})
+    rel = {k: float((got[0][k] - w).abs().max() / w.abs().max()) for k, w in got[1].items()}
+    print(f"fuse c1 6D vs rank-4, max|v - v_r4| / max|v_r4|: {rel}")
+    assert max(rel.values()) <= 1e-4, rel

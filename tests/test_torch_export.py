@@ -17,7 +17,7 @@ serve artifacts (``tools/export_serve.py``), on the CPU at 33 px with
   ``tests/test_torch_engine.py`` for the eager programs.
 * The ``chm`` and ``detr`` serve programs (DeTr on both consensus routes)
   round-trip the same way.
-* The heads not ported and ``--mesh`` raise, naming their ROADMAP items;
+* ``--mesh`` raises, naming its ROADMAP item;
   the CLI writes a ``.pt2``, which ``tools/serve_loaded.py`` runs in a
   process that imports no model code.
 """
@@ -223,7 +223,7 @@ def test_cwt_artifact_matches_the_jax_artifact(tmp_path):
     assert (got == jax_masks).mean() >= 0.995
 
 
-@pytest.mark.parametrize("what,item", [("fuse", 10), ("mesh", 13)])
+@pytest.mark.parametrize("what,item", [("mesh", 13)])
 def test_unported_heads_and_the_mesh_raise(what, item, tmp_path):
     argv = ["--config", "configs/pascal.yaml", "--out", str(tmp_path / "x.pt2"),
             "--device", "cpu", "--opts", *OPTS]

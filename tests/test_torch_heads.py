@@ -286,9 +286,10 @@ def test_train_step_updates_the_head_with_dropout_on():
 
 
 def test_unported_head_paths_raise_naming_the_roadmap():
+    """att, asy and fuse build (item 10 is ported); ``inherit_base`` (the
+    CCA engine's, item 11) still raises naming its item."""
     for head in ("att", "asy", "fuse"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            HeadEngine(_cfg(), head, device="cpu")
+        assert HeadEngine(_cfg(), head, device="cpu").head_type == head
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         build_pspnet(_cfg(["inherit_base", "True"]))
 

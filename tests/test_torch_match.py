@@ -576,9 +576,8 @@ def test_train_aug_and_ddp_aliases(tmp_path, monkeypatch):
 
 def test_match_head_is_one_shot_and_chm_stays_unported():
     """The match, CHM and DeTr heads take 1-shot episodes only, as in JAX;
-    the heads still to port (ROADMAP queue 1 item 10) raise naming it."""
+    the att head (item 10, now ported) takes k-shot episodes."""
     for head in ("match", "chm", "detr"):
         with pytest.raises(ValueError, match="shot=1 only"):
             HeadEngine(_cfg(opts=["shot", "2"]), head, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        HeadEngine(_cfg(), "att", device="cpu")
+    assert HeadEngine(_cfg(opts=["shot", "2"]), "att", device="cpu").head_type == "att"
