@@ -106,7 +106,22 @@ Phases (any failure raises and the script exits non-zero):
    outputs and gradients within 1e-4 of the scale; where a fuse flat eval
    batch's time goes; ``train_att``, ``train_asy`` and ``train_fuse``
    (``matchnet_ckpt`` a file of the match head of 6d, flat route) at 4
-   steps of 2.
+   steps of 2. (6h) Incremental CCA, configs/pascal_cca.yaml as shipped
+   (16-way base classifier, ``wt_dc``, fp32; BN statistics and consensus
+   calibrated; the episodes' classes folded into 1..15): eval of 4 and a
+   train step of 2 on the rank-4 and the flat route, counted (the pivot
+   pair on flat only, K1 never: the inner loop is K-way), argmax of pred
+   and pred1 >= 99.5% equal between the routes, head gradients within 1e-3
+   of each tensor's largest entry; the K-way inner loop's ms an episode;
+   cca1's host relabel pass of 2 and a step on it (flat route), the pass's
+   ms beside the step's; ``train_cca``, ``train_cca1`` (flat route, one
+   step of 2) and ``train_count`` on synthetic episodes. (6i) The int8
+   consensus: ``tools.ab_int8`` on configs/pascal_mmn.yaml's head (rank-4
+   route, 473 px, 8 episodes, calibrated) for ``fake`` and ``dot`` (flip
+   rate, mIoU delta; ``dot``'s int8 GEMMs counted on the card); the 10 ->
+   10 support-plane conv at 473 px: ``qconv2d`` (int8 operands on the card)
+   within 1e-5 of max|y| of cuDNN's fp32 conv of the same dequantized
+   operands, timed beside the fp32 conv.
 7. The trainer entry points ``train.train_head.main`` on pascal_mmn.yaml as
    shipped and ``train.train_kshot.main`` at shot 5, with synthetic
    episodes; their validation lines are printed.
@@ -161,7 +176,10 @@ Phases (any failure raises and the script exits non-zero):
 11. Stage-1 pretraining, VGG and the bench: (a) the pretrain step at full
     width (configs/pascal_pretrain.yaml: ResNet-50, 473 px, batch 10, 16
     classes, label smoothing, scale_lr 2), plain and with mixup: finite
-    losses, images/s, ms a step, peak memory; (b) ``train.pretrain.main`` on
+    losses, images/s, ms a step, peak memory; at batch 4 the fp32 step and
+    the step under ``bf16_stages stem,layer1,layer2`` (fp32 parameters,
+    the stages' inputs rounded to bf16): finite losses and gradients,
+    images/s, peak memory; (b) ``train.pretrain.main`` on
     a PNG tree (as in 10; 4 decode threads), one epoch with standard
     validation and one with episodic validation (K1 must launch), then
     ``train.test.main`` loading the ``best.ckpt`` it wrote from the stage-1
@@ -218,7 +236,8 @@ Phases (any failure raises and the script exits non-zero):
     path, K1's in (b)'s episodic validation and its VGG figures, the
     match head's launches and the pivot pair's figures at 1 -> 10, the CHM,
     DeTr, att, asy and fuse heads' launches (eval, serve, train step,
-    trainer, artifact), the
+    trainer, artifact), the CCA path's (eval, train step, cca1, its two
+    trainers), the
     loaded artifacts' launches, and the launches per rank of phase 13
     under ``scale_out``), the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -227,6 +246,7 @@ Phases (any failure raises and the script exits non-zero):
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -1638,6 +1658,279 @@ def att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state, counters):
     return out
 
 
+# ---- 6h. incremental CCA: the MMN head over the K-way classifier ----
+
+E_CCA = 4                                    # CCA episodes per eval batch
+
+
+def cca_classes(episodes):
+    """The synthetic episodes with their classes folded into 1..15, the
+    novel classes a 16-way base classifier holds (configs/pascal_cca.yaml)."""
+    out = dict(episodes)
+    out["cls"] = (1 + (np.asarray(episodes["cls"]) - 1) % 15).astype(np.int32)
+    return out
+
+
+def cca_phase(card, calib_images, calib_episodes, modules):
+    """configs/pascal_cca.yaml as shipped (16-way base classifier, ``rmid
+    l34``, ``wt_dc``, fp32), its BN statistics and consensus calibrated:
+    eval of 4 on the rank-4 and flat routes and a train step of 2 on each
+    (counted: the pivot pair on flat only, K1 never: the inner loop is
+    K-way), argmax of pred and pred1 >= 99.5% equal between the routes, head
+    gradients within 1e-3 of each tensor's largest entry; the K-way inner
+    loop's ms an episode; cca1's host relabel pass and a step on it; then
+    ``train_cca``, ``train_cca1`` and ``train_count`` on synthetic episodes.
+    Returns the launch counts and the calibrated fp32 backbone."""
+    (load_cfg, merge_cfg_from_list, make_episode_batch, cuda_inner_loop, cuda_pivot,
+     get_corr, build_pspnet) = modules
+    from few_shot_seg_cwt_tpu_torch.episodic.cca import (CCAEngine, adaptive_relabel_batch,
+                                                         make_base_preds_fn)
+    from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import adapt_classifier
+    from few_shot_seg_cwt_tpu_torch.ops.losses import class_balance_weights
+    from few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop import cuda_ms
+
+    counters = (cuda_inner_loop, cuda_pivot)
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal_cca.yaml"),
+                              ["episode_batch", str(E_CCA)])
+    got = (cfg.image_size, cfg.adapt_iter, cfg.layers, cfg.num_classes_tr, cfg.rmid,
+           cfg.loss_type, cfg.att_wt, cfg.temp, cfg.cls_lr, cfg.use_amp, cfg.shot)
+    if got != (IMG, STEPS, 50, 16, "l34", "wt_dc", 0.2, 20.0, CLS_LR, False, 1):
+        raise AssertionError(f"configs/pascal_cca.yaml no longer gives the CCA path: {got}")
+    backbone = build_pspnet(cfg).to("cuda")
+    calibrate_batchnorm(backbone, calib_images)
+    fp32_backbone = module_state(backbone)
+    engine = CCAEngine(cfg, backbone=backbone, device="cuda")
+    with pivot_route(True):
+        calibrate_consensus(engine, cca_classes(calib_episodes), get_corr)
+    episodes = cca_classes(make_episode_batch(17, E_CCA, size=IMG, shot=SHOT))
+    rows = engine.new_rows(E_CCA, torch.Generator().manual_seed(5))
+    w0 = engine.base_weight().expand(E_CCA, 16, CH).clone()
+    w0[torch.arange(E_CCA), torch.as_tensor(episodes["cls"]).long()] = rows
+    out = {}
+    for route, flat in (("rank-4", False), ("flat", True)):
+        with pivot_route(flat):
+            r = cca_run(engine, episodes, w0, counters)
+        out[route] = r
+        print(f"CCA ({route} route; configs/pascal_cca.yaml, fp32, {STEPS} K-way inner steps): "
+              f"eval of {E_CCA} {r['eval']:.3f} episodes/s (peak {r['eval_peak_gib']:.2f} GiB; "
+              f"launches {r['eval_launches']}), the train step's gradients for 2 "
+              f"{r['train']:.3f} episodes/s (peak {r['train_peak_gib']:.2f} GiB; launches "
+              f"{r['train_launches']}); loss {r['loss']:.5f} [{card}]")
+        expect = {"adapt_binary": 0, "adapt_binary_tiled": 0}
+        for key in ("eval_launches", "train_launches"):
+            got_l = r[key]
+            if {k: got_l.get(k, 0) for k in expect} != expect or \
+                    (got_l["pivot_fwd"] > 0) != flat or \
+                    (key == "train_launches" and (got_l["pivot_dw"] > 0) != flat):
+                raise AssertionError(f"CCA {route} {key}: {got_l}")
+    agree = {k: float((out["flat"]["preds"][k].argmax(-1) == out["rank-4"]["preds"][k]
+                       .argmax(-1)).float().mean()) for k in ("pred", "pred1")}
+    g4 = out["rank-4"]["grads"]
+    scale = {k: float(g.abs().max()) for k, g in g4.items()}
+    worst = max((float((out["flat"]["grads"][k] - g).abs().max()) / max(scale[k], 1e-30), k)
+                for k, g in g4.items())
+    live = sum(v > 0 for v in scale.values())
+    print(f"CCA flat vs rank-4 route: argmax agreement {agree} (>= 0.995 needed); head "
+          f"gradients worst max|g_flat - g_r4| / max|g_r4| {worst[0]:.3e} ({worst[1]}; "
+          f"tolerance 1e-3), {live} of {len(scale)} tensors non-zero, max|g_r4| from "
+          f"{min(scale.values()):.3e} to {max(scale.values()):.3e}")
+    if min(agree.values()) < 0.995 or not worst[0] <= 1e-3 or not live or not all(
+            np.isfinite(v) for v in scale.values()):
+        raise AssertionError(f"CCA routes disagree: {agree}, {worst}, {scale}")
+
+    # the K-way inner loop alone (the generic autograd loop), one episode
+    with torch.no_grad():
+        batch = engine.to_device({k: v[:1] for k, v in episodes.items()})
+        parts = engine.episode_parts(batch, w0=w0[:1])
+        weights = class_balance_weights(parts["s_label"][0], 16, int(batch["cls"][0]))
+    loop_ms = cuda_ms(lambda: adapt_classifier(parts["f_s"][0], parts["s_label"][0], w0[0],
+                                               STEPS, CLS_LR, weights, fast_binary=False), 1,
+                      warmup=1)
+    print(f"CCA K-way inner loop ({STEPS} autograd steps, 16 classes, {FEAT}x{FEAT}x{CH} "
+          f"features, {IMG} px labels): {loop_ms:.1f} ms an episode; an eval batch of {E_CCA} on the flat "
+          f"route takes {E_CCA / out['flat']['eval'] * 1e3:.1f} ms [{card}]")
+    # whether the device or the host's launches bound the loop: its idle share
+    device_profile(lambda: adapt_classifier(parts["f_s"][0], parts["s_label"][0], w0[0], STEPS,
+                                            CLS_LR, weights, fast_binary=False),
+                   f"CCA K-way inner loop, one episode ({STEPS} steps), torch.profiler", card,
+                   groups=(("gemm (logits, resize)", ("gemm", "sgemm")),
+                           ("softmax / CE", ("softmax", "nll", "log_softmax")),
+                           ("elementwise", ("elementwise", "vectorized", "reduce"))))
+
+    # cca1: the host relabel pass, then a step on it (flat route)
+    eng1 = CCAEngine(cfg, adaptive=True, backbone=engine.backbone, head=engine.head,
+                     device="cuda")
+    base_preds = make_base_preds_fn(cfg, eng1)
+    e2 = {k: v[:2] for k, v in episodes.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    relabelled = adaptive_relabel_batch(cfg, eng1, e2, base_preds, np.random.default_rng([2021, 1]))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with pivot_route(True):
+        m, launches1, peak1 = counted(lambda: eng1.backward_batch(relabelled), counters)
+        step_s = host_seconds(lambda: eng1.backward_batch(relabelled), 1)
+    print(f"cca1: host relabel pass of 2 episodes {host_ms:.1f} ms (classes kept "
+          f"{relabelled['row_mask'].sum(-1).tolist()}), then a train step of 2 (flat route) "
+          f"{step_s * 1e3:.1f} ms, loss {float(m['loss_mean']):.5f}, launches {launches1}, "
+          f"peak {peak1:.2f} GiB [{card}]")
+    if not torch.isfinite(m["loss_mean"]) or launches1["pivot_dw"] < 1 or \
+            launches1["adapt_binary"]:
+        raise AssertionError(f"cca1 step: loss {m['loss_mean']}, launches {launches1}")
+    out["cca1"] = launches1
+    out["entries"] = cca_entries(load_cfg, merge_cfg_from_list, counters)
+    return out, fp32_backbone, engine.head
+
+
+def cca_run(engine, episodes, w0, counters):
+    """On the route in effect, each counted and timed by the host clock
+    around it (one call each: the K-way loop makes a call seconds long):
+    eval of ``episodes``, their predictions, and the gradients of a train
+    step of the first 2 (the head's ``.grad``)."""
+    r = {}
+    t0 = time.perf_counter()
+    metrics, r["eval_launches"], r["eval_peak_gib"] = counted(
+        lambda: engine.eval_metrics_batch(episodes, w0=w0), counters)
+    r["eval"] = len(episodes["q_img"]) / (time.perf_counter() - t0)
+    for k in ("inter", "union", "inter1", "union1", "loss"):
+        if not torch.isfinite(metrics[k].float()).all():
+            raise AssertionError(f"CCA eval: non-finite {k}")
+    r["preds"] = engine.predict_batch(episodes, w0=w0)
+    sub = {k: v[:2] for k, v in episodes.items()}
+    t0 = time.perf_counter()
+    m, r["train_launches"], r["train_peak_gib"] = counted(
+        lambda: engine.backward_batch(sub, w0=w0[:2]), counters)
+    r["train"] = 2 / (time.perf_counter() - t0)
+    r["loss"] = float(m["loss_mean"])
+    r["grads"] = {k: p.grad.clone() for k, p in engine.head.named_parameters()
+                  if p.grad is not None}
+    if not np.isfinite(r["loss"]) or not r["grads"]:
+        raise AssertionError(f"CCA train step: loss {r['loss']}")
+    return r
+
+
+def cca_entries(load_cfg, merge_cfg_from_list, counters):
+    """``train_cca`` and ``train_cca1`` (configs/pascal_cca.yaml, flat route)
+    on synthetic episodes, one step of 2 and a validation of 2, counted
+    (the pivot pair, not K1); ``train_count`` over 32 episodes; in a
+    directory of the smoke's own."""
+    from few_shot_seg_cwt_tpu_torch.train import train_cca, train_cca1, train_count
+
+    os.makedirs("build", exist_ok=True)
+    run_dir = os.path.abspath(tempfile.mkdtemp(prefix="chip_smoke_cca_", dir="build"))
+    common = ["synthetic_data", "True", "epochs", "1", "iter_per_epoch", "2", "episode_batch",
+              "2", "test_num", "2", "save_models", "True"]
+    out = {}
+    try:
+        for name, entry, adaptive in (("train_cca", train_cca, False),
+                                      ("train_cca1", train_cca1, True)):
+            cfg = merge_cfg_from_list(load_cfg("configs/pascal_cca.yaml"), common)
+            lines = []
+            with contextlib.chdir(run_dir), pivot_route(True):
+                t0 = time.perf_counter()
+                best, launches, _ = counted(
+                    lambda: entry.main(cfg, device="cuda", log=lines.append), counters)
+                wall = time.perf_counter() - t0
+                log = log_txt_val(train_cca.results_dir(cfg, adaptive), "val: mIoU")
+            val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
+            print(f"{name}.main (configs/pascal_cca.yaml, FSS_PIVOT_MXU=1; 1 step of 2, "
+                  f"test_num 2, synthetic episodes): {val_line}; best {best:.4f}; {wall:.1f} s "
+                  f"wall; launches {launches}; log.txt {log}")
+            if not np.isfinite(best) or launches["pivot_fwd"] < 1 or launches["pivot_dw"] < 1 \
+                    or launches["adapt_binary"]:
+                raise AssertionError(f"{name}: best {best}, launches {launches}")
+            out[name] = launches
+        cfg = merge_cfg_from_list(load_cfg("configs/pascal_cca.yaml"),
+                                  ["synthetic_data", "True", "test_num", "32"])
+        lines = []
+        t0 = time.perf_counter()
+        ratios = train_count.main(cfg, log=lines.append)
+        print(f"train_count.main (32 synthetic episodes, host only): {len(ratios)} classes, "
+              f"ratios {json.dumps({int(k): round(v, 4) for k, v in ratios.items()})}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not ratios or not all(0.0 < v < 1.0 for v in ratios.values()):
+            raise AssertionError(f"train_count: {ratios}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return out
+
+
+# ---- 6i. the int8 consensus ----
+
+def int8_phase(card, backbone_state, calib_episodes, modules):
+    """``tools.ab_int8`` on configs/pascal_mmn.yaml's head (rank-4 route, 473
+    px, 8 episodes in batches of 4), calibrated backbone and consensus, for
+    ``fake`` and ``dot``: flip rate, mIoU delta; the ``dot`` runs' int8 GEMMs
+    counted on the card. At the plane-conv level, the 10 -> 10 block's
+    support-plane conv at 473 px (3600 planes of 60x60): ``qconv2d`` (int8
+    operands on the card, ``torch._int_mm``) against cuDNN's fp32 conv of the
+    same dequantized operands within 1e-5 of max|y|; both timed beside the
+    fp32 cuDNN conv of the unquantized operands."""
+    (HeadEngine, build_pspnet, get_corr, cuda_ms) = modules
+    from few_shot_seg_cwt_tpu_torch.ops import quant
+    from few_shot_seg_cwt_tpu_torch.tools import ab_int8
+
+    args = ab_int8.parse(["--image-size", str(IMG), "--episodes", "8", "--batch", "4",
+                          "--device", "cuda"])
+    cfg = ab_int8.config(args)
+    backbone = build_pspnet(cfg)
+    missing, unexpected = backbone.load_state_dict(
+        {k: v for k, v in backbone_state.items() if not k.startswith("classifier.")},
+        strict=False)
+    if [k for k in missing if not k.startswith("classifier.")] or unexpected:
+        raise AssertionError(f"int8 phase backbone: {missing} {unexpected}")
+    engine = HeadEngine(cfg, "mmn", backbone=copy.deepcopy(backbone), device="cuda")
+    with pivot_route(True):
+        calibrate_consensus(engine, calib_episodes, get_corr)
+    head = engine.head
+    del engine
+    for mode in ("fake", "dot"):
+        args.mode = mode
+        quant.INT_MM_CALLS = 0
+        t0 = time.perf_counter()
+        r = ab_int8.run(args, backbone=backbone, head=head)
+        r["wall_s"] = time.perf_counter() - t0
+        r["int_mm_calls"] = quant.INT_MM_CALLS
+        print(f"ab_int8 --mode {mode} (configs/pascal_mmn.yaml's head, rank-4 route, {IMG} px, "
+              f"8 episodes, calibrated): {json.dumps(r)} [{card}]")
+        if (r["int_mm_calls"] > 0) != (mode == "dot") or not np.isfinite(r["miou_int8"]):
+            raise AssertionError(f"ab_int8 {mode}: {r}")
+
+    # the plane conv: the 10 -> 10 block's support-plane conv at 473 px
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.relu(torch.randn((FEAT * FEAT, 10, FEAT, FEAT), generator=g, device="cuda"))
+    k = torch.randn((10, 10, 3, 3), generator=g, device="cuda") * 0.1
+    xq, sx = quant.quantize_tensor(x)
+    kq, sk = quant.quantize_per_co(k)
+    if xq.dtype != torch.int8 or kq.dtype != torch.int8 or not xq.is_cuda:
+        raise AssertionError(f"int8 operands: {xq.dtype} {kq.dtype} on {xq.device}")
+    quant.INT_MM_CALLS = 0
+    with torch.no_grad():
+        y_dot = quant.qconv2d(x, k, (1, 1))
+        int_mm = quant.INT_MM_CALLS
+        y_deq = torch.nn.functional.conv2d(xq.float() * sx, kq.float() * sk.reshape(-1, 1, 1, 1),
+                                           padding=1)
+        y_fake = torch.nn.functional.conv2d(quant.fake_quant(x), quant.fake_quant(k), padding=1)
+        y32 = torch.nn.functional.conv2d(x, k, padding=1)
+    torch.cuda.synchronize()
+    err = float((y_dot - y_deq).abs().max() / y_deq.abs().max())
+    err_fake = float((y_dot - y_fake).abs().max() / y_fake.abs().max())
+    err32 = float((y_dot - y32).abs().max() / y32.abs().max())
+    with torch.no_grad():
+        dot_ms = cuda_ms(lambda: quant.qconv2d(x, k, (1, 1)), 5)
+        fp32_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x, k, padding=1), 5)
+        fake_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+            quant.fake_quant(x), quant.fake_quant(k), padding=1), 5)
+    print(f"int8 plane conv (10 -> 10, {FEAT * FEAT} planes of {FEAT}x{FEAT}, the rank-4 "
+          f"route's support-plane conv at {IMG} px): dot (int8 im2col x _int_mm, {int_mm} "
+          f"int8 GEMM(s) on the card) against cuDNN fp32 on the same dequantized operands "
+          f"max|dy| / max|y| = {err:.3e} (tolerance 1e-5); against FSS_NCONS_INT8=fake "
+          f"(per-tensor kernel scale) {err_fake:.3e}, against the unquantized conv "
+          f"{err32:.3e}; dot {dot_ms:.3f} ms, fake {fake_ms:.3f} ms, fp32 cuDNN "
+          f"{fp32_ms:.3f} ms [{card}]")
+    if not err <= 1e-5 or int_mm != 1:
+        raise AssertionError(f"int8 plane conv: {err}, {int_mm} int8 GEMMs")
+
+
 def mmn_options_phase(engine, card, modules):
     """On the MMN engine of phase 6: one train step with ``meta_aug 2`` and
     ``att_type 3`` (two views a support, the better one read), counted; and
@@ -2600,8 +2893,11 @@ def pretrain_steps_phase(card, load_cfg):
     """(a) The stage-1 step at full width (configs/pascal_pretrain.yaml:
     ResNet-50, 473 px, batch 10, 16 classes, label smoothing, scale_lr 2),
     plain and with mixup: finite losses; images/s, ms a step and peak
-    memory over PRE_STEPS steps after a warm-up."""
-    from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
+    memory over PRE_STEPS steps after a warm-up. Then at batch 4 the fp32
+    step and the step under ``bf16_stages stem,layer1,layer2`` (fp32
+    parameters, finite gradients)."""
+    from few_shot_seg_cwt_tpu_torch.models.pspnet import (build_pspnet, stage_boundary_casts,
+                                                          stage_dtype_policy)
     from few_shot_seg_cwt_tpu_torch.train.pretrain import (build_pretrain_optimizer,
                                                            make_pretrain_step)
 
@@ -2647,6 +2943,37 @@ def pretrain_steps_phase(card, load_cfg):
                                ("gemm (resize, PPM pools)", ("gemm", "sgemm")),
                                ("elementwise", ("elementwise", "vectorized", "reduce"))))
         out[name] = dict(images_per_s=PRE_BATCH / s, ms=s * 1e3, peak_gib=peak)
+    del model, optimizer, scheduler, step
+    torch.cuda.empty_cache()
+
+    # a mixed bf16 stage policy at batch 4, beside the fp32 step: the JAX
+    # model's stage-boundary casts, fp32 parameters
+    for name, stages in (("fp32", None), (f"bf16_stages {MIXED}", MIXED)):
+        pcfg = cfg.clone()
+        pcfg.bf16_stages = stages
+        model = stage_boundary_casts(build_pspnet(cfg), stage_dtype_policy(pcfg)).to(dev)
+        optimizer, scheduler = build_pretrain_optimizer(model, pcfg, iters_per_epoch=100)
+        step = make_pretrain_step(model, optimizer, scheduler, pcfg)
+        gen = torch.Generator().manual_seed(42)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(img[:4], gt[:4], gen)["loss"])]          # warm-up
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+                     if p.grad is not None)
+        s = host_seconds(lambda: losses.append(float(step(img[:4], gt[:4], gen)["loss"])),
+                         PRE_STEPS)
+        peak = peak_gib()
+        dtypes = sorted({str(p.dtype) for p in model.parameters()})
+        print(f"pretrain step ({name}; batch 4, otherwise as above): {4 / s:.3f} images/s, "
+              f"{s * 1e3:.1f} ms a step (median of {PRE_STEPS}), peak {peak:.2f} GiB; losses "
+              f"{np.round(losses, 4).tolist()}; gradients finite {finite}; parameters "
+              f"{dtypes} [{card}]")
+        if not all(np.isfinite(losses)) or not finite or dtypes != ["torch.float32"]:
+            raise AssertionError(f"pretrain step ({name}): losses {losses}, finite {finite}, "
+                                 f"{dtypes}")
+        out[name] = dict(images_per_s=4 / s, ms=s * 1e3, peak_gib=peak)
+        del model, optimizer, scheduler, step
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3469,6 +3796,21 @@ def main() -> int:
 
     lap("6g (att, asy, fuse)")
 
+    # ---- 6h. incremental CCA (configs/pascal_cca.yaml) and its trainers ----
+    cca, cca_backbone, _ = cca_phase(card, calib_images, calib, (
+        load_cfg, merge_cfg_from_list, make_episode_batch, cuda_inner_loop, cuda_pivot,
+        get_corr, build_pspnet))
+    torch.cuda.empty_cache()
+
+    lap("6h (CCA)")
+
+    # ---- 6i. the int8 consensus on the MMN head (rank-4 route) ----
+    int8_phase(card, cca_backbone, calib, (HeadEngine, build_pspnet, get_corr, cuda_ms))
+    del cca_backbone
+    torch.cuda.empty_cache()
+
+    lap("6i (int8)")
+
     # ---- 7. the head trainer's entry point (flat route) ----
     hcfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"), [
         "synthetic_data", "True", "epochs", "1", "iter_per_epoch", "8",
@@ -3598,6 +3940,11 @@ def main() -> int:
                  "train_fuse_launches": att["trainers"]["train_fuse"]["adapt_binary"],
                  "loaded_artifact_launches": tools["fuse"]["launches"].get("adapt_binary", 0)},
         "pretrain_episodic_val": {"launches": pre["episodic"]["launches"]},
+        "cca": {"launches": cca["flat"]["eval_launches"]["adapt_binary"]
+                + cca["flat"]["train_launches"]["adapt_binary"]
+                + cca["rank-4"]["eval_launches"]["adapt_binary"],
+                "train_cca_launches": cca["entries"]["train_cca"]["adapt_binary"],
+                "train_cca1_launches": cca["entries"]["train_cca1"]["adapt_binary"]},
         "loaded_artifacts": {"cwt_launches": tools["cwt"]["launches"].get("adapt_binary", 0),
                              "mmn_launches": tools["mmn"]["launches"].get("adapt_binary", 0),
                              "profile_trace_kernels": tools["trace_k1"]},
@@ -3642,6 +3989,12 @@ def main() -> int:
                  "train_launches": att["fuse"]["flat"]["train_launches"]["pivot_fwd"],
                  "train_fuse_launches": att["trainers"]["train_fuse"]["pivot_fwd"],
                  "loaded_artifact_launches": tools["fuse"]["launches"].get("pivot_fwd", 0)},
+        "cca": {"launches": cca["flat"]["eval_launches"]["pivot_fwd"],
+                "train_launches": cca["flat"]["train_launches"]["pivot_fwd"],
+                "rank4_launches": cca["rank-4"]["eval_launches"]["pivot_fwd"],
+                "cca1_train_launches": cca["cca1"]["pivot_fwd"],
+                "train_cca_launches": cca["entries"]["train_cca"]["pivot_fwd"],
+                "train_cca1_launches": cca["entries"]["train_cca1"]["pivot_fwd"]},
         "match_1_to_10": {"launches": match["eval_launches"]["pivot_fwd"],
                           "max_abs_err": match["ci1"]["fwd_err"], "ms": match["ci1"]["fwd_ms"],
                           "plain_ms": match["ci1"]["fwd_plain_ms"],
@@ -3668,6 +4021,11 @@ def main() -> int:
                  "train_trans_launches": real["train_trans_launches"]["pivot_dw"]},
         "fuse": {"train_launches": att["fuse"]["flat"]["train_launches"]["pivot_dw"],
                  "train_fuse_launches": att["trainers"]["train_fuse"]["pivot_dw"]},
+        "cca": {"train_launches": cca["flat"]["train_launches"]["pivot_dw"],
+                "rank4_train_launches": cca["rank-4"]["train_launches"]["pivot_dw"],
+                "cca1_train_launches": cca["cca1"]["pivot_dw"],
+                "train_cca_launches": cca["entries"]["train_cca"]["pivot_dw"],
+                "train_cca1_launches": cca["entries"]["train_cca1"]["pivot_dw"]},
         "match_1_to_10": {"launches": match["train_launches"]["pivot_dw"],
                           "max_abs_err": match["ci1"]["dw_err"], "ms": match["ci1"]["dw_ms"],
                           "plain_ms": match["ci1"]["dw_plain_ms"],

@@ -1,23 +1,27 @@
-"""Image and mask decoding for the episode loader, without OpenCV for PNG.
+"""Image and mask decoding for the episode loader, without OpenCV for most PNGs.
 
 The port's stand-in for the ``cv2.imread`` calls of the JAX package's data
-layer. PNG files are decoded here: chunks parsed in Python, the IDAT stream
-inflated with the standard library's ``zlib``, and the row filters undone
-by the host C++ core (``data.native.png_unfilter``), so decode threads run
-without the interpreter lock for most of a file. The output equals
-``cv2.imread`` bit for bit on what is accepted:
+layer. The PNG forms a dataset usually holds are decoded here: chunks
+parsed in Python, the IDAT stream inflated with the standard library's
+``zlib``, and the row filters undone by the host C++ core
+(``data.native.png_unfilter``), so decode threads run without the
+interpreter lock for most of a file. The output equals ``cv2.imread`` bit
+for bit:
 
 * images (``read(path)``): 8-bit gray, RGB and RGBA, and palette images of
   1, 2, 4 or 8 bits, as (H, W, 3) uint8 RGB. Gray is replicated, alpha and
   palette transparency are dropped (``IMREAD_COLOR`` then BGR -> RGB);
-* masks (``read(path, gray=True)``): 8-bit gray only, as (H, W) uint8
+* masks (``read(path, gray=True)``): 8-bit gray, as (H, W) uint8
   (``IMREAD_GRAYSCALE``).
 
-Anything else raises a ``ValueError`` naming the file: 16-bit samples,
-interlaced files, gray below 8 bits, gray+alpha, and a mask that is not
-gray (OpenCV would convert colour to gray with its own weights; the
-benchmark's masks are gray). Other formats (JPEG) go through ``cv2`` when it
-imports, and raise ``ImportError`` naming the file when it does not.
+Every other PNG form that ``cv2.imread`` reads goes to it, as the JAX
+loader reads every file: interlaced files, 16-bit samples, gray+alpha
+(colour type 4) and gray below 8 bits, for images and masks alike. A mask
+that is not gray (colour types 2, 3 and 6) raises a ``ValueError`` naming
+the file: OpenCV would convert colour to gray with its own weights, and
+the benchmark's masks are gray. Other formats (JPEG) go through ``cv2``
+too. Where ``cv2`` does not import, a file that needs it raises an
+``ImportError`` naming the file.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import numpy as np
 from . import native
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-# channels by colour type: 0 gray, 2 RGB, 3 palette, 6 RGBA (4, gray+alpha, is refused)
+# channels by colour type: 0 gray, 2 RGB, 3 palette, 6 RGBA (4, gray+alpha, goes to cv2)
 _CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}
+# colour types a mask may have: gray, and gray+alpha (which cv2 reads as its gray)
+_MASK_TYPES = (0, 4)
 
 
 def read(path: str, gray: bool = False) -> np.ndarray:
@@ -47,12 +53,13 @@ def read(path: str, gray: bool = False) -> np.ndarray:
     return _read_with_cv2(path, gray)
 
 
-def _read_with_cv2(path: str, gray: bool) -> np.ndarray:
+def _read_with_cv2(path: str, gray: bool, what: str = "not a PNG file (JPEG)"
+                   ) -> np.ndarray:
     try:
         import cv2
     except ImportError as e:
         raise ImportError(
-            f"{path}: not a PNG file; decoding it (JPEG) needs OpenCV (cv2), "
+            f"{path}: {what}; decoding it needs OpenCV (cv2), "
             f"which does not import here ({e})") from e
     out = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
     if out is None:
@@ -86,14 +93,12 @@ def decode_png(data: bytes, path: str, gray: bool = False) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: PNG file without IHDR or IDAT")
     width, height, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG is not supported")
-    if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: PNG colour type {ctype} is not supported")
-    if depth != 8 and not (ctype == 3 and depth in (1, 2, 4)):
-        raise ValueError(f"{path}: {depth}-bit PNG (colour type {ctype}) is not supported")
-    if gray and ctype != 0:
+    if gray and ctype not in _MASK_TYPES:
         raise ValueError(f"{path}: a mask must be an 8-bit gray PNG, not colour type {ctype}")
+    if interlace or ctype not in _CHANNELS or (
+            depth != 8 and not (ctype == 3 and depth in (1, 2, 4))):
+        form = ("interlaced" if interlace else f"{depth}-bit") + f" PNG of colour type {ctype}"
+        return _read_with_cv2(path, gray, form)
     if ctype == 3 and palette is None:
         raise ValueError(f"{path}: palette PNG without PLTE")
 

@@ -272,6 +272,14 @@ class HeadEngine:
                     pd_q0=apply_classifier(w, f_q),
                     pd_s=pd_s.reshape((e, shot) + pd_s.shape[1:]), s_valid=s_valid)
 
+    def _prologue(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+                  w0: Optional[torch.Tensor], shard: Tuple[int, int] = (0, 1)) -> Dict:
+        """``episode_parts`` from explicit inits ``w0`` or ``generator``'s
+        draws for the batch (``engine.pick_w0``; rank ``shard[0]``'s rows
+        of the global batch's)."""
+        return self.episode_parts(batch, pick_w0(self, batch["q_img"].shape[0], generator,
+                                                 w0, shard))
+
     @staticmethod
     def _one(parts: Dict, batch: Dict, i: int) -> Tuple[Dict, Dict]:
         """Episode i of batched parts and inputs, in the JAX per-episode
@@ -696,7 +704,7 @@ class HeadEngine:
         """
         batch = self.to_device(episodes)
         e = batch["q_img"].shape[0]
-        parts = self.episode_parts(batch, pick_w0(self, e, generator, w0, rank_world()))
+        parts = self._prologue(batch, generator, w0, rank_world())
         self.head.zero_grad(set_to_none=True)
         accum = self.cfg.get("head_grad_accum", True)
         losses, metrics, total = [], [], 0.0

@@ -40,8 +40,15 @@ src/model/conv4d.py). Two flavours:
 
 On every route the volume meets the weights by the JAX ``_promote`` rule:
 bf16 weights (the head under ``use_amp``) cast the volume down and the
-block runs bf16, otherwise both meet at the promoted dtype. The int8 modes
-are not ported. ``FSS_QPLANE_HWNC`` (a JAX layout probe for XLA:TPU with the
+block runs bf16, otherwise both meet at the promoted dtype.
+
+The int8 modes (``FSS_NCONS_INT8=fake|dot``, ``ops.quant``; read when the
+block runs, like ``FSS_NCONS_R4``) reach the rank-4 route's two plane
+convs only, as in JAX (its ``models/conv4d.py:278-300``): ``fake``
+convolves fake-quantized operands, ``dot`` runs ``qconv2d`` (int8
+``torch._int_mm`` on an im2col of the plane). The JAX package reads the
+flag nowhere else, so the flat route (the pivot kernels) and the 6D route
+run unquantized under it, here as there. ``FSS_QPLANE_HWNC`` (a JAX layout probe for XLA:TPU with the
 rank-4 route's math) has no route of its own here.
 """
 
@@ -56,13 +63,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cuda_pivot import pivot_fwd, pivot_impl, pivot_kernel_available
-
-
-def check_no_int8() -> None:
-    mode = os.environ.get("FSS_NCONS_INT8", "")
-    if mode not in ("", "0"):
-        raise NotImplementedError(f"FSS_NCONS_INT8={mode}: the int8 consensus "
-                                  "is not ported (ROADMAP queue 1 item 12)")
+from ..ops.quant import fake_quant, ncons_int8_mode, qconv2d
 
 
 def init_conv_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -96,6 +97,24 @@ def _plane_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     """``F.conv2d`` on NCHW planes in the dtype of ``x``."""
     bias = None if bias is None else bias.to(x.dtype)
     return F.conv2d(x, weight.to(x.dtype), bias, stride=stride, padding=padding)
+
+
+def _rank4_plane_conv(x: torch.Tensor, conv: nn.Conv2d, int8_mode: str) -> torch.Tensor:
+    """One plane conv of the rank-4 route, NCHW in the dtype of ``x``, under
+    ``FSS_NCONS_INT8`` (``ops.quant``): ``fake`` quantizes both operands
+    per tensor and convolves the dequantized values; ``dot`` runs
+    ``qconv2d`` (int8 operands, int32 sums, per-channel kernel scales). The
+    bias is added after, as the JAX route adds it."""
+    if not int8_mode:
+        return _plane_conv(x, conv.weight, conv.bias, padding=conv.padding)
+    weight = conv.weight.to(x.dtype)
+    if int8_mode == "dot":
+        out = qconv2d(x, weight, conv.padding, x.dtype).to(x.dtype)
+    else:
+        out = F.conv2d(fake_quant(x), fake_quant(weight), None, padding=conv.padding)
+    if conv.bias is not None:
+        out = out + conv.bias.to(out.dtype).reshape(1, -1, 1, 1)
+    return out
 
 
 def conv_query_planes(x: torch.Tensor, weight: torch.Tensor, bias, stride,
@@ -139,7 +158,6 @@ class CenterPivotConv4d(nn.Module):
                 fuse_relu: bool = False,
                 flat_dims: Tuple[int, int, int, int] | None = None,
                 bqsc: bool = False) -> torch.Tensor:
-        check_no_int8()
         dtype = _promote(x, self.conv1.weight)
         x = x.to(dtype)
         if flat_dims is None:
@@ -181,11 +199,12 @@ class CenterPivotConv4d(nn.Module):
         b, qn, sn, c = x.shape
         co = self.out_channels
         q_conv, s_conv = (self.conv2, self.conv1) if swap_roles else (self.conv1, self.conv2)
+        mode = ncons_int8_mode()
         xs = x.reshape(b * qn, hs, ws, c).permute(0, 3, 1, 2)
-        s_out = (_plane_conv(xs, s_conv.weight, s_conv.bias, padding=s_conv.padding)
+        s_out = (_rank4_plane_conv(xs, s_conv, mode)
                  .permute(0, 2, 3, 1).reshape(b, qn, sn, co))
         xq = x.transpose(1, 2).reshape(b * sn, hq, wq, c).permute(0, 3, 1, 2)
-        q_out = (_plane_conv(xq, q_conv.weight, q_conv.bias, padding=q_conv.padding)
+        q_out = (_rank4_plane_conv(xq, q_conv, mode)
                  .permute(0, 2, 3, 1).reshape(b, sn, qn, co).transpose(1, 2))
         out = s_out + q_out
         return torch.relu(out) if fuse_relu else out

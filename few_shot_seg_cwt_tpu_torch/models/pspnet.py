@@ -19,7 +19,16 @@ Counterpart of ``few_shot_seg_cwt_tpu.models.pspnet``:
   and BN buffers and installs the activation casts at the stage boundaries
   (stem, layer1-4, ppm, bottleneck), the JAX ``_stage_cast``. It is an
   explicit cast of the module, not ``torch.autocast``, which would keep BN
-  and other layers in fp32: a different function from the JAX one.
+  and other layers in fp32: a different function from the JAX one. This is
+  what the engines run (the JAX ``cast_backbone_io``). Stage-1 training
+  under a mixed policy runs ``stage_boundary_casts`` instead, the JAX
+  model's own semantics: parameters stay fp32, and each listed stage's
+  input is rounded to bf16 at its boundary, after which every layer
+  computes in fp32 (a flax layer with ``dtype=None`` promotes a bf16 input
+  against its fp32 parameters), the gradient rounded at the same
+  boundaries on its way back;
+* ``inherit_base`` adds ``val_classifier``, a plain 1x1 conv of
+  ``num_classes_tr + 1`` rows, and ``classify_val``.
 
 Every BN is ``resnet.BatchNorm2d``: in train mode (stage-1 pretraining) its
 running variance follows flax's update. Module and parameter names are the
@@ -244,12 +253,16 @@ class PSPNet(nn.Module):
     def __init__(self, layers: int = 50, bins: Sequence[int] = (1, 2, 3, 6),
                  dropout: float = 0.1, bottleneck_dim: int = 512,
                  num_classes_tr: int = 2, rmid: Optional[str] = None,
-                 arch: str = "resnet", dist: str = "dot", cls_type: str = "oooo"):
+                 arch: str = "resnet", dist: str = "dot", cls_type: str = "oooo",
+                 inherit_base: bool = False):
         super().__init__()
         self.arch = arch
         self.rmid = rmid
         # {stage: dtype} of the activation casts; None: no casts (fp32)
         self.stage_dtypes: Optional[Dict[str, torch.dtype]] = None
+        # True: the casts round the activation and the stage computes in
+        # fp32 (``stage_boundary_casts``); False: the stage runs its dtype
+        self.stage_round_only = False
         if arch == "resnet":
             trunk, fea_dim = DilatedResNet(layers), 2048
         elif arch == "vgg":
@@ -271,6 +284,8 @@ class PSPNet(nn.Module):
         # holds no parameters), drawn from an explicit generator in _head
         self.dropout = dropout
         self.classifier = build_classifier(dist, cls_type, bottleneck_dim, num_classes_tr)
+        if inherit_base:
+            self.val_classifier = DotCls(bottleneck_dim, num_classes_tr + 1)
         self.gamma = nn.Parameter(torch.tensor(0.2))
 
     def extract_features(self, x: torch.Tensor,
@@ -300,6 +315,12 @@ class PSPNet(nn.Module):
         logits = self.classifier(feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         logits = upsample_bilinear_ac(logits, size)
         return (logits, feats) if self.rmid else logits
+
+    def classify_val(self, features: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+        """``inherit_base``'s (K + 1)-way logits of NHWC features, zoomed
+        (align corners) to ``shape``: the JAX ``classify_val``."""
+        logits = self.val_classifier(features.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return upsample_bilinear_ac(logits, tuple(shape))
 
     def _head(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
               ) -> torch.Tensor:
@@ -332,6 +353,9 @@ def cast_backbone(model: PSPNet, policy: Dict[str, torch.dtype]) -> PSPNet:
     back up would not give the fp32 model back, and leaving them would run
     another policy than the caller's. Give each engine its own copy."""
     policy = dict(policy)
+    if model.stage_round_only:
+        raise ValueError("cast_backbone: the model runs stage_boundary_casts (stage-1 "
+                         "training); cast a copy of it without them")
     if (model.stage_dtypes or {s: torch.float32 for s in BACKBONE_STAGES}) == policy:
         return model
     if model.stage_dtypes is not None:
@@ -345,6 +369,22 @@ def cast_backbone(model: PSPNet, policy: Dict[str, torch.dtype]) -> PSPNet:
     return model
 
 
+def stage_boundary_casts(model: PSPNet, policy: Dict[str, torch.dtype]) -> PSPNet:
+    """Install a mixed stage policy as the JAX model has it (its
+    ``_stage_cast``), on ``model`` in place: the parameters and BN buffers
+    stay fp32, and the input of each stage is cast to the stage's dtype and
+    promoted back to fp32 by the layers that read it (``resnet.stage_cast``).
+    Stage-1 training runs this (the engines run ``cast_backbone``); a
+    uniform policy leaves the model alone, as the JAX ``build_pspnet``
+    installs no casts for one."""
+    if model.stage_dtypes is not None:
+        raise ValueError("stage_boundary_casts: the model already runs a stage policy")
+    if len(set(policy.values())) > 1:
+        model.stage_dtypes = dict(policy)
+        model.stage_round_only = True
+    return model
+
+
 def _policy_str(policy: Dict[str, torch.dtype]) -> str:
     return ",".join(f"{s}:{str(d).split('.')[-1]}" for s, d in policy.items())
 
@@ -354,15 +394,16 @@ def build_pspnet(cfg, generator: Optional[torch.Generator] = None) -> PSPNet:
     config's stage dtype policy (``cast_backbone``)."""
     policy = stage_dtype_policy(cfg)
     rmid = cfg.get("rmid") or None
-    if cfg.get("inherit_base", False):
-        raise NotImplementedError("inherit_base is not ported (ROADMAP queue 1 item 11)")
     model = PSPNet(layers=cfg.layers, bins=tuple(cfg.bins), dropout=cfg.dropout,
                    bottleneck_dim=cfg.bottleneck_dim,
                    num_classes_tr=cfg.num_classes_tr, rmid=rmid,
                    arch=cfg.get("arch", "resnet"), dist=cfg.get("dist", "dot"),
-                   cls_type=str(cfg.get("cls_type", "oooo")))
+                   cls_type=str(cfg.get("cls_type", "oooo")),
+                   inherit_base=bool(cfg.get("inherit_base", False)))
     if generator is None:
         generator = torch.Generator().manual_seed(int(cfg.get("manual_seed") or 0))
     reset_parameters(model, generator)
     init_classifier(model.classifier, generator)
+    if hasattr(model, "val_classifier"):
+        init_classifier(model.val_classifier, generator)
     return cast_backbone(model, policy)

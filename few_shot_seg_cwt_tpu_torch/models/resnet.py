@@ -158,11 +158,14 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, return_pre_relu: bool = False):
         """The block's output; with ``return_pre_relu`` also the sum before
-        the last ReLU (the ``rmid nr`` tap)."""
-        out = self.relu(self.bn1(self.conv1(x)))
+        the last ReLU (the ``rmid nr`` tap). An input rounded to another
+        dtype than the parameters' (``stage_cast`` under
+        ``stage_round_only``) is promoted per branch, as flax does."""
+        dtype = self.conv1.weight.dtype
+        out = self.relu(self.bn1(self.conv1(x.to(dtype))))
         out = self.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+        residual = x if self.downsample is None else self.downsample(x.to(dtype))
         pre = out + residual
         if return_pre_relu:
             return torch.relu(pre), pre
@@ -233,9 +236,21 @@ def run_trunk(trunk: nn.Module, x: torch.Tensor, return_feats: bool = False,
 
 def stage_cast(model: nn.Module, x: torch.Tensor, stage: str) -> torch.Tensor:
     """``x`` in the compute dtype of ``stage`` under ``model.stage_dtypes``
-    (``models.pspnet.cast_backbone``); unchanged without a policy."""
+    (``models.pspnet.cast_backbone``); unchanged without a policy. Under
+    ``stage_round_only`` (``models.pspnet.stage_boundary_casts``) it is
+    rounded to that dtype, and each layer that reads it promotes it back to
+    its parameters' dtype (fp32; float64 in the tests' double model), as a
+    flax layer promotes a bf16 input: a ResNet stage's first ``Bottleneck``
+    does that per branch, so the gradient is rounded per branch and summed
+    in bf16, as JAX's transposed casts do; the stem, PPM and bottleneck
+    inputs are promoted back here, once."""
     dtypes = getattr(model, "stage_dtypes", None)
-    return x if dtypes is None else x.to(dtypes[stage])
+    if dtypes is None:
+        return x
+    if getattr(model, "stage_round_only", False):
+        rounded = x.to(dtypes[stage])
+        return rounded if stage.startswith("layer") else rounded.to(x.dtype)
+    return x.to(dtypes[stage])
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:

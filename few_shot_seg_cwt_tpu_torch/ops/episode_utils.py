@@ -14,17 +14,21 @@ Counterpart of part of ``few_shot_seg_cwt_tpu.ops.episode_utils``
   reference's two sites do);
 * ``outer_forward`` (src/model/pspnet.py:224-256): the transductive
   softmax blend of the ``asy`` head, ``(weighted_v * gamma + f_q) / (1 +
-  gamma)``.
-
-The rest of the JAX module (``reset_cls_wt``, ``reset_spt_label``,
-``adapt_reset_spt_label_np``, ``compress_pred`` and ``pred2bmask``, the
-incremental trainers' helpers) is not ported (ROADMAP queue 1 item 11).
+  gamma)``;
+* the incremental (CCA) trainers' helpers (src/model/model_util.py:112-166):
+  ``reset_cls_wt`` (base rows from the stage-1 classifier, the novel row
+  re-seeded), ``reset_spt_label`` (support BG pseudo-labelled by the base
+  classifier), ``adapt_reset_spt_label_np`` (the host pass of the adaptive
+  trainer, with the reference's relabel inside its frequency loop),
+  ``compress_pred`` (K-way to binary probabilities) and ``pred2bmask``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .corr import get_corr, l2norm
@@ -119,3 +123,85 @@ def outer_forward(f_q: torch.Tensor, f_s: torch.Tensor, fq_fea: torch.Tensor,
     attn = torch.softmax(sim * temp, dim=-1)
     weighted_v = torch.bmm(attn, proj_v.reshape(b, -1, c).to(attn.dtype)).reshape(b, h, w, c)
     return (weighted_v * gamma + f_q) / (1.0 + gamma), corr, ig_mask
+
+
+# --------------------------------------------------------------------------- #
+# incremental / multi-way helpers (CCA trainers)
+# --------------------------------------------------------------------------- #
+
+def reset_cls_wt(weights: torch.Tensor, pre_cls_wt: torch.Tensor, num_classes_tr: int,
+                 idx_cls: int, generator: Optional[torch.Generator] = None,
+                 new_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Re-seed a (K, C) classifier: rows below ``num_classes_tr`` from the
+    pretrained ``pre_cls_wt``, row ``idx_cls`` the given ``new_row`` or a
+    U(+-1/sqrt(C)) draw from ``generator`` (on the host)."""
+    c = weights.shape[1]
+    if new_row is None:
+        std = 1.0 / math.sqrt(c)
+        new_row = torch.rand((c,), generator=generator, dtype=torch.float32) * (2 * std) - std
+    out = weights.clone()
+    out[:num_classes_tr] = pre_cls_wt[:num_classes_tr]
+    out[idx_cls] = new_row.to(out)
+    return out
+
+
+def reset_spt_label(s_label: torch.Tensor, pred: torch.Tensor, idx_cls) -> torch.Tensor:
+    """Support BG pixels -> the base classifier's argmax with class
+    ``idx_cls`` suppressed, FG -> ``idx_cls`` (src:119-127). pred (..., H,
+    W, K) base logits at label resolution. Sequential, as the reference: BG
+    pixels pseudo-labelled 1 also become ``idx_cls``."""
+    k = pred.shape[-1]
+    novel = torch.arange(k, device=pred.device) == idx_cls
+    pred = torch.where(novel, torch.full_like(pred, -1000.0), pred)
+    pred_mask = torch.argmax(pred, dim=-1).to(s_label.dtype)
+    out = torch.where(s_label == 0, pred_mask, s_label)
+    return torch.where(out == 1, torch.as_tensor(idx_cls, dtype=out.dtype,
+                                                 device=out.device), out)
+
+
+def adapt_reset_spt_label_np(s_label: np.ndarray, pred: np.ndarray, pre_cls_wt: np.ndarray,
+                             num_classes_tr: int, sub_cls: Optional[int] = None
+                             ) -> Tuple[np.ndarray, List[np.ndarray], int]:
+    """Episode-adaptive multi-way relabelling on the host (src:130-155):
+    (new label, the inherited base-class weight rows, num_cls).
+
+    Reference-exact wart, kept: the relabel mutates ``s_label`` inside the
+    frequency loop, so pixels relabelled to num_cls can be matched again by
+    a later loop index i == num_cls and folded into background while their
+    inherited row stays in the list (model_util.py:146-152)."""
+    s_label = s_label.copy()
+    pred_mask = pred.argmax(-1)
+    if sub_cls is not None and sub_cls > 0:
+        pred_mask[pred_mask == sub_cls] = 0
+
+    s_label[s_label == 1] = num_classes_tr      # park FG on a temporary id
+    bg = s_label == 0
+    s_label[bg] = pred_mask[bg]
+
+    num_cls = 2
+    cls_init_wt = []
+    freq = np.bincount(s_label.flatten())
+    for i in range(1, min(len(freq), num_classes_tr)):
+        if 0 < freq[i] <= 300 * len(s_label):
+            s_label[s_label == i] = 0
+        elif freq[i] > 300 * len(s_label) and 0 < i < num_classes_tr:
+            s_label[s_label == i] = num_cls
+            num_cls += 1
+            cls_init_wt.append(pre_cls_wt[i])
+    s_label[s_label == num_classes_tr] = 1
+    return s_label, cls_init_wt, num_cls
+
+
+def compress_pred(pred: torch.Tensor, idx_cls, input_type: str = "lg") -> torch.Tensor:
+    """A K-way prediction (..., K) as binary probabilities (..., 2): the
+    softmax of logits (``input_type`` lg / lt) or the given probabilities,
+    foreground the class ``idx_cls``, background the rest."""
+    if input_type in ("lg", "lt"):
+        pred = torch.softmax(pred, dim=-1)
+    fg = pred[..., idx_cls]
+    return torch.stack([1.0 - fg, fg], dim=-1)
+
+
+def pred2bmask(pred: torch.Tensor, idx_cls: int = 1) -> torch.Tensor:
+    """argmax -> int32 binary mask with only ``idx_cls`` as foreground."""
+    return (torch.argmax(pred, dim=-1) == idx_cls).int()

@@ -537,15 +537,17 @@ def run_validate(part: Dict, seed: int, device, rank: int, world: int, n_ranks: 
 def run_trainers(part: Dict, device, rank: int, world: int) -> Dict:
     """``train_cwt.main``, ``train_ddp.main`` (the MMN head trainer) and
     ``pretrain.main`` on synthetic data at ``size`` px, each whole (2 epochs),
-    and the first two cut after one epoch and resumed; the files under
-    ``dir`` are the caller's to read."""
+    and the first two cut after one epoch and resumed; ``train_cca.main``
+    (configs/pascal_cca.yaml) for one epoch, and ``train_cca1.main``, which
+    must refuse a process group; the files under ``dir`` are the caller's
+    to read."""
     from ..config import default_cfg, load_cfg, merge_cfg_from_list
-    from ..train import pretrain, train_cwt, train_ddp
+    from ..train import pretrain, train_cca, train_cca1, train_cwt, train_ddp
 
     size = str(part["size"])
     work = part["dir"]
-    ddp_yaml, pretrain_yaml = (os.path.abspath(f"configs/{n}.yaml")
-                               for n in ("pascal_ddp", "pascal_pretrain"))
+    ddp_yaml, pretrain_yaml, cca_yaml = (os.path.abspath(f"configs/{n}.yaml")
+                                         for n in ("pascal_ddp", "pascal_pretrain", "pascal_cca"))
     quiet = lambda *_: None  # noqa: E731
     out = {}
 
@@ -582,6 +584,16 @@ def run_trainers(part: Dict, device, rank: int, world: int) -> Dict:
         run("pretrain", pretrain.main, merge_cfg_from_list(load_cfg(pretrain_yaml), [
             "image_size", size, "synthetic_data", "True", "epochs", "1", "batch_size", "8",
             "num_classes_tr", "4", "save_models", "True", "workers", "0", "exp_name", "ddp"]))
+        cca_cfg = merge_cfg_from_list(load_cfg(cca_yaml), [
+            "image_size", size, "adapt_iter", "2", "synthetic_data", "True", "epochs", "1",
+            "iter_per_epoch", "4", "episode_batch", "2", "test_num", "2", "save_models",
+            "True", "exp_name", "cca", "workers", "0"])
+        run("cca", train_cca.main, cca_cfg)
+        try:
+            train_cca1.main(cca_cfg, device=device, log=quiet)
+            out["cca1_refused"] = None
+        except ValueError as e:
+            out["cca1_refused"] = str(e)
     return out
 
 

@@ -23,8 +23,9 @@ arguments, lower case without the ``BENCH_`` prefix):
   config's 200), ``BENCH_HEAD`` (``mmn``; ``match`` or ``chm``
   with configs/pascal_match.yaml's model settings, ``crm_type chm`` for
   ``chm``; ``detr`` with configs/pascal_trans.yaml's; ``att``, ``asy`` and
-  ``fuse`` with MMN's, as the JAX bench runs any other head; ``cca`` is not
-  ported and raises with its ROADMAP item), ``BENCH_OPTS`` (``key value
+  ``fuse`` with MMN's, as the JAX bench runs any other head; ``cca``, the
+  incremental engine with MMN's and a 17-way base classifier),
+  ``BENCH_OPTS`` (``key value
   ...`` as ``--opts``),
   ``BENCH_QUIET=1`` (no progress lines on stderr).
 
@@ -107,15 +108,19 @@ def _config(knobs: Dict[str, Any], size: int, dtype: str, shot: int):
 
 def _head_engine(cfg, head: str, dtype: str, device):
     """The head's engine with its ``HEAD_KNOBS`` (MMN's for a head without
-    its own: att, asy, fuse); ``cca`` raises with its ROADMAP item."""
+    its own: att, asy, fuse, cca). ``cca`` is the incremental engine
+    (``episodic.cca.CCAEngine``) over a 17-way base classifier, as the JAX
+    bench builds it (the synthetic episodes' classes are 1..16)."""
     from ..episodic.heads import HeadEngine
 
-    if head == "cca":
-        raise NotImplementedError("BENCH_HEAD 'cca': the incremental CCA engine is not "
-                                  "ported (ROADMAP queue 1 item 11)")
     for k, v in HEAD_KNOBS.get(head, MMN_KNOBS).items():
         cfg[k] = v
     cfg.use_amp = dtype == "bfloat16"
+    if head == "cca":
+        from ..episodic.cca import CCAEngine
+
+        cfg.num_classes_tr = 17
+        return CCAEngine(cfg, device=device)
     return HeadEngine(cfg, head, device=device)
 
 
@@ -151,7 +156,14 @@ def _program(mode: str, knobs: Dict[str, Any], cfg, e: int, n: int, device, dtyp
     gens = [torch.Generator().manual_seed(100 + i) for i in range(n + 1)]
 
     if mode in ("head", "head_eval", "head_serve"):
-        engine = _head_engine(cfg, str(_knob(knobs, "head", "mmn")), dtype, device)
+        head = str(_knob(knobs, "head", "mmn"))
+        engine = _head_engine(cfg, head, dtype, device)
+        if head == "cca":
+            # the K-way init is the base classifier with a novel row drawn per episode
+            if mode == "head_eval":
+                return lambda i: engine.eval_metrics_batch(staged[i % 3], gens[i])["loss"]
+            if mode == "head_serve":
+                return lambda i: engine.serve_batch(staged[i % 3], gens[i])
         w0s = [engine.init_weights(e, g) for g in gens]
         if mode == "head_eval":
             return lambda i: engine.eval_metrics_batch(staged[i % 3], w0=w0s[i])["loss"]

@@ -123,12 +123,14 @@ def stage1_weights_path(cfg) -> str:
                         f"pspnet_{cfg.arch}{cfg.layers}", leaf)
 
 
-def load_backbone_weights(backbone: PSPNet, path: str, skip_gamma: bool) -> None:
+def load_backbone_weights(backbone: PSPNet, path: str, skip_gamma: bool,
+                          skip_classifier: bool = True) -> None:
     """Overlay a reference PSPNet ``.pth`` onto ``backbone``, without the
-    stage-1 classifier (and without ``gamma`` when ``skip_gamma``), as the
+    stage-1 classifier (unless ``skip_classifier`` is False: the CCA
+    trainers' base rows) and without ``gamma`` when ``skip_gamma``, as the
     reference's stage-2 filter does (src/train.py:65-71). Every other
     backbone tensor must be in the file."""
-    skip = ("classifier.",) + (("gamma",) if skip_gamma else ())
+    skip = (("classifier.",) if skip_classifier else ()) + (("gamma",) if skip_gamma else ())
     sd = {k: v for k, v in load_torch_checkpoint(path).items() if not k.startswith(skip)}
     missing, unexpected = backbone.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.startswith(skip)]
@@ -136,25 +138,28 @@ def load_backbone_weights(backbone: PSPNet, path: str, skip_gamma: bool) -> None
         raise ValueError(f"{path}: missing {missing[:5]}, unexpected {unexpected[:5]}")
 
 
-def load_stage1_weights(cfg, backbone: PSPNet, log=print) -> None:
+def load_stage1_weights(cfg, backbone: PSPNet, log=print, skip_classifier: bool = True) -> None:
     """Overlay the stage-1 weights at ``stage1_weights_path`` if the file
-    exists (``classifier.*`` and ``gamma`` dropped), with the reference's
-    log lines."""
+    exists (``gamma`` dropped, and ``classifier.*`` unless
+    ``skip_classifier`` is False), with the reference's log lines."""
     path = stage1_weights_path(cfg)
     if os.path.isfile(path):
         log(f"=> loading weight '{path}'")
-        load_backbone_weights(backbone, path, skip_gamma=True)
+        load_backbone_weights(backbone, path, skip_gamma=True, skip_classifier=skip_classifier)
         log(f"=> loaded weight '{path}'")
     else:
         log(f"=> no weight found at '{path}'")
 
 
-def init_backbone(cfg, generator: Optional[torch.Generator] = None, log=print) -> PSPNet:
+def init_backbone(cfg, generator: Optional[torch.Generator] = None, log=print,
+                  skip_classifier: bool = True) -> PSPNet:
     """The frozen backbone: a seeded random PSPNet (``manual_seed``), with
-    the stage-1 weights overlaid when ``resume_weights`` is set."""
+    the stage-1 weights overlaid when ``resume_weights`` is set (the
+    stage-1 classifier too with ``skip_classifier`` False, as the CCA
+    trainers keep it: its rows are their base classes)."""
     backbone = build_pspnet(cfg, generator)
     if cfg.get("resume_weights"):
-        load_stage1_weights(cfg, backbone, log)
+        load_stage1_weights(cfg, backbone, log, skip_classifier)
     return backbone
 
 

@@ -36,13 +36,17 @@ src/pretrain.py):
 
 Records come from ``data.episodic.StandardDataset`` on the train and val
 lists, or with ``synthetic_data`` from seeded random images and labels.
-The backbone trains in fp32 whatever ``compute_dtype`` says (the JAX step
-casts nothing); uniform bf16 reaches only the episodic validation's
-engine. ``pretrained`` ImageNet trunks are not read (nor does the JAX
+The backbone's parameters train in fp32 whatever the policy: uniform bf16
+(``compute_dtype``, ``use_amp``) reaches only the episodic validation's
+engine, as the JAX step casts nothing for it; a mixed ``bf16_stages``
+policy rounds each listed stage's input to bf16 at its boundary and the
+stage computes in fp32, the JAX model's semantics
+(``models.pspnet.stage_boundary_casts``), while episodic validation runs
+a copy with those stages' parameters cast (the engines' ``cast_backbone``). ``pretrained`` ImageNet trunks are not read (nor does the JAX
 package read them). The lines go to ``log`` and ``<sv_path>/log.txt``; the
 epoch's ``train_loss`` and ``mean_iou/val`` to TensorBoard scalars under
 ``<sv_path>/model`` (``utils.tb``: an events file, or ``scalars.jsonl``
-without ``tensorboard``). Not ported: a mixed ``bf16_stages`` policy.
+without ``tensorboard``).
 
 Over several cards (``torchrun --nproc_per_node N -m
 few_shot_seg_cwt_tpu_torch.train.pretrain ...``, ``parallel.mesh``) every
@@ -71,7 +75,8 @@ from ..data.episodic import StandardDataset
 from ..data.loader import EpisodeLoader
 from ..episodic.engine import EpisodicEngine
 from ..eval.validate import episodic_validate
-from ..models.pspnet import PSPNet, build_pspnet, policy_is_noop, stage_dtype_policy
+from ..models.pspnet import (PSPNet, build_pspnet, policy_is_noop, stage_boundary_casts,
+                             stage_dtype_policy)
 from ..ops.losses import cross_entropy, smoothed_cross_entropy
 from ..ops.metrics import intersection_and_union
 from ..parallel.mesh import (active, all_reduce_grads, all_reduce_sum, barrier,
@@ -259,7 +264,12 @@ def run_episodic_validation(cfg, model: PSPNet, loader, device, log=print) -> Tu
     ep_cfg = cfg.clone()
     ep_cfg.num_classes_tr = 2   # a fresh binary classifier (src/test.py:309)
     policy = stage_dtype_policy(ep_cfg)
-    backbone = model if policy_is_noop(policy) else copy.deepcopy(model)
+    backbone = model
+    if not policy_is_noop(policy):
+        # the engine casts the stages' parameters (the JAX engines'
+        # ``cast_backbone_io``): a copy, without the training model's casts
+        backbone = copy.deepcopy(model)
+        backbone.stage_dtypes, backbone.stage_round_only = None, False
     was_training = model.training
     try:
         engine = EpisodicEngine(ep_cfg, backbone=backbone, device=device)
@@ -291,13 +301,6 @@ def save_dir(cfg) -> str:
                         f"split{cfg.train_split}_shot{cfg.shot}", str(cfg.exp_name))
 
 
-def _check_supported(cfg) -> None:
-    if len(set(stage_dtype_policy(cfg).values())) > 1:
-        raise NotImplementedError(
-            f"bf16_stages {cfg.bf16_stages!r}: pretraining runs the backbone in fp32 "
-            "(a mixed stage policy is not ported)")
-
-
 def main(cfg, device="cuda", log=print) -> float:
     """Pretrain the PSPNet for ``epochs`` epochs; returns the best validation
     mIoU. ``log`` receives every line, and ``<sv_path>/log.txt`` gets them
@@ -308,7 +311,6 @@ def main(cfg, device="cuda", log=print) -> float:
     log_to(None)   # no tee until this run's directory is known
     log = get_logger(log)
     fp32_parity()
-    _check_supported(cfg)
     log(cfg)
     set_seeds(cfg)
     apply_debug(cfg)
@@ -318,7 +320,8 @@ def main(cfg, device="cuda", log=print) -> float:
 
     fp32_cfg = cfg.clone()
     fp32_cfg.compute_dtype, fp32_cfg.use_amp, fp32_cfg.bf16_stages = "float32", False, None
-    model = build_pspnet(fp32_cfg).to(device)
+    # fp32 parameters; a mixed policy rounds the listed stages' inputs
+    model = stage_boundary_casts(build_pspnet(fp32_cfg), stage_dtype_policy(cfg)).to(device)
 
     if cfg.get("synthetic_data"):
         size, k = int(cfg.image_size), int(cfg.num_classes_tr)

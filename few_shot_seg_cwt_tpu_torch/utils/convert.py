@@ -120,6 +120,9 @@ def pspnet_state_dict_from_flax(variables: Mapping[str, Any],
         sd[prefix + "bias"] = _t(cls["bias"])
     if "scale_factor" in cls:
         sd["classifier.scale_factor"] = _t(cls["scale_factor"])
+    if "val_classifier" in params:   # inherit_base's (K + 1)-way head
+        sd["val_classifier.weight"] = _t(
+            np.asarray(params["val_classifier"]["weight"]).T[:, :, None, None])
     if "gamma" in params:
         sd["gamma"] = _t(params["gamma"])
     return sd

@@ -52,13 +52,14 @@ def test_bench_refuses_without_a_card():
     assert proc.stdout == ""
 
 
-@pytest.mark.parametrize("knobs,error", [
-    ({"head": "cca"}, "ROADMAP queue 1 item 11"),
-])
-def test_heads_not_ported_name_their_item(knobs, error):
-    with pytest.raises(NotImplementedError, match=error):
-        bench.run("head_eval", device="cpu", image_size=33, adapt_iter=2, batches=1,
-                  episode_batch=1, quiet=1, **knobs)
+@pytest.mark.parametrize("mode", ["head", "head_eval", "head_serve"])
+def test_cca_head_modes_run_on_the_cpu(mode):
+    """BENCH_HEAD cca: the incremental engine (MMN's settings, a 17-way base
+    classifier, as the JAX bench builds it)."""
+    out = bench.run(mode, device="cpu", image_size=33, adapt_iter=2, batches=1,
+                    episode_batch=2, quiet=1, head="cca")
+    assert out["mode"] == mode and math.isfinite(out["value"]) and out["value"] > 0
+    assert out["flops_per_episode"] > 0 and out["kernel_launches"] == {}
 
 
 @pytest.mark.parametrize("mode", ["head", "head_eval", "head_serve"])

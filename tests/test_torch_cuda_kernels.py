@@ -809,3 +809,97 @@ def test_fuse_c1_6d_route_against_rank4(device):
     rel = {k: float((got[0][k] - w).abs().max() / w.abs().max()) for k, w in got[1].items()}
     print(f"fuse c1 6D vs rank-4, max|v - v_r4| / max|v_r4|: {rel}")
     assert max(rel.values()) <= 1e-4, rel
+
+
+@pytest.mark.parametrize("ci,co,planes,side", [(10, 10, 3600, 60), (1, 10, 3600, 60),
+                                                (10, 1, 3600, 60), (16, 16, 64, 30)])
+def test_qconv2d_dot_against_the_dequantized_conv(device, ci, co, planes, side):
+    """``FSS_NCONS_INT8=dot``'s plane conv (int8 operands on the card,
+    im2col x ``torch._int_mm``, int32 sums) at the MMN rank-4 route's plane
+    shapes against cuDNN's fp32 conv of the same dequantized operands (the
+    fake quantization at dot's scales): within 1e-5 of max|y|; its
+    gradients equal the plain conv's at the dequantized point (the STE)
+    within 1e-4 of their scale; one int8 GEMM a call."""
+    import torch.nn.functional as F
+
+    from few_shot_seg_cwt_tpu_torch.ops import quant
+    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
+
+    fp32_parity()
+    g = torch.Generator(device=device).manual_seed(ci * co)
+    x = torch.relu(torch.randn((planes, ci, side, side), generator=g, device=device))
+    k = torch.randn((co, ci, 3, 3), generator=g, device=device) * 0.2
+    xq, sx = quant.quantize_tensor(x)
+    kq, sk = quant.quantize_per_co(k)
+    assert xq.dtype == kq.dtype == torch.int8 and xq.is_cuda
+    x_deq = (xq.float() * sx).requires_grad_(True)
+    k_deq = (kq.float() * sk.reshape(-1, 1, 1, 1)).requires_grad_(True)
+    want = F.conv2d(x_deq, k_deq, padding=1)
+    before = quant.INT_MM_CALLS
+    xi, ki = x.clone().requires_grad_(True), k.clone().requires_grad_(True)
+    got = quant.qconv2d(xi, ki, (1, 1))
+    torch.cuda.synchronize()
+    assert quant.INT_MM_CALLS == before + 1
+    err = float((got - want).abs().max() / want.abs().max())
+    gy = torch.randn(got.shape, generator=g, device=device)
+    got.backward(gy)
+    want.backward(gy)
+    gerr = [float((a - b).abs().max() / b.abs().max())
+            for a, b in ((xi.grad, x_deq.grad), (ki.grad, k_deq.grad))]
+    print(f"qconv2d dot {ci}->{co} on {planes} planes of {side}x{side}: forward {err:.3e}, "
+          f"dx {gerr[0]:.3e}, dk {gerr[1]:.3e}")
+    assert err <= 1e-5 and max(gerr) <= 1e-4, (err, gerr)
+
+
+def test_cca_flat_route_step_against_rank4(device, monkeypatch):
+    """A CCA train step (configs/pascal_cca.yaml at 33 px, 5 K-way inner
+    steps, live consensus) on the flat route (the pivot pair launched)
+    against the rank-4 route on the same episodes and inits: head gradients
+    within 1e-3 of each tensor's largest entry, K1 never launched (the CCA
+    loop is K-way), the predictions' argmax >= 99.5% equal."""
+    from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
+    from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
+    from few_shot_seg_cwt_tpu_torch.episodic.cca import CCAEngine
+    from few_shot_seg_cwt_tpu_torch.models.matching import live_consensus
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
+
+    fp32_parity()
+    for var in ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_NCONS_R4", "FSS_NCONS_INT8"):
+        monkeypatch.delenv(var, raising=False)
+    cfg = merge_cfg_from_list(load_cfg("configs/pascal_cca.yaml"),
+                              ["image_size", "33", "adapt_iter", "5"])
+    engine = CCAEngine(cfg, device="cuda")
+    with torch.no_grad():
+        live_consensus(engine.head, 0.05)
+        bn = engine.backbone.bottleneck[1]
+        bn.weight.mul_(0.01)      # features of norm ~10: the 16-way softmax is not one-hot
+        bn.bias.mul_(0.01)
+    ep = make_episode_batch(14, 2, size=33)
+    ep["cls"] = np.asarray([3, 9], np.int32)
+    rows = engine.new_rows(2, torch.Generator().manual_seed(2))
+    w0 = engine.base_weight().expand(2, 16, 512).clone()
+    w0[torch.arange(2), torch.as_tensor(ep["cls"]).long()] = rows
+    got = {}
+    for route in ("flat", "r4"):
+        if route == "flat":
+            monkeypatch.setenv("FSS_PIVOT_MXU", "1")
+        else:
+            monkeypatch.delenv("FSS_PIVOT_MXU", raising=False)
+        cuda_inner_loop.reset_launches()
+        cuda_pivot.reset_launches()
+        m = engine.backward_batch(ep, w0=w0, deterministic=True)
+        torch.cuda.synchronize()
+        assert torch.isfinite(m["loss_mean"])
+        assert cuda_inner_loop.LAUNCHES["adapt_binary"] == 0
+        assert (cuda_pivot.LAUNCHES["pivot_fwd"] > 0) == (route == "flat")
+        assert (cuda_pivot.LAUNCHES["pivot_dw"] > 0) == (route == "flat")
+        got[route] = ({k: p.grad.clone() for k, p in engine.head.named_parameters()},
+                      engine.predict_batch(ep, w0=w0))
+    rel = {k: float((got["flat"][0][k] - g).abs().max() / g.abs().max())
+           for k, g in got["r4"][0].items() if float(g.abs().max()) > 0}
+    print(f"CCA step flat vs rank-4, max|g_flat - g_r4| / max|g_r4|: {rel}")
+    assert rel and max(rel.values()) <= 1e-3, rel
+    for key in ("pred", "pred1"):
+        agree = (got["flat"][1][key].argmax(-1) == got["r4"][1][key].argmax(-1)).float().mean()
+        assert float(agree) >= 0.995, (key, float(agree))

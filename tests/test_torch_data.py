@@ -185,34 +185,124 @@ def test_png_decoder_equals_cv2_imread(tmp_path, width):
     np.testing.assert_array_equal(got, _cv2_read(tmp_path / "gray.png", gray=True))
 
 
-def _with_ihdr(data: bytes, **fields) -> bytes:
-    """A PNG file with IHDR fields replaced (CRC recomputed)."""
-    w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB", data[16:29])
-    vals = dict(depth=depth, ctype=ctype, interlace=interlace)
-    vals.update(fields)
-    body = struct.pack(">IIBBBBB", w, h, vals["depth"], vals["ctype"], comp, filt,
-                       vals["interlace"])
-    return data[:16] + body + struct.pack(">I", zlib.crc32(b"IHDR" + body)) + data[33:]
-
-
 def test_png_decoder_refuses_what_it_does_not_decode(tmp_path):
+    """A colour mask is refused (OpenCV would weigh the channels into gray),
+    and a missing file raises naming it; every other form goes to cv2
+    (``test_png_forms_cv2_reads_equal_cv2_imread``)."""
     rng = np.random.default_rng(1)
-    cv2.imwrite(str(tmp_path / "deep.png"), rng.integers(0, 65535, (9, 11)).astype(np.uint16))
     cv2.imwrite(str(tmp_path / "rgb.png"), rng.integers(0, 256, (9, 11, 3)).astype(np.uint8))
-    cv2.imwrite(str(tmp_path / "gray.png"), rng.integers(0, 256, (9, 11)).astype(np.uint8))
-    data = (tmp_path / "gray.png").read_bytes()
-    (tmp_path / "interlaced.png").write_bytes(_with_ihdr(data, interlace=1))
-    (tmp_path / "graya.png").write_bytes(_with_ihdr(data, ctype=4))
-    for name, gray, match in (("deep", False, "16-bit"), ("deep", True, "16-bit"),
-                              ("interlaced", False, "interlaced"),
-                              ("graya", False, "colour type 4"),
-                              ("rgb", True, "mask must be an 8-bit gray")):
-        path = str(tmp_path / f"{name}.png")
-        with pytest.raises(ValueError, match=match) as err:
-            imread.read(path, gray=gray)
-        assert path in str(err.value)
+    path = str(tmp_path / "rgb.png")
+    with pytest.raises(ValueError, match="mask must be an 8-bit gray") as err:
+        imread.read(path, gray=True)
+    assert path in str(err.value)
     with pytest.raises(RuntimeError, match="cannot read"):
         imread.read(str(tmp_path / "missing.png"))
+
+
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png(arr: np.ndarray, ctype: int, depth: int, interlace: bool = False,
+         palette=None) -> bytes:
+    """A PNG file of ``arr`` ((H, W) or (H, W, C) samples), written here from
+    the specification: every row unfiltered (type 0), 16-bit samples
+    big-endian, sub-byte samples packed from the most significant bit, and
+    with ``interlace`` the seven Adam7 passes."""
+    arr = arr if arr.ndim == 3 else arr[:, :, None]
+    h, w, _ = arr.shape
+
+    def rows(img):
+        out = b""
+        for row in img:
+            if depth == 16:
+                data = row.astype(">u2").tobytes()
+            elif depth == 8:
+                data = row.astype(np.uint8).tobytes()
+            else:
+                bits = np.unpackbits(row.astype(np.uint8).reshape(-1, 1), axis=1)[:, 8 - depth:]
+                data = np.packbits(bits.reshape(-1)).tobytes()
+            out += b"\x00" + data
+        return out
+
+    if interlace:
+        raw = b"".join(rows(arr[y0::dy, x0::dx]) for x0, y0, dx, dy in _ADAM7
+                       if arr[y0::dy, x0::dx].size)
+    else:
+        raw = rows(arr)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    out = imread.PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                                        int(interlace)))
+    if palette is not None:
+        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return out + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+def _png_forms(rng, h, w):
+    """{name: (file bytes, also a mask)}: the forms the port sends to cv2."""
+    g16 = rng.integers(0, 65536, (h, w))
+    g8 = rng.integers(0, 256, (h, w))
+    rgb = rng.integers(0, 256, (h, w, 3))
+    pal = rng.integers(0, 256, (16, 3))
+    return {
+        "gray16": (_png(g16, 0, 16), True),
+        "rgb16": (_png(rng.integers(0, 65536, (h, w, 3)), 2, 16), False),
+        "rgba16": (_png(rng.integers(0, 65536, (h, w, 4)), 6, 16), False),
+        "graya8": (_png(rng.integers(0, 256, (h, w, 2)), 4, 8), True),
+        "graya16": (_png(rng.integers(0, 65536, (h, w, 2)), 4, 16), True),
+        "gray4": (_png(rng.integers(0, 16, (h, w)), 0, 4), True),
+        "gray8_interlaced": (_png(g8, 0, 8, interlace=True), True),
+        "gray16_interlaced": (_png(g16, 0, 16, interlace=True), True),
+        "rgb8_interlaced": (_png(rgb, 2, 8, interlace=True), False),
+        "graya8_interlaced": (_png(rng.integers(0, 256, (h, w, 2)), 4, 8, interlace=True), True),
+        "palette4_interlaced": (_png(rng.integers(0, 16, (h, w)), 3, 4, interlace=True,
+                                     palette=pal), False),
+    }
+
+
+@pytest.mark.parametrize("h,w", [(13, 11), (53, 67)])
+def test_png_forms_cv2_reads_equal_cv2_imread(tmp_path, h, w):
+    """Interlaced, 16-bit, gray+alpha and sub-8-bit gray PNGs decode equal
+    to ``cv2.imread`` bit for bit, as images and (gray forms) as masks. The
+    files are written here from the specification (cv2 writes none
+    interlaced); cv2 reading them as they were written anchors the writer."""
+    rng = np.random.default_rng(h * w)
+    for name, (data, mask) in _png_forms(rng, h, w).items():
+        path = tmp_path / f"{name}.png"
+        path.write_bytes(data)
+        want = _cv2_read(path)
+        assert want is not None and want.shape == (h, w, 3), name
+        got = imread.read(str(path))
+        assert got.dtype == np.uint8, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        if mask:
+            np.testing.assert_array_equal(imread.read(str(path), gray=True),
+                                          _cv2_read(path, gray=True), err_msg=name)
+    # the writer against the native decoder: an 8-bit gray file it writes
+    # un-interlaced reads back as the samples themselves
+    g8 = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    (tmp_path / "g8.png").write_bytes(_png(g8, 0, 8))
+    np.testing.assert_array_equal(imread.read(str(tmp_path / "g8.png"), gray=True), g8)
+    interlaced = cv2.imread(str(tmp_path / "gray8_interlaced.png"), cv2.IMREAD_GRAYSCALE)
+    assert interlaced.shape == (h, w)
+
+
+def test_png_forms_without_cv2_name_the_file(tmp_path, monkeypatch):
+    """Without cv2 a form that needs it raises an ImportError naming the
+    file and its form, as a JPEG does."""
+    rng = np.random.default_rng(3)
+    path = tmp_path / "deep.png"
+    path.write_bytes(_png(rng.integers(0, 65536, (9, 11)), 0, 16))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for gray in (False, True):
+        with pytest.raises(ImportError, match="16-bit PNG of colour type 0") as err:
+            imread.read(str(path), gray=gray)
+        assert str(path) in str(err.value) and "cv2" in str(err.value)
 
 
 def test_unfilter_undoes_every_filter_type():

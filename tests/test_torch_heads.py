@@ -286,12 +286,16 @@ def test_train_step_updates_the_head_with_dropout_on():
 
 
 def test_unported_head_paths_raise_naming_the_roadmap():
-    """att, asy and fuse build (item 10 is ported); ``inherit_base`` (the
-    CCA engine's, item 11) still raises naming its item."""
+    """Every head path the JAX package has is ported now: att, asy and fuse
+    build, and ``inherit_base`` builds the (K + 1)-way ``val_classifier``
+    (the JAX ``PSPNet.val_classifier``; held against JAX in
+    ``tests/test_torch_cca.py``)."""
     for head in ("att", "asy", "fuse"):
         assert HeadEngine(_cfg(), head, device="cpu").head_type == head
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        build_pspnet(_cfg(["inherit_base", "True"]))
+    model = build_pspnet(_cfg(["inherit_base", "True"]))
+    assert model.val_classifier.weight.shape == (3, 512, 1, 1)
+    assert "val_classifier.weight" in model.state_dict()
+    assert not hasattr(build_pspnet(_cfg()), "val_classifier")
 
 
 # --------------------------------------------------------------------------- #

@@ -111,19 +111,6 @@ def test_center_pivot_conv4d_matches_jax(pivot_block, route, swap_roles):
     assert not np.allclose(np.asarray(unswapped), np.asarray(want6), atol=1e-2)
 
 
-def test_unported_routes_raise_naming_the_roadmap(pivot_block, monkeypatch):
-    """The int8 consensus (ROADMAP queue 1 item 12) raises on every route."""
-    x6, _, port = pivot_block
-    monkeypatch.setenv("FSS_NCONS_INT8", "dot")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        port(torch.from_numpy(x6))                         # the 6D route
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        port(torch.from_numpy(_to_flat(x6)), False, True, DIMS)
-    monkeypatch.setenv("FSS_NCONS_INT8", "fake")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        MatchNet()(*(torch.ones(1, 3, 3, 4),) * 3)
-
-
 # --------------------------------------------------------------------------- #
 # NeighConsensus and WeightAverage
 # --------------------------------------------------------------------------- #

@@ -4,7 +4,8 @@ started by ``python -m few_shot_seg_cwt_tpu_torch.parallel.dryrun --checks
 trainers`` (17 px, synthetic episodes and records) in a directory under
 ``tmp_path``.
 
-* Both ranks return the same best mIoU from every trainer.
+* Both ranks return the same best mIoU from every trainer (``train_cca``
+  too); ``train_cca1`` refuses a process group.
 * Rank 0 alone writes: each ``log.txt`` holds every validation line once.
 * Exact resume at world 2: a run cut after one epoch and resumed by
   ``auto_resume`` ends with the uninterrupted run's weights, bit for bit;
@@ -63,15 +64,19 @@ def _one(root: Path, pattern: str) -> Path:
 def test_both_ranks_return_the_same_scores(trainers):
     results, _ = trainers
     assert len(results) == 2
-    for key in ("cwt_whole", "cwt_resumed", "head_whole", "head_resumed", "pretrain"):
+    for key in ("cwt_whole", "cwt_resumed", "head_whole", "head_resumed", "pretrain", "cca"):
         assert results[0][key] == results[1][key], key
         assert 0.0 <= results[0][key] <= 1.0, key
+    # the adaptive CCA trainer is single-process, as in the JAX package
+    for r in results:
+        assert r["cca1_refused"] and "one process" in r["cca1_refused"]
 
 
 @pytest.mark.parametrize("run, line, count", [
     ("cwt_whole/**/log.txt", "mIoU---Val result", 2),
     ("whole/log.txt", "val: mIoU", 2),
     ("ddp/log.txt", "Testing results", 1),
+    ("cca/log.txt", "val: mIoU", 1),
 ])
 def test_rank_0_alone_writes_the_logs(trainers, run, line, count):
     _, runs = trainers

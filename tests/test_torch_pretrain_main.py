@@ -1,8 +1,12 @@
 """The port's stage-1 pretraining entry point on the CPU (33 px, synthetic
 records, batch 8): one epoch with standard and one with episodic
-validation, checkpoints that stage 2 reads, an exact resume, and what the
-trainer refuses. The step and the validations are held against the JAX
-package in ``tests/test_torch_pretrain.py``.
+validation, checkpoints that stage 2 reads, an exact resume, a mixed
+``bf16_stages`` policy, and what the trainer refuses. The step and the
+validations are held against the JAX package in
+``tests/test_torch_pretrain.py``; the step's loss and weight gradients
+under the mixed policy are held here (float64 on both sides, as there:
+the stage inputs are rounded to bf16 alike, and the losses within 1e-6
+relative, every gradient within 5e-3 of its tensor's largest entry).
 """
 
 import os
@@ -11,13 +15,22 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from few_shot_seg_cwt_tpu.models.pspnet import build_pspnet as jax_build_pspnet
+from few_shot_seg_cwt_tpu.ops.losses import smoothed_cross_entropy as jax_smoothed_ce
 from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
-from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
+from few_shot_seg_cwt_tpu_torch.models.pspnet import (build_pspnet, stage_boundary_casts,
+                                                      stage_dtype_policy)
+from few_shot_seg_cwt_tpu_torch.ops.losses import smoothed_cross_entropy
 from few_shot_seg_cwt_tpu_torch.train import pretrain
 from few_shot_seg_cwt_tpu_torch.train import test as test_entry
 from few_shot_seg_cwt_tpu_torch.train.common import load_backbone_weights, stage1_weights_path
 from few_shot_seg_cwt_tpu_torch.utils.ckpt import load_ckpt
+from few_shot_seg_cwt_tpu_torch.utils.convert import pspnet_state_dict_from_flax
 from few_shot_seg_cwt_tpu_torch.utils.tb import read_scalars
+from test_torch_pretrain import K, SIZE, _batch, _cfgs, _perturb
 
 torch.set_num_threads(1)
 
@@ -109,16 +122,28 @@ def test_uniform_bf16_trains_fp32_and_validates_a_cast_copy(tmp_path, monkeypatc
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"bf16_stages": "stem,layer1"}, "mixed stage policy"),
     # several processes are ported: without torchrun's WORLD_SIZE a
     # multi_host config raises rather than train on one process
     ({"multi_host": True}, "WORLD_SIZE is not"),
 ])
 def test_main_refuses_what_is_not_ported(over, match, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    error = NotImplementedError if "bf16_stages" in over else ValueError
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match=match):
         pretrain.main(_cfg(**over), device="cpu", log=lambda l: None)
+
+
+@pytest.mark.parametrize("episodic_val", [False, True])
+def test_main_trains_under_a_mixed_stage_policy(tmp_path, monkeypatch, episodic_val):
+    """``bf16_stages stem,layer1,layer2``: the parameters train in fp32 (the
+    JAX model's stage-boundary casts round activations only) and episodic
+    validation runs a copy with those stages' parameters cast, leaving the
+    trained model as it was."""
+    monkeypatch.chdir(tmp_path)
+    cfg = _cfg(bf16_stages="stem,layer1,layer2", episodic_val=episodic_val)
+    best = pretrain.main(cfg, device="cpu", log=lambda l: None)
+    assert np.isfinite(best)
+    sd = load_ckpt(os.path.join(pretrain.save_dir(cfg), "final.ckpt"))
+    assert {v.dtype for v in sd.values() if v.is_floating_point()} == {torch.float32}
 
 
 def test_main_without_a_card_raises():
@@ -126,3 +151,64 @@ def test_main_without_a_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pretrain.main(_cfg(), log=lambda l: None)
+
+
+def test_mixed_policy_step_gradients_match_jax():
+    """Stage 1 under ``bf16_stages stem,layer1`` (ResNet-50, a batch of 3 at
+    33 px, label smoothing): the train-mode loss and every weight gradient
+    of the port's model against the JAX model's, whose ``build_pspnet``
+    installs the stage-boundary casts; both in float64, the stem's and
+    layer1's inputs rounded to bf16 on both sides. Every gradient within
+    5e-3 of its tensor's largest entry: past layer1 they agree to 2e-5, the
+    stem's, which cross layer1's bf16 boundary on their way back, to 2e-3
+    (XLA may drop a rounding there: ``xla_allow_excess_precision``). The
+    casts must matter: the fp32-policy gradients lie further from JAX's
+    than the limit (1.9 of the scale: a train-mode step at 33 px is
+    ill-conditioned)."""
+    jcfg, tcfg = _cfgs(arch="resnet", bf16_stages="stem,layer1")
+    model = jax_build_pspnet(jcfg)
+    assert model.stage_dtypes is not None
+    variables = jax.jit(lambda r, x: model.init({"params": r}, x, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
+    variables = _perturb(jax.tree.map(lambda x: np.array(x, np.float32), variables),
+                         np.random.default_rng(2021))
+    img, gt = _batch(1)
+    with jax.enable_x64(True):
+        v64 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float64), variables)
+
+        def loss_fn(params):
+            logits, _ = model.apply({"params": params, "batch_stats": v64["batch_stats"]},
+                                    jnp.asarray(img, jnp.float64), train=True,
+                                    mutable=["batch_stats"])
+            return jax_smoothed_ce(logits, jnp.asarray(gt), K, 0.1)
+
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(v64["params"])
+        want = pspnet_state_dict_from_flax(jax.tree.map(
+            np.asarray, {"params": grads, "batch_stats": v64["batch_stats"]}))
+
+    def port_grads(policy_cfg):
+        fp32_cfg = tcfg.clone()
+        fp32_cfg.bf16_stages = None
+        net = stage_boundary_casts(build_pspnet(fp32_cfg), stage_dtype_policy(policy_cfg))
+        net.load_state_dict(pspnet_state_dict_from_flax(variables))
+        net.double().train()
+        out = smoothed_cross_entropy(net(torch.from_numpy(img).double()),
+                                     torch.from_numpy(gt), K, 0.1)
+        out.backward()
+        return float(out.detach()), {k: p.grad for k, p in net.named_parameters()
+                                     if p.grad is not None}
+
+    got_loss, got = port_grads(tcfg)
+    np.testing.assert_allclose(got_loss, float(loss), rtol=1e-6)
+    plain = tcfg.clone()
+    plain.bf16_stages = None
+    _, fp32_grads = port_grads(plain)
+    worst, worst_fp32 = 0.0, 0.0
+    for name, g in got.items():
+        w = want[name].numpy()
+        scale = float(np.abs(w).max())
+        assert scale > 0, name
+        worst = max(worst, float(np.abs(g.numpy() - w).max()) / scale)
+        worst_fp32 = max(worst_fp32, float(np.abs(fp32_grads[name].numpy() - w).max()) / scale)
+    print(f"mixed policy: worst gradient {worst:.3e} of its scale; fp32 policy {worst_fp32:.3e}")
+    assert worst < 5e-3 < worst_fp32, (worst, worst_fp32)
