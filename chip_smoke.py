@@ -264,9 +264,11 @@ import torch.nn as nn
 
 # the card's peaks, the kernels' work and bounds, and the card line: shared
 # with the port's bench
+from few_shot_seg_cwt_tpu_torch.ops import launch_counts
 from few_shot_seg_cwt_tpu_torch.tools.roofline import (PEAK_FP32_FLOPS, PEAK_HBM_BYTES,
                                                        PEAK_TF32_FLOPS, bound, card_line,
                                                        inner_loop_work, pivot_work)
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 
 E, SHOT, IMG, FEAT, CH, STEPS, CLS_LR = 8, 1, 473, 60, 512, 200, 0.1
 TILE = 2                                     # K2's episodes per CTA at 473 px
@@ -677,13 +679,6 @@ def device_profile(fn, label, card, groups=()):
           + f" [{card}]")
 
 
-def launch_counts(*modules):
-    out = {}
-    for m in modules:
-        out.update(m.LAUNCHES)
-    return out
-
-
 def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     """MMN eval/serve on the flat route (counted), against the rank-4 route;
     episodes/s on both; where an eval batch's time goes; one training step's
@@ -717,13 +712,12 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with pivot_route(True):
-        cuda_inner_loop.reset_launches()
-        cuda_pivot.reset_launches()
+        tracing.reset()
         metrics = engine.eval_metrics_batch(episodes, w0=w0)
         masks = engine.serve_batch(episodes, w0=w0)
         one = engine.serve_episode({k: v[0] for k, v in episodes.items()}, w0=w0[0])
         torch.cuda.synchronize()
-        eval_launches = launch_counts(cuda_inner_loop, cuda_pivot)
+        eval_launches = launch_counts()
     print(f"MMN eval_metrics_batch + serve_batch of {E_MMN} + serve_episode launches "
           f"(use_amp, flat route): {eval_launches}; serve_episode vs serve_batch mask "
           f"agreement {float((one == masks[0]).float().mean()):.6f}; peak memory "
@@ -745,10 +739,10 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     with pivot_route(True):
         p_flat = engine.predict_batch(episodes, w0=w0)
     with pivot_route(False):
-        before = cuda_pivot.LAUNCHES["pivot_fwd"]
+        before = tracing.counts()["pivot_fwd"]
         p_r4 = engine.predict_batch(episodes, w0=w0)
         torch.cuda.synchronize()
-        if cuda_pivot.LAUNCHES["pivot_fwd"] != before:
+        if tracing.counts()["pivot_fwd"] != before:
             raise AssertionError("the rank-4 route launched the pivot kernels")
     agree = {k: float((p_flat[k].argmax(-1) == p_r4[k].argmax(-1)).float().mean())
              for k in ("pred", "pred1")}
@@ -831,12 +825,11 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
                             ("flat fp32 head", True, False), ("rank-4 fp32 head", False, False)):
         engine.cfg.use_amp = amp
         with pivot_route(flat):
-            cuda_inner_loop.reset_launches()
-            cuda_pivot.reset_launches()
+            tracing.reset()
             m = engine.backward_batch(e2, w0=w0[:2], deterministic=True)
             torch.cuda.synchronize()
             if flat:
-                train_launches[name] = launch_counts(cuda_inner_loop, cuda_pivot)
+                train_launches[name] = launch_counts()
         if not torch.isfinite(m["loss_mean"]):
             raise AssertionError(f"MMN train step ({name}): non-finite loss")
         grads[name] = {k: p.grad.clone() for k, p in engine.head.named_parameters()}
@@ -954,12 +947,11 @@ def match_phase(card, calib_images, calib_episodes, cuda_ms, modules):
         with consensus_route(name):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            cuda_inner_loop.reset_launches()
-            cuda_pivot.reset_launches()
+            tracing.reset()
             metrics = engine.eval_metrics_batch(episodes, w0=w0)
             masks = engine.serve_batch(episodes, w0=w0)
             torch.cuda.synchronize()
-            launches[name] = launch_counts(cuda_inner_loop, cuda_pivot)
+            launches[name] = launch_counts()
             peak = peak_gib()
             preds[name] = engine.predict_batch(episodes, w0=w0)
             serve_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
@@ -1012,11 +1004,10 @@ def match_phase(card, calib_images, calib_episodes, cuda_ms, modules):
         with consensus_route(name):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            cuda_inner_loop.reset_launches()
-            cuda_pivot.reset_launches()
+            tracing.reset()
             m = engine.backward_batch(e2, w0=w0[:2])
             torch.cuda.synchronize()
-            counts = launch_counts(cuda_inner_loop, cuda_pivot)
+            counts = launch_counts()
             grads[name] = {k: p.grad.clone() for k, p in engine.head.named_parameters()}
             step_s = host_seconds(lambda: step(e2, w0=w0[:2]), 2)
             peak = peak_gib()
@@ -1119,21 +1110,19 @@ def plain_inner_loop():
         inner_loop.adapt_binary = kernel
 
 
-def head_route_run(engine, episodes, w0, e_train, counters, reps):
+def head_route_run(engine, episodes, w0, e_train, reps):
     """On the route in effect: eval + serve of ``episodes`` counted (launches,
     peak GiB, episodes/s of each), the predictions, and one train step of
     ``e_train`` episodes counted (its gradients, launches, peak GiB and the
     timed SGD step's episodes/s; the head's weights are put back after)."""
-    cuda_inner_loop, cuda_pivot = counters
     e = len(episodes["q_img"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     metrics = engine.eval_metrics_batch(episodes, w0=w0)
     masks = engine.serve_batch(episodes, w0=w0)
     torch.cuda.synchronize()
-    out = dict(metrics=metrics, masks=masks, eval_launches=launch_counts(cuda_inner_loop, cuda_pivot),
+    out = dict(metrics=metrics, masks=masks, eval_launches=launch_counts(),
                eval_peak_gib=peak_gib())
     out["preds"] = engine.predict_batch(episodes, w0=w0)
     out["serve"] = e / host_seconds(lambda: engine.serve_batch(episodes, w0=w0), reps)
@@ -1142,11 +1131,10 @@ def head_route_run(engine, episodes, w0, e_train, counters, reps):
     saved = {k: v.clone() for k, v in engine.head.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     m = engine.backward_batch(sub, w0=w0[:e_train])
     torch.cuda.synchronize()
-    out["train_launches"] = launch_counts(cuda_inner_loop, cuda_pivot)
+    out["train_launches"] = launch_counts()
     out["train_peak_gib"] = peak_gib()
     out["loss"] = float(m["loss_mean"])
     out["grads"] = {k: p.grad.clone() for k, p in engine.head.named_parameters()
@@ -1205,7 +1193,7 @@ def chm_phase(card, calib_images, modules):
     rows = {}
     for route in CV4_ROUTES:
         with env_var("FSS_CONV4D_IM2COL", route):
-            r = head_route_run(engine, episodes, w0, 2, (cuda_inner_loop, cuda_pivot), 1)
+            r = head_route_run(engine, episodes, w0, 2, 1)
         for key in ("eval_launches", "train_launches"):
             if r[key]["adapt_binary"] < 1 or r[key]["pivot_fwd"] + r[key]["pivot_dw"]:
                 raise AssertionError(f"CHM {route} route {key} {r[key]}: K1 must launch, no "
@@ -1281,7 +1269,7 @@ def detr_phase(card, calib_images, calib_episodes, modules):
         rows = {}
         for name in DETR_ROUTES:
             with consensus_route(name):
-                r = head_route_run(engine, episodes, w0, 2, (cuda_inner_loop, cuda_pivot), 1)
+                r = head_route_run(engine, episodes, w0, 2, 1)
             flat = name == "flat"
             ev, tr = r["eval_launches"], r["train_launches"]
             if ev["adapt_binary"] < 1 or tr["adapt_binary"] < 1 \
@@ -1300,10 +1288,10 @@ def detr_phase(card, calib_images, calib_episodes, modules):
         if not all(float(g.abs().max()) > 0 for g in r4["grads"].values()):
             raise AssertionError(f"DeTr ({label}): a head tensor has zero gradients")
         with consensus_route("rank-4"), plain_inner_loop():
-            cuda_inner_loop.reset_launches()
+            tracing.reset()
             plain_masks = engine.serve_batch(episodes, w0=w0)
             torch.cuda.synchronize()
-            if cuda_inner_loop.LAUNCHES["adapt_binary"]:
+            if tracing.counts()["adapt_binary"]:
                 raise AssertionError("the plain path launched K1")
         plain_agree = float((flat["masks"] == plain_masks).float().mean())
         print(f"DeTr ({label}) flat vs rank-4 route: argmax agreement {agree} (>= 0.995 "
@@ -1337,17 +1325,15 @@ def detr_phase(card, calib_images, calib_episodes, modules):
 # ---- 6g. the attention, transductive and fusion heads ----
 
 
-def counted(fn, counters):
+def counted(fn):
     """``fn()`` once with the launch counts reset just before it and read just
     after: (its result, the launches, peak GiB of the call)."""
-    cuda_inner_loop, cuda_pivot = counters
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     out = fn()
     torch.cuda.synchronize()
-    return out, launch_counts(cuda_inner_loop, cuda_pivot), peak_gib()
+    return out, launch_counts(), peak_gib()
 
 
 def eval_preds(engine, episodes, w0):
@@ -1358,7 +1344,7 @@ def eval_preds(engine, episodes, w0):
     return {k: torch.stack([p[k] for p in preds]) for k in ("pred", "pred1")}
 
 
-def eval_step_run(engine, episodes, w0, e_train, counters, serve):
+def eval_step_run(engine, episodes, w0, e_train, serve):
     """On the route in effect: eval of ``episodes`` counted and timed, its
     predictions; with ``serve`` serve of them counted and timed (its masks
     the argmax of the eval path's ``pred``); with ``e_train`` one train step
@@ -1367,7 +1353,7 @@ def eval_step_run(engine, episodes, w0, e_train, counters, serve):
     e = len(episodes["q_img"])
     r = {}
     metrics, r["eval_launches"], r["eval_peak_gib"] = counted(
-        lambda: engine.eval_metrics_batch(episodes, w0=w0), counters)
+        lambda: engine.eval_metrics_batch(episodes, w0=w0))
     r["eval"] = e / host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 1)
     r["preds"] = eval_preds(engine, episodes, w0)
     for k in ("inter", "union", "inter1", "union1", "loss"):
@@ -1375,7 +1361,7 @@ def eval_step_run(engine, episodes, w0, e_train, counters, serve):
             raise AssertionError(f"{engine.head_type} eval: non-finite {k}")
     if serve:
         masks, r["serve_launches"], r["serve_peak_gib"] = counted(
-            lambda: engine.serve_batch(episodes, w0=w0), counters)
+            lambda: engine.serve_batch(episodes, w0=w0))
         r["serve"] = e / host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 1)
         if tuple(masks.shape) != (e, IMG, IMG) or not torch.equal(
                 masks, r["preds"]["pred"].argmax(-1).int()):
@@ -1384,7 +1370,7 @@ def eval_step_run(engine, episodes, w0, e_train, counters, serve):
         sub = {k: v[:e_train] for k, v in episodes.items()}
         saved = {k: v.clone() for k, v in engine.head.state_dict().items()}
         m, r["train_launches"], r["train_peak_gib"] = counted(
-            lambda: engine.backward_batch(sub, w0=w0[:e_train]), counters)
+            lambda: engine.backward_batch(sub, w0=w0[:e_train]))
         r["loss"] = float(m["loss_mean"])
         r["grads"] = {k: p.grad.clone() for k, p in engine.head.named_parameters()
                       if p.grad is not None}
@@ -1416,14 +1402,14 @@ def expect_launches(label, got, k1, pivot_fwd):
         raise AssertionError(f"{label}: launches {got}, expected {want}")
 
 
-def plain_agreement(engine, episodes, w0, masks, cuda_inner_loop):
+def plain_agreement(engine, episodes, w0, masks):
     """The share of pixels where ``masks`` equal the plain path's: the rank-4
     consensus and K1's plain version."""
     with consensus_route("rank-4"), plain_inner_loop():
-        cuda_inner_loop.reset_launches()
+        tracing.reset()
         plain = eval_preds(engine, episodes, w0)["pred"].argmax(-1)
         torch.cuda.synchronize()
-        if cuda_inner_loop.LAUNCHES["adapt_binary"]:
+        if tracing.counts()["adapt_binary"]:
             raise AssertionError("the plain path launched K1")
     return float((masks == plain).float().mean())
 
@@ -1504,7 +1490,6 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
     trainers; returns the launch counts and what phase 12 exports."""
     (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
      cuda_pivot, build_pspnet) = modules
-    counters = (cuda_inner_loop, cuda_pivot)
     out = {}
     acfg = merge_cfg_from_list(load_cfg("configs/pascal_asy.yaml"),
                                ["episode_batch", str(E_MMN)])
@@ -1518,11 +1503,10 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
     for head in ("att", "asy"):
         engine = HeadEngine(acfg, head, backbone=backbone, device="cuda")
         w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(11))
-        r = eval_step_run(engine, episodes, w0, 2, counters, serve=False)
+        r = eval_step_run(engine, episodes, w0, 2, serve=False)
         expect_launches(f"{head} eval", r["eval_launches"], 1, 0)
         expect_launches(f"{head} train step", r["train_launches"], 1, 0)
-        agree = plain_agreement(engine, episodes, w0, r["preds"]["pred"].argmax(-1),
-                                cuda_inner_loop)
+        agree = plain_agreement(engine, episodes, w0, r["preds"]["pred"].argmax(-1))
         live = {k: float(g.abs().max()) for k, g in r["grads"].items()}
         print(f"{head} ({'cross_att' if head == 'att' else 'gamma'}): {run_text(r, E_MMN, 2)}; "
               f"kernel-path masks equal to the plain path's (K1's plain version) on "
@@ -1537,7 +1521,7 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
         engine = HeadEngine(merge_cfg_from_list(acfg.clone(), ["trans_type", t]), "att",
                             backbone=backbone, device="cuda")
         w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(11))
-        r = eval_step_run(engine, episodes, w0, 0, counters, serve=False)
+        r = eval_step_run(engine, episodes, w0, 0, serve=False)
         expect_launches(f"att {t} eval", r["eval_launches"], 1, 0)
         print(f"att ({t}): {run_text(r, E_MMN, 0)} [{card}]")
         out[f"att_{t}"] = {k: v for k, v in r.items() if k != "preds"}
@@ -1545,7 +1529,7 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
     engine = HeadEngine(merge_cfg_from_list(acfg.clone(), ["shot", str(SHOT5)]), "att",
                         backbone=backbone, device="cuda")
     w0 = engine.init_weights(2, torch.Generator().manual_seed(12))
-    r = eval_step_run(engine, padded_episodes(27, 2, SHOT5), w0, 0, counters, serve=False)
+    r = eval_step_run(engine, padded_episodes(27, 2, SHOT5), w0, 0, serve=False)
     expect_launches("att 5-shot eval", r["eval_launches"], 1, 0)
     print(f"att (cross_att, shot {SHOT5}, episode 0's last shot an all-255 pad): "
           f"{run_text(r, 2, 0)} [{card}]")
@@ -1569,7 +1553,7 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
     rows = {}
     for name in ("flat", "rank-4"):
         with consensus_route(name):
-            r = eval_step_run(engine, episodes, w0, 2, counters, serve=True)
+            r = eval_step_run(engine, episodes, w0, 2, serve=True)
         piv = 6 if name == "flat" else 0
         expect_launches(f"fuse {name} eval", r["eval_launches"], 1, piv * E_MMN)
         expect_launches(f"fuse {name} serve", r["serve_launches"], 1, piv * E_MMN)
@@ -1582,8 +1566,7 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
                       .float().mean()) for k in ("pred", "pred1")}
     g_rel = worst_grad_rel(flat["grads"], r4["grads"])
     live = all(float(g.abs().max()) > 0 for g in r4["grads"].values())
-    plain_agree = plain_agreement(engine, episodes, w0, flat["preds"]["pred"].argmax(-1),
-                                  cuda_inner_loop)
+    plain_agree = plain_agreement(engine, episodes, w0, flat["preds"]["pred"].argmax(-1))
     print(f"fuse flat vs rank-4 route: argmax agreement {agree} (>= 0.995 needed); worst "
           f"FuseNet1 gradient max|g - g_r4| / max|g_r4| {g_rel[0]:.3e} ({g_rel[1]}; tolerance "
           f"1e-3); kernel-path masks (flat, K1) equal to the plain path's (rank-4, K1's plain "
@@ -1609,11 +1592,11 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
         "frozen_match": module_state(engine.frozen_match)})
     del engine, backbone, rows, flat, r4
     torch.cuda.empty_cache()
-    out["trainers"] = att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state, counters)
+    out["trainers"] = att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state)
     return out
 
 
-def att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state, counters):
+def att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state):
     """``train_att`` (configs/pascal_asy.yaml, cross_att), ``train_asy`` and
     ``train_fuse`` (configs/pascal_fuse.yaml, flat route, ``matchnet_ckpt`` a
     file of the match head of 6d) on synthetic episodes, 4 steps of 2 and a
@@ -1639,7 +1622,7 @@ def att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state, counters):
             with contextlib.chdir(run_dir), pivot_route(flat):
                 t0 = time.perf_counter()
                 (best, launches, _) = counted(
-                    lambda: entry.main(cfg, device="cuda", log=lines.append), counters)
+                    lambda: entry.main(cfg, device="cuda", log=lines.append))
                 wall = time.perf_counter() - t0
                 log = log_txt_val(train_head.results_dir(cfg, head), "val: mIoU")
             val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
@@ -1689,7 +1672,6 @@ def cca_phase(card, calib_images, calib_episodes, modules):
     from few_shot_seg_cwt_tpu_torch.ops.losses import class_balance_weights
     from few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop import cuda_ms
 
-    counters = (cuda_inner_loop, cuda_pivot)
     cfg = merge_cfg_from_list(load_cfg("configs/pascal_cca.yaml"),
                               ["episode_batch", str(E_CCA)])
     got = (cfg.image_size, cfg.adapt_iter, cfg.layers, cfg.num_classes_tr, cfg.rmid,
@@ -1709,7 +1691,7 @@ def cca_phase(card, calib_images, calib_episodes, modules):
     out = {}
     for route, flat in (("rank-4", False), ("flat", True)):
         with pivot_route(flat):
-            r = cca_run(engine, episodes, w0, counters)
+            r = cca_run(engine, episodes, w0)
         out[route] = r
         print(f"CCA ({route} route; configs/pascal_cca.yaml, fp32, {STEPS} K-way inner steps): "
               f"eval of {E_CCA} {r['eval']:.3f} episodes/s (peak {r['eval_peak_gib']:.2f} GiB; "
@@ -1767,7 +1749,7 @@ def cca_phase(card, calib_images, calib_episodes, modules):
     relabelled = adaptive_relabel_batch(cfg, eng1, e2, base_preds, np.random.default_rng([2021, 1]))
     host_ms = (time.perf_counter() - t0) * 1e3
     with pivot_route(True):
-        m, launches1, peak1 = counted(lambda: eng1.backward_batch(relabelled), counters)
+        m, launches1, peak1 = counted(lambda: eng1.backward_batch(relabelled))
         step_s = host_seconds(lambda: eng1.backward_batch(relabelled), 1)
     print(f"cca1: host relabel pass of 2 episodes {host_ms:.1f} ms (classes kept "
           f"{relabelled['row_mask'].sum(-1).tolist()}), then a train step of 2 (flat route) "
@@ -1777,11 +1759,11 @@ def cca_phase(card, calib_images, calib_episodes, modules):
             launches1["adapt_binary"]:
         raise AssertionError(f"cca1 step: loss {m['loss_mean']}, launches {launches1}")
     out["cca1"] = launches1
-    out["entries"] = cca_entries(load_cfg, merge_cfg_from_list, counters)
+    out["entries"] = cca_entries(load_cfg, merge_cfg_from_list)
     return out, fp32_backbone, engine.head
 
 
-def cca_run(engine, episodes, w0, counters):
+def cca_run(engine, episodes, w0):
     """On the route in effect, each counted and timed by the host clock
     around it (one call each: the K-way loop makes a call seconds long):
     eval of ``episodes``, their predictions, and the gradients of a train
@@ -1789,7 +1771,7 @@ def cca_run(engine, episodes, w0, counters):
     r = {}
     t0 = time.perf_counter()
     metrics, r["eval_launches"], r["eval_peak_gib"] = counted(
-        lambda: engine.eval_metrics_batch(episodes, w0=w0), counters)
+        lambda: engine.eval_metrics_batch(episodes, w0=w0))
     r["eval"] = len(episodes["q_img"]) / (time.perf_counter() - t0)
     for k in ("inter", "union", "inter1", "union1", "loss"):
         if not torch.isfinite(metrics[k].float()).all():
@@ -1798,7 +1780,7 @@ def cca_run(engine, episodes, w0, counters):
     sub = {k: v[:2] for k, v in episodes.items()}
     t0 = time.perf_counter()
     m, r["train_launches"], r["train_peak_gib"] = counted(
-        lambda: engine.backward_batch(sub, w0=w0[:2]), counters)
+        lambda: engine.backward_batch(sub, w0=w0[:2]))
     r["train"] = 2 / (time.perf_counter() - t0)
     r["loss"] = float(m["loss_mean"])
     r["grads"] = {k: p.grad.clone() for k, p in engine.head.named_parameters()
@@ -1808,7 +1790,7 @@ def cca_run(engine, episodes, w0, counters):
     return r
 
 
-def cca_entries(load_cfg, merge_cfg_from_list, counters):
+def cca_entries(load_cfg, merge_cfg_from_list):
     """``train_cca`` and ``train_cca1`` (configs/pascal_cca.yaml, flat route)
     on synthetic episodes, one step of 2 and a validation of 2, counted
     (the pivot pair, not K1); ``train_count`` over 32 episodes; in a
@@ -1828,7 +1810,7 @@ def cca_entries(load_cfg, merge_cfg_from_list, counters):
             with contextlib.chdir(run_dir), pivot_route(True):
                 t0 = time.perf_counter()
                 best, launches, _ = counted(
-                    lambda: entry.main(cfg, device="cuda", log=lines.append), counters)
+                    lambda: entry.main(cfg, device="cuda", log=lines.append))
                 wall = time.perf_counter() - t0
                 log = log_txt_val(train_cca.results_dir(cfg, adaptive), "val: mIoU")
             val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
@@ -1943,13 +1925,12 @@ def mmn_options_phase(engine, card, modules):
     cfg.meta_aug, cfg.att_type = 2, 3
     try:
         with pivot_route(True):
-            cuda_inner_loop.reset_launches()
-            cuda_pivot.reset_launches()
+            tracing.reset()
             t0 = time.perf_counter()
             m = engine.backward_batch(views, w0=w0)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            counts = launch_counts(cuda_inner_loop, cuda_pivot)
+            counts = launch_counts()
     finally:
         cfg.meta_aug, cfg.att_type = shipped
     print(f"MMN meta_aug 2, att_type 3 (flat route): train step gradients of 2 episodes x 2 "
@@ -2033,11 +2014,11 @@ def cwt_train_phase(engine, episodes, w0, card, modules):
     for name, tile in (("K1", None), ("K2", TILE)):
         with inner_tile(tile):
             cwt.zero_grad(set_to_none=True)
-            cuda_inner_loop.reset_launches()
+            tracing.reset()
             loss, _ = engine.train_episode_losses(episodes, w0=w0, with_metrics=False)
             loss.mean().backward()
             torch.cuda.synchronize()
-            counts[name] = dict(cuda_inner_loop.LAUNCHES)
+            counts[name] = launch_counts("adapt_binary", "adapt_binary_tiled")
         grads[name] = {k: p.grad.clone() for k, p in cwt.named_parameters()}
         losses[name] = loss.detach()
     with torch.no_grad():
@@ -2179,11 +2160,11 @@ def cwt_shot5_phase(engine, card, modules):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_inner_loop.reset_launches()
+    tracing.reset()
     masks = eng.serve_batch(episodes, w0=w0)
     metrics = eng.eval_metrics_batch(episodes, w0=w0)
     torch.cuda.synchronize()
-    launches = dict(cuda_inner_loop.LAUNCHES)
+    launches = launch_counts("adapt_binary", "adapt_binary_tiled")
     plan = cuda_inner_loop.LAST_PLAN["adapt_binary"]
     peak = peak_gib()
     if launches["adapt_binary"] < 1 or plan is None or plan.shot != SHOT5:
@@ -2220,11 +2201,11 @@ def cwt_shot5_phase(engine, card, modules):
     for name, tile in (("tile unset", None), ("FSS_INNER_TILE=2", TILE)):
         with inner_tile(tile):
             cwt.zero_grad(set_to_none=True)
-            cuda_inner_loop.reset_launches()
+            tracing.reset()
             loss, _ = eng.train_episode_losses(episodes, w0=w0, with_metrics=False)
             loss.mean().backward()
             torch.cuda.synchronize()
-            counts[name] = dict(cuda_inner_loop.LAUNCHES)
+            counts[name] = launch_counts("adapt_binary", "adapt_binary_tiled")
         grads[name] = {k: p.grad.clone() for k, p in cwt.named_parameters()}
     cwt.zero_grad(set_to_none=True)
     loss, _ = eng._train_losses(f_q, w_plain, batch["q_label"], with_metrics=False)
@@ -2289,10 +2270,10 @@ def bf16_serve_phase(engine, episodes, w0, masks32, card, modules):
                   for st, m in eng.backbone.stage_modules().items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda_inner_loop.reset_launches()
+        tracing.reset()
         masks = eng.serve_batch(episodes, w0=w0)
         torch.cuda.synchronize()
-        launches = dict(cuda_inner_loop.LAUNCHES)
+        launches = launch_counts("adapt_binary", "adapt_binary_tiled")
         peak = peak_gib()
         if launches["adapt_binary"] < 1:
             raise AssertionError(f"CWT serve ({name}) did not launch K1: {launches}")
@@ -2368,15 +2349,14 @@ def mmn_shot5_phase(engine, card, modules):
         torch.cuda.reset_peak_memory_stats()
         times, losses = [], []
         with pivot_route(True):
-            cuda_inner_loop.reset_launches()
-            cuda_pivot.reset_launches()
+            tracing.reset()
             for i in range(3):
                 t0 = time.perf_counter()
                 m = step(e2, torch.Generator().manual_seed(400 + i))
                 losses.append(float(m["loss_mean"]))
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-            launches = launch_counts(cuda_inner_loop, cuda_pivot)
+            launches = launch_counts()
         peaks[name] = peak_gib()
         step_s = statistics.median(times[1:])
         print(f"MMN {SHOT5}-shot train step of 2, {name} (use_amp, flat route, dropout on, "
@@ -2709,12 +2689,12 @@ def real_data_phase(card, modules):
             if (tcfg.image_size, tcfg.adapt_iter) != (IMG, STEPS):
                 raise AssertionError("configs/pascal.yaml no longer gives 473 px, 200 steps")
             lines = []
-            cuda_inner_loop.reset_launches()
+            tracing.reset()
             t0 = time.perf_counter()
             miou = test_entry.main(tcfg, device="cuda", log=lines.append)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(cuda_inner_loop.LAUNCHES)
+            launches = launch_counts("adapt_binary", "adapt_binary_tiled")
             runtime = next(str(l) for l in lines if str(l).startswith("Average runtime"))
             print(f"real data: train.test.main (configs/pascal.yaml, 2 runs x 64 episodes in "
                   f"batches of {E}, 4 decode threads, random init): mIoU {miou:.4f}, "
@@ -2749,13 +2729,13 @@ def real_data_phase(card, modules):
 
             # ---- the CWT trainer on the tree (K2 at tile 2) ----
             lines = []
-            cuda_inner_loop.reset_launches()
+            tracing.reset()
             with inner_tile(2):
                 best = train_cwt.main(cfg("configs/pascal.yaml", "debug", "True", "epochs",
                                           "1", "episode_batch", "2", "test_num", "8",
                                           "n_runs", "1"), device="cuda", log=lines.append)
             torch.cuda.synchronize()
-            cwt_launches = dict(cuda_inner_loop.LAUNCHES)
+            cwt_launches = launch_counts("adapt_binary", "adapt_binary_tiled")
             epoch_line = next(str(l) for l in lines if str(l).startswith("Epoch 1:"))
             print(f"real data: train_cwt.main (debug: 5 steps of 2 episodes, "
                   f"FSS_INNER_TILE=2): {epoch_line}; best val mIoU {best:.4f}; launches "
@@ -2766,8 +2746,7 @@ def real_data_phase(card, modules):
         # ---- the MMN trainer on pascal_mmn.yaml as shipped, flat route ----
         # (resize_np: cv2's resize, as the JAX package runs it)
         lines = []
-        cuda_inner_loop.reset_launches()
-        cuda_pivot.reset_launches()
+        tracing.reset()
         hcfg = cfg("configs/pascal_mmn.yaml", "epochs", "1", "iter_per_epoch", "4",
                    "episode_batch", "2", "test_num", "4", "save_models", "False")
         if not (hcfg.use_amp and hcfg.augmentations == ["hor_flip", "resize_np"]):
@@ -2777,7 +2756,7 @@ def real_data_phase(card, modules):
         head_log = log_txt_val(os.path.join(root, train_head.results_dir(hcfg, "mmn")),
                                "val: mIoU")
         torch.cuda.synchronize()
-        mmn_launches = launch_counts(cuda_inner_loop, cuda_pivot)
+        mmn_launches = launch_counts()
         val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
         print(f"real data: train_head.main (configs/pascal_mmn.yaml as shipped: use_amp, "
               f"hor_flip + resize_np through cv2; 2 steps of 2, FSS_PIVOT_MXU=1): {val_line}; "
@@ -2785,10 +2764,8 @@ def real_data_phase(card, modules):
         if min(mmn_launches[k] for k in ("pivot_fwd", "pivot_dw")) < 1 \
                 or not np.isfinite(best):
             raise AssertionError(f"real-data MMN training: {mmn_launches}, {best}")
-        match_launches = train_match_entry(root, load_cfg, merge_cfg_from_list,
-                                           cuda_inner_loop, cuda_pivot)
-        heads = chm_detr_entries(root, load_cfg, merge_cfg_from_list, cuda_inner_loop,
-                                 cuda_pivot)
+        match_launches = train_match_entry(root, load_cfg, merge_cfg_from_list)
+        heads = chm_detr_entries(root, load_cfg, merge_cfg_from_list)
         tools_on_tree(root, load_cfg, merge_cfg_from_list)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2798,7 +2775,7 @@ def real_data_phase(card, modules):
             "train_trans_launches": heads["train_trans"], "feed": feed}
 
 
-def train_match_entry(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot):
+def train_match_entry(root, load_cfg, merge_cfg_from_list):
     """``train_match.main`` on configs/pascal_match.yaml and the PNG tree at
     ``root``, flat route: one epoch of 2 steps of 2 with its train state
     saved, then a ``debug`` run (5 steps) resuming from that state for the
@@ -2813,12 +2790,11 @@ def train_match_entry(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda
         "test_num", "4", "save_models", "True"])
     cfg.scan_cache = os.path.join(root, ".scan_cache")
     lines = []
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     with contextlib.chdir(root), pivot_route(True):
         best = train_match.main(cfg, device="cuda", log=lines.append)
         torch.cuda.synchronize()
-        launches = launch_counts(cuda_inner_loop, cuda_pivot)
+        launches = launch_counts()
         state = [os.path.join(d, "train_state.pt") for d, _, files in os.walk("results")
                  if "train_state.pt" in files]
         if len(state) != 1:
@@ -2842,7 +2818,7 @@ def train_match_entry(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda
     return launches
 
 
-def chm_detr_entries(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_pivot):
+def chm_detr_entries(root, load_cfg, merge_cfg_from_list):
     """``train_match.main`` with ``crm_type chm`` (configs/pascal_match.yaml)
     and ``train_trans.main`` (configs/pascal_trans.yaml as shipped, flat
     route) on the PNG tree at ``root``: one epoch of 2 steps of 2 and its
@@ -2863,15 +2839,14 @@ def chm_detr_entries(root, load_cfg, merge_cfg_from_list, cuda_inner_loop, cuda_
         cfg = merge_cfg_from_list(load_cfg(path), data + extra)
         cfg.scan_cache = os.path.join(root, ".scan_cache")
         lines = []
-        cuda_inner_loop.reset_launches()
-        cuda_pivot.reset_launches()
+        tracing.reset()
         with contextlib.chdir(root), pivot_route(flat):
             t0 = time.perf_counter()
             best = entry.main(cfg, device="cuda", log=lines.append)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             log = log_txt_val(train_head.results_dir(cfg, head), "val: mIoU")
-        launches = launch_counts(cuda_inner_loop, cuda_pivot)
+        launches = launch_counts()
         val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
         print(f"real data: {name}.main ({path}{' ' + ' '.join(extra) if extra else ''}, "
               f"{'FSS_PIVOT_MXU=1, ' if flat else ''}2 steps of 2, test_num 4): {val_line}; "
@@ -3008,14 +2983,14 @@ def pretrain_entry_phase(card, modules):
                            "episode_batch", str(E), "test_num", "16", "n_runs", "1",
                            "log_freq", "1")
                 lines = []
-                cuda_inner_loop.reset_launches()
+                tracing.reset()
                 t0 = time.perf_counter()
                 with contextlib.chdir(root):   # its results/ goes with the tree
                     best = pretrain.main(pcfg, device="cuda",
                                          log=lambda l: lines.append(str(l)))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                launches = dict(cuda_inner_loop.LAUNCHES)
+                launches = launch_counts("adapt_binary", "adapt_binary_tiled")
                 epoch = next(l for l in lines if l.startswith("===== Epoch 0"))
                 val = next(l for l in lines if l.startswith(
                     "episodic_validate run" if episodic else "Testing results"))
@@ -3072,11 +3047,11 @@ def vgg_phase(card, calib_images, modules):
     episodes = make_episode_batch(17, E, size=IMG, shot=SHOT)
     w0 = engine.init_weights(E, torch.Generator().manual_seed(18))
     batch = engine.to_device(episodes)
-    cuda_inner_loop.reset_launches()
+    tracing.reset()
     masks = engine.serve_batch(episodes, w0=w0)
     metrics = engine.eval_metrics_batch_no_cwt(episodes, w0=w0)
     torch.cuda.synchronize()
-    launches = dict(cuda_inner_loop.LAUNCHES)
+    launches = launch_counts("adapt_binary", "adapt_binary_tiled")
     with torch.no_grad():
         f_s, f_q = engine._episode_features(batch)
         pw, pwy = binary_pixel_weights(batch["s_label"])
@@ -3663,11 +3638,11 @@ def main() -> int:
                                 device=dev)
     calibrate_batchnorm(engine.backbone, calib_images)
 
-    cuda_inner_loop.reset_launches()
+    tracing.reset()
     masks = engine.serve_batch(episodes, w0=w0)
     metrics = engine.eval_metrics_batch(episodes, w0=w0)
     torch.cuda.synchronize()
-    launches = dict(cuda_inner_loop.LAUNCHES)
+    launches = launch_counts("adapt_binary", "adapt_binary_tiled")
     main_plan = cuda_inner_loop.LAST_PLAN["adapt_binary"]
     if launches["adapt_binary"] < 1 or main_plan is None:
         raise AssertionError("the main path did not launch the K1 kernel")

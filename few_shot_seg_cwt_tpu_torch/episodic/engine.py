@@ -28,6 +28,10 @@ Under a bf16 stage policy (``compute_dtype bfloat16``, ``use_amp`` or
 ``bf16_stages``; ``models.pspnet.stage_dtype_policy``) the backbone runs in
 its stages' dtypes and the features come back to fp32: the inner loop, the
 CWT, the classifier and the tail stay fp32, as in the JAX package.
+
+Each phase runs inside a span of ``utils.tracing`` (``stage``, ``features``,
+``inner_loop``, ``transform``, ``tail``; ``eval_batch`` or ``serve`` around a
+call), which a running ``torch.profiler`` records beside the kernels.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from ..ops.losses import (binary_weighted_ce_from_diff, class_balance_weights,
 from ..ops.metrics import intersection_and_union
 from ..ops.resize import upsample_bilinear_ac
 from ..parallel.mesh import all_reduce_grads, rank_world
+from ..utils.tracing import span
 from .inner_loop import adapt_classifier_batch
 
 EPISODE_KEYS = ("s_img", "s_label", "q_img", "q_label", "cls")
@@ -89,14 +94,15 @@ def pick_w0(engine, e: int, generator: Optional[torch.Generator],
     starts alike and stays alike, and episode rank * E + i gets the init it
     gets on one process (the JAX step splits one key over the global
     batch)."""
-    if w0 is not None:
-        return torch.as_tensor(w0, dtype=torch.float32).to(engine.device)
-    if generator is None:
-        raise ValueError("pass a torch.Generator or explicit w0")
-    rank, world = shard
-    if world == 1:
-        return engine.init_weights(e, generator)
-    return engine.init_weights(e * world, generator)[rank * e:(rank + 1) * e]
+    with span("stage"):
+        if w0 is not None:
+            return torch.as_tensor(w0, dtype=torch.float32).to(engine.device)
+        if generator is None:
+            raise ValueError("pass a torch.Generator or explicit w0")
+        rank, world = shard
+        if world == 1:
+            return engine.init_weights(e, generator)
+        return engine.init_weights(e * world, generator)[rank * e:(rank + 1) * e]
 
 
 class EpisodicEngine:
@@ -126,7 +132,8 @@ class EpisodicEngine:
     # ------------------------------------------------------------------ #
 
     def to_device(self, episodes: Dict) -> Dict[str, torch.Tensor]:
-        return episodes_to_device(episodes, self.device)
+        with span("stage"):
+            return episodes_to_device(episodes, self.device)
 
     def init_weights(self, e: int, generator: torch.Generator) -> torch.Tensor:
         """E fresh (K, C) classifier inits drawn from ``generator``."""
@@ -154,32 +161,35 @@ class EpisodicEngine:
         ``generator``, kept channels scaled by 1/(1 - rate), drawn for the
         global batch of which this one is rank ``shard[0]``'s slice.
         """
-        s_img, q_img = batch["s_img"], batch["q_img"]
-        e, shot = s_img.shape[:2]
-        imgs = torch.cat([s_img.reshape((e * shot,) + s_img.shape[2:]), q_img], dim=0)
-        feat = self.backbone.extract_features(imgs).float()
-        f_s = feat[: e * shot].reshape((e, shot) + feat.shape[1:])
-        if support_dropout:
-            mask_shape = (e, shot, 1, 1, f_s.shape[-1])
-            f_s = dropout(f_s, float(self.cfg.dropout), generator, mask_shape, shard)
-        return f_s, feat[e * shot:]
+        with span("features"):
+            s_img, q_img = batch["s_img"], batch["q_img"]
+            e, shot = s_img.shape[:2]
+            imgs = torch.cat([s_img.reshape((e * shot,) + s_img.shape[2:]), q_img], dim=0)
+            feat = self.backbone.extract_features(imgs).float()
+            f_s = feat[: e * shot].reshape((e, shot) + feat.shape[1:])
+            if support_dropout:
+                mask_shape = (e, shot, 1, 1, f_s.shape[-1])
+                f_s = dropout(f_s, float(self.cfg.dropout), generator, mask_shape, shard)
+            return f_s, feat[e * shot:]
 
     @torch.no_grad()
     def _adapted_episode(self, batch, w0: torch.Tensor):
         """Shared eval prologue: features + inner-loop-adapted classifier."""
         f_s, f_q = self._episode_features(batch)
-        w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.adapt_iter,
-                                   self.cls_lr)
+        with span("inner_loop"):
+            w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.adapt_iter,
+                                       self.cls_lr)
         return f_q, w
 
     @torch.no_grad()
     def _predict(self, f_q: torch.Tensor, w: torch.Tensor):
         """Raw-classifier and CWT-updated query logits, (E, h, w, K) each."""
-        pred_q0 = apply_classifier(w, f_q)
-        f_qn = l2_normalize_channels(f_q)
-        w_upd = self.cwt(w, f_qn, f_qn)
-        pred_q = apply_classifier(w_upd, f_qn)
-        return pred_q, pred_q0
+        with span("transform"):
+            pred_q0 = apply_classifier(w, f_q)
+            f_qn = l2_normalize_channels(f_q)
+            w_upd = self.cwt(w, f_qn, f_qn)
+            pred_q = apply_classifier(w_upd, f_qn)
+            return pred_q, pred_q0
 
     def _upsampled_diff(self, pred: torch.Tensor, size) -> torch.Tensor:
         """(E, h, w, 2) feature-res logits -> upsampled (E, H, W) difference."""
@@ -211,19 +221,21 @@ class EpisodicEngine:
         return inter, union, loss
 
     def metrics_from_predictions(self, pred_q, pred_q0, batch) -> Dict[str, torch.Tensor]:
-        q_label = batch["q_label"]
-        inter, union, loss = self._upsampled_metrics(pred_q, q_label)
-        inter0, union0, loss0 = self._upsampled_metrics(pred_q0, q_label)
-        return {"inter": inter, "union": union, "inter0": inter0,
-                "union0": union0, "loss": loss, "loss0": loss0,
-                "cls": batch["cls"]}
+        with span("tail"):
+            q_label = batch["q_label"]
+            inter, union, loss = self._upsampled_metrics(pred_q, q_label)
+            inter0, union0, loss0 = self._upsampled_metrics(pred_q0, q_label)
+            return {"inter": inter, "union": union, "inter0": inter0,
+                    "union0": union0, "loss": loss, "loss0": loss0,
+                    "cls": batch["cls"]}
 
     def mask_from_prediction(self, pred_q: torch.Tensor, size) -> torch.Tensor:
         """(E, h, w, K) logits -> (E, H, W) int32 mask at image resolution."""
-        if self.num_classes == 2:
-            return (self._upsampled_diff(pred_q, size) > 0).int()
-        logits = upsample_bilinear_ac(pred_q.float(), tuple(size))
-        return logits.argmax(-1).int()
+        with span("tail"):
+            if self.num_classes == 2:
+                return (self._upsampled_diff(pred_q, size) > 0).int()
+            logits = upsample_bilinear_ac(pred_q.float(), tuple(size))
+            return logits.argmax(-1).int()
 
     # ------------------------------------------------------------------ #
     # batched programs
@@ -259,14 +271,15 @@ class EpisodicEngine:
         return self._eval_metrics(episodes, generator, w0, with_pred=True)
 
     def _eval_metrics(self, episodes, generator, w0, with_pred: bool):
-        batch = self.to_device(episodes)
-        e = batch["q_img"].shape[0]
-        f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
-        pred_q, pred_q0 = self._predict(f_q, w)
-        out = self.metrics_from_predictions(pred_q, pred_q0, batch)
-        if with_pred:
-            out["pred_lab"] = pred_q.argmax(-1).int()
-        return out
+        with span("eval_batch"):
+            batch = self.to_device(episodes)
+            e = batch["q_img"].shape[0]
+            f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
+            pred_q, pred_q0 = self._predict(f_q, w)
+            out = self.metrics_from_predictions(pred_q, pred_q0, batch)
+            if with_pred:
+                out["pred_lab"] = pred_q.argmax(-1).int()
+            return out
 
     @torch.no_grad()
     def eval_metrics_batch_no_cwt(self, episodes, generator: Optional[torch.Generator] = None,
@@ -287,11 +300,12 @@ class EpisodicEngine:
     def serve_batch(self, episodes, generator: Optional[torch.Generator] = None,
                     w0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Label-free inference: E episodes -> (E, H, W) int32 query masks."""
-        batch = self.to_device(episodes)
-        e = batch["q_img"].shape[0]
-        f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
-        pred_q, _ = self._predict(f_q, w)
-        return self.mask_from_prediction(pred_q, batch["q_img"].shape[1:3])
+        with span("serve"):
+            batch = self.to_device(episodes)
+            e = batch["q_img"].shape[0]
+            f_q, w = self._adapted_episode(batch, pick_w0(self, e, generator, w0))
+            pred_q, _ = self._predict(f_q, w)
+            return self.mask_from_prediction(pred_q, batch["q_img"].shape[1:3])
 
     # ------------------------------------------------------------------ #
     # meta-training
@@ -355,7 +369,7 @@ class EpisodicEngine:
         w0 = pick_w0(self, batch["q_img"].shape[0], generator, w0, shard)
         f_s, f_q = self._episode_features(batch, support_dropout=True, generator=generator,
                                           shard=shard)
-        with torch.no_grad():   # no gradient flows into the inner loop
+        with torch.no_grad(), span("inner_loop"):   # no gradient flows into the inner loop
             w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.adapt_iter,
                                        self.cls_lr)
         return self._train_losses(f_q, w, batch["q_label"], generator, with_metrics, shard)

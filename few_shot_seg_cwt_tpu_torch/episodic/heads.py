@@ -49,7 +49,11 @@ policy) the backbone runs bf16 and its features come back to fp32; the
 train step under ``use_amp`` also runs the head in bf16 (``_amp_head``),
 while eval and serve keep the head in fp32, as the JAX package does.
 Classifier inits come from a ``torch.Generator`` or are injected (``w0=``,
-(E, K, C)). Episodes are the NHWC dicts of ``episodic.engine``.
+(E, K, C)). Episodes are the NHWC dicts of ``episodic.engine``. The train
+step's phases run inside spans of ``utils.tracing`` (``stage``,
+``prologue``, ``head_forward``, ``head_backward``, ``optimizer``;
+``train_step`` around a step), as do eval and serve (``eval_batch``,
+``serve``).
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ from ..ops.losses import class_balance_weights, cross_entropy, seg_loss, weighte
 from ..ops.metrics import intersection_and_union
 from ..ops.resize import upsample_bilinear_ac
 from ..parallel.mesh import all_reduce_grads, rank_world
+from ..utils.tracing import span
 from .engine import EPISODE_KEYS, episodes_to_device, init_weights, pick_w0
 from .inner_loop import adapt_classifier_batch
 
@@ -227,7 +232,8 @@ class HeadEngine:
     # ------------------------------------------------------------------ #
 
     def to_device(self, episodes: Dict) -> Dict[str, torch.Tensor]:
-        return episodes_to_device(episodes, self.device)
+        with span("stage"):
+            return episodes_to_device(episodes, self.device)
 
     def init_weights(self, e: int, generator: torch.Generator) -> torch.Tensor:
         return init_weights(e, generator, self.num_classes, self.cfg.bottleneck_dim,
@@ -254,17 +260,19 @@ class HeadEngine:
         s_img, q_img = batch["s_img"], batch["q_img"]
         e, shot = s_img.shape[:2]
         n_s = e * shot
-        imgs = torch.cat([s_img.reshape((n_s,) + s_img.shape[2:]), q_img], dim=0)
-        feat, feats = self.backbone.extract_features(imgs)
-        feat = feat.float()
-        f_s = feat[:n_s].reshape((e, shot) + feat.shape[1:])
-        f_q = feat[n_s:]
-        feats = {k: [t.float() for t in feats[k]] for k in self._stages()}
-        fs_feats = {k: [t[:n_s].reshape((e, shot) + t.shape[1:]) for t in v]
-                    for k, v in feats.items()}
-        fq_feats = {k: [t[n_s:] for t in v] for k, v in feats.items()}
-        w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.cfg.adapt_iter,
-                                   self.cfg.cls_lr)
+        with span("features"):
+            imgs = torch.cat([s_img.reshape((n_s,) + s_img.shape[2:]), q_img], dim=0)
+            feat, feats = self.backbone.extract_features(imgs)
+            feat = feat.float()
+            f_s = feat[:n_s].reshape((e, shot) + feat.shape[1:])
+            f_q = feat[n_s:]
+            feats = {k: [t.float() for t in feats[k]] for k in self._stages()}
+            fs_feats = {k: [t[:n_s].reshape((e, shot) + t.shape[1:]) for t in v]
+                        for k, v in feats.items()}
+            fq_feats = {k: [t[n_s:] for t in v] for k, v in feats.items()}
+        with span("inner_loop"):
+            w = adapt_classifier_batch(f_s, batch["s_label"], w0, self.cfg.adapt_iter,
+                                       self.cfg.cls_lr)
         pd_s = apply_classifier(w.repeat_interleave(shot, dim=0), f_s.flatten(0, 1))
         # shots padded with all-255 labels take no part in the readout mean
         s_valid = (batch["s_label"] != 255).flatten(2).any(dim=-1).float()
@@ -277,8 +285,9 @@ class HeadEngine:
         """``episode_parts`` from explicit inits ``w0`` or ``generator``'s
         draws for the batch (``engine.pick_w0``; rank ``shard[0]``'s rows
         of the global batch's)."""
-        return self.episode_parts(batch, pick_w0(self, batch["q_img"].shape[0], generator,
-                                                 w0, shard))
+        w0 = pick_w0(self, batch["q_img"].shape[0], generator, w0, shard)
+        with span("prologue"):
+            return self.episode_parts(batch, w0)
 
     @staticmethod
     def _one(parts: Dict, batch: Dict, i: int) -> Tuple[Dict, Dict]:
@@ -712,15 +721,18 @@ class HeadEngine:
         # tensors, so each episode's backward may pass through them
         with self._amp_head():
             for i in range(e):
-                loss, m = self.train_episode_loss(*self._one(parts, batch, i), deterministic)
+                with span("head_forward"):
+                    loss, m = self.train_episode_loss(*self._one(parts, batch, i), deterministic)
                 if accum:
-                    (loss / e).backward()
+                    with span("head_backward"):
+                        (loss / e).backward()
                 else:
                     total = total + loss
                 losses.append(loss.detach())
                 metrics.append(m)
             if not accum:
-                (total / e).backward()
+                with span("head_backward"):
+                    (total / e).backward()
         out = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
         out["loss_mean"] = torch.stack(losses).mean()
         return out
@@ -732,12 +744,14 @@ class HeadEngine:
         before the step (``parallel.mesh.all_reduce_grads``)."""
 
         def step(episodes, generator=None, w0=None):
-            metrics = self.backward_batch(episodes, generator, w0)
-            all_reduce_grads(self.head.parameters())
-            optimizer.step()
-            if scheduler is not None:
-                scheduler.step()
-            return metrics
+            with span("train_step"):
+                metrics = self.backward_batch(episodes, generator, w0)
+                all_reduce_grads(self.head.parameters())
+                with span("optimizer"):
+                    optimizer.step()
+                    if scheduler is not None:
+                        scheduler.step()
+                return metrics
 
         return step
 
@@ -766,16 +780,18 @@ class HeadEngine:
                            w0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Deterministic head forward for E episodes: per-episode CE of pred
         and I/U of pred0, pred1 and pred, (E, ...) each, plus ``cls``."""
-        batch = self.to_device(episodes)
-        e = batch["q_img"].shape[0]
-        outs = []
-        for part, episode, preds in self._predict_batch(batch, pick_w0(self, e, generator, w0)):
-            out = {"loss": cross_entropy(preds["pred"], episode["q_label"])}
-            out.update(self._iou(preds, part, episode))
-            outs.append(out)
-        out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-        out["cls"] = batch["cls"]
-        return out
+        with span("eval_batch"):
+            batch = self.to_device(episodes)
+            e = batch["q_img"].shape[0]
+            outs = []
+            for part, episode, preds in self._predict_batch(batch,
+                                                            pick_w0(self, e, generator, w0)):
+                out = {"loss": cross_entropy(preds["pred"], episode["q_label"])}
+                out.update(self._iou(preds, part, episode))
+                outs.append(out)
+            out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            out["cls"] = batch["cls"]
+            return out
 
     @torch.no_grad()
     def predict_batch(self, episodes, generator: Optional[torch.Generator] = None,
@@ -802,7 +818,8 @@ class HeadEngine:
                     w0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Label-free inference: E episodes -> (E, H, W) int32 masks, the
         argmax of the blended prediction."""
-        return self.predict_batch(episodes, generator, w0)["pred"].argmax(-1).int()
+        with span("serve"):
+            return self.predict_batch(episodes, generator, w0)["pred"].argmax(-1).int()
 
     def serve_episode(self, episode, generator: Optional[torch.Generator] = None,
                       w0: Optional[torch.Tensor] = None) -> torch.Tensor:

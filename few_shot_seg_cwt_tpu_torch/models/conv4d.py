@@ -64,6 +64,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda_pivot import pivot_fwd, pivot_impl, pivot_kernel_available
 from ..ops.quant import fake_quant, ncons_int8_mode, qconv2d
+from ..utils.tracing import span
 
 
 def init_conv_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -158,20 +159,22 @@ class CenterPivotConv4d(nn.Module):
                 fuse_relu: bool = False,
                 flat_dims: Tuple[int, int, int, int] | None = None,
                 bqsc: bool = False) -> torch.Tensor:
-        dtype = _promote(x, self.conv1.weight)
-        x = x.to(dtype)
-        if flat_dims is None:
+        # a span of its own: under per-block recompute it runs again in the backward
+        with span("consensus"):
+            dtype = _promote(x, self.conv1.weight)
+            x = x.to(dtype)
+            if flat_dims is None:
+                if bqsc:
+                    raise ValueError("bqsc layout requires flat_dims=(h, w, hs, ws)")
+                out = self._six_d(x, swap_roles)
+                return torch.relu(out) if fuse_relu else out
+            if self.stride != (1, 1, 1, 1):
+                raise ValueError(f"the flat and rank-4 layouts take stride 1 only, "
+                                 f"got {self.stride}")
+            dims = tuple(int(d) for d in flat_dims)
             if bqsc:
-                raise ValueError("bqsc layout requires flat_dims=(h, w, hs, ws)")
-            out = self._six_d(x, swap_roles)
-            return torch.relu(out) if fuse_relu else out
-        if self.stride != (1, 1, 1, 1):
-            raise ValueError(f"the flat and rank-4 layouts take stride 1 only, "
-                             f"got {self.stride}")
-        dims = tuple(int(d) for d in flat_dims)
-        if bqsc:
-            return self._bqsc(x, swap_roles, fuse_relu, dims)
-        return self._flat(x, swap_roles, fuse_relu, dims)
+                return self._bqsc(x, swap_roles, fuse_relu, dims)
+            return self._flat(x, swap_roles, fuse_relu, dims)
 
     def _six_d(self, x: torch.Tensor, swap_roles: bool, with_bias: bool = True
                ) -> torch.Tensor:

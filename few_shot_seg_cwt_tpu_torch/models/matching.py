@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.corr import (get_corr, l2norm, masked_attention_readout, mutual_matching,
                         mutual_matching_bqsc, mutual_matching_flat)
 from ..ops.cuda_pivot import pivot_pallas_active
+from ..utils.tracing import span
 from .conv4d import CenterPivotConv4d, Conv4d
 from .msm import pointwise
 
@@ -116,23 +117,25 @@ class NeighConsensus(nn.Module):
 
     def bqsc(self, x: torch.Tensor, dims) -> torch.Tensor:
         """Rank-4 route: (B, Q, S, C) -> (B, Q, S, C_out)."""
-        return self._symmetric(x, dims, True)
+        with span("consensus"):
+            return self._symmetric(x, dims, True)
 
     def forward(self, x: torch.Tensor, flat_dims=None) -> torch.Tensor:
         """x (B, h, w, hs, ws, C) on the 6D route, or flat (B, C, Q, S) with
         ``flat_dims`` = (hq, wq, hs, ws): through the pivot kernels when the
         flat route is on for a centre-pivot stack, else converted once
         around the 6D stack."""
-        if flat_dims is None:
-            if self.symmetric_mode:
-                return self._stack6(x) + _swap_planes(self._stack6(_swap_planes(x)))
-            return self._stack6(x)
-        if self.conv_type == "red" and pivot_pallas_active(self.kernel_sizes):
-            return self._symmetric(x, flat_dims, False)
-        b, c = x.shape[:2]
-        hq, wq, hs, ws = (int(d) for d in flat_dims)
-        out = self(x.reshape(b, c, hq, wq, hs, ws).permute(0, 2, 3, 4, 5, 1))
-        return out.permute(0, 5, 1, 2, 3, 4).reshape(b, out.shape[-1], hq * wq, hs * ws)
+        with span("consensus"):
+            if flat_dims is None:
+                if self.symmetric_mode:
+                    return self._stack6(x) + _swap_planes(self._stack6(_swap_planes(x)))
+                return self._stack6(x)
+            if self.conv_type == "red" and pivot_pallas_active(self.kernel_sizes):
+                return self._symmetric(x, flat_dims, False)
+            b, c = x.shape[:2]
+            hq, wq, hs, ws = (int(d) for d in flat_dims)
+            out = self(x.reshape(b, c, hq, wq, hs, ws).permute(0, 2, 3, 4, 5, 1))
+            return out.permute(0, 5, 1, 2, 3, 4).reshape(b, out.shape[-1], hq * wq, hs * ws)
 
 
 @torch.no_grad()

@@ -2,8 +2,12 @@
 as PyTorch operators (``fss::adapt_binary``, ``fss::adapt_binary_tiled``,
 ``fss::pivot_fwd``, ``fss::pivot_dw``), so a program saved by
 ``torch.export`` that calls them loads with this package alone; each
-kernel is built at its first launch."""
+kernel is built at its first launch and counts each launch under its name
+(``utils.tracing.count``): ``launch_counts`` reads them."""
 
+from typing import Dict
+
+from ..utils import tracing
 from . import cuda_inner_loop, cuda_pivot  # noqa: F401  (registers the operators)
 from .resize import (
     adaptive_avg_pool,
@@ -32,7 +36,20 @@ from .corr import (
 )
 from .metrics import intersection_and_union
 
+# the hand-written kernels, by the names their launches are counted under
+KERNELS = ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw")
+
+
+def launch_counts(*names: str) -> Dict[str, int]:
+    """Each kernel's launches (or those of the kernels ``names``) since the
+    counters' last ``tracing.reset()``."""
+    counts = tracing.counts()
+    return {k: counts[k] for k in names or KERNELS}
+
+
 __all__ = [
+    "KERNELS",
+    "launch_counts",
     "adaptive_avg_pool",
     "adaptive_pool_matrix",
     "interp_matrix_align_corners",

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..utils import tracing
 from . import cuda_build
 from .inner_loop_plan import (MAX_CHANNELS, MAX_SMEM_BYTES, Plan, packed_taps,
                               smem_bytes, work_plan)
@@ -43,10 +44,8 @@ _SOURCE = cuda_build.CSRC / "inner_loop.cu"
 # episodes per CTA that the tiled kernel is instantiated for
 TILES = (2, 3, 4)
 
-# Kernel launches by name; a wrapper adds one where it launches its kernel
-# and nowhere else, so a run can show that its path went through the kernel.
-LAUNCHES: Dict[str, int] = {"adapt_binary": 0, "adapt_binary_tiled": 0}
-# The plan of each kernel's last launch, set where LAUNCHES counts it.
+# The plan of each kernel's last launch in this process, set where the
+# launch is counted (``utils.tracing.count``, under the kernel's name).
 LAST_PLAN: Dict[str, Optional[Plan]] = {"adapt_binary": None, "adapt_binary_tiled": None}
 
 # loaded libraries by their extra nvcc defines
@@ -55,12 +54,6 @@ _libs: Dict[tuple, ctypes.CDLL] = {}
 _taps: Dict[tuple, torch.Tensor] = {}
 # SM counts by device
 _sms: Dict[str, int] = {}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        LAST_PLAN[k] = None
 
 
 def build_spec(defines: Sequence[str] = ()) -> cuda_build.Spec:
@@ -299,6 +292,6 @@ def launch(lib: ctypes.CDLL, f_s: torch.Tensor, pw: torch.Tensor,
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.fss_error_string(err).decode()} ({err}); plan "
                            f"{plan.summary()}")
-    LAUNCHES[name] += 1
+    tracing.count(name)
     LAST_PLAN[name] = plan
     return acc

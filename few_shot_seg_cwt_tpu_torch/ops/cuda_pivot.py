@@ -47,23 +47,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import cuda_build
 
 _SOURCE = cuda_build.CSRC / "pivot.cu"
 MAX_SMEM_BYTES = 232_448          # shared memory one Hopper block may use
 
-# Kernel launches by name; a wrapper adds one where it launches its kernel.
-LAUNCHES: Dict[str, int] = {"pivot_fwd": 0, "pivot_dw": 0}
-
 # kernel libraries by extra nvcc flags (() for the main path's build)
 _libs: Dict[tuple, ctypes.CDLL] = {}
 
 Dims = Tuple[int, int, int, int]
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -336,7 +329,7 @@ def _pivot_fwd_op(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor, bias: tor
 def _pivot_fwd_cuda(x, wa, wb, bias, dims, relu):
     y = launch_fwd(load_library(), _wide(x), _wide(wa), _wide(wb), _wide(bias), tuple(dims),
                    relu)
-    LAUNCHES["pivot_fwd"] += 1
+    tracing.count("pivot_fwd")
     return y.to(torch.promote_types(x.dtype, wa.dtype))
 
 
@@ -357,7 +350,7 @@ def _pivot_dw_op(x: torch.Tensor, g: torch.Tensor, dims: List[int]
 @_pivot_dw_op.register_kernel("cuda")
 def _pivot_dw_cuda(x, g, dims):
     out = launch_dw(load_library(), x, g, tuple(dims))
-    LAUNCHES["pivot_dw"] += 1
+    tracing.count("pivot_dw")
     return tuple(t.clone() for t in out)    # views of one buffer -> own tensors
 
 
@@ -381,17 +374,19 @@ def _pivot_fwd_setup(ctx, inputs, output):
 
 
 def _pivot_fwd_backward(ctx, dy):
-    x, wa, wb, y = ctx.saved_tensors
-    g = _wide(dy * (y > 0).to(dy.dtype) if ctx.relu else dy).contiguous()
-    dx = dwa = dwb = db = None
-    if ctx.needs_input_grad[0]:
-        zeros = torch.zeros((x.shape[1],), dtype=g.dtype, device=g.device)
-        dx = torch.ops.fss.pivot_fwd(g, flip_t(_wide(wa)), flip_t(_wide(wb)), zeros,
-                                     ctx.dims, False).to(x.dtype)
-    if any(ctx.needs_input_grad[1:4]):
-        dwa, dwb, db = torch.ops.fss.pivot_dw(_wide(x).contiguous(), g, ctx.dims)
-        dwa, dwb, db = dwa.to(wa.dtype), dwb.to(wb.dtype), db.to(ctx.bias_dtype)
-    return dx, dwa, dwb, db, None, None
+    # on autograd's thread: the consensus span of the backward's pivot work
+    with tracing.span("consensus"):
+        x, wa, wb, y = ctx.saved_tensors
+        g = _wide(dy * (y > 0).to(dy.dtype) if ctx.relu else dy).contiguous()
+        dx = dwa = dwb = db = None
+        if ctx.needs_input_grad[0]:
+            zeros = torch.zeros((x.shape[1],), dtype=g.dtype, device=g.device)
+            dx = torch.ops.fss.pivot_fwd(g, flip_t(_wide(wa)), flip_t(_wide(wb)), zeros,
+                                         ctx.dims, False).to(x.dtype)
+        if any(ctx.needs_input_grad[1:4]):
+            dwa, dwb, db = torch.ops.fss.pivot_dw(_wide(x).contiguous(), g, ctx.dims)
+            dwa, dwb, db = dwa.to(wa.dtype), dwb.to(wb.dtype), db.to(ctx.bias_dtype)
+        return dx, dwa, dwb, db, None, None
 
 
 _pivot_fwd_op.register_autograd(_pivot_fwd_backward, setup_context=_pivot_fwd_setup)

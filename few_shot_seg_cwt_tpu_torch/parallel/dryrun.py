@@ -63,6 +63,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 CHECKS = ("cwt", "mmn", "pretrain", "eval", "validate", "collectives", "trainers", "chm",
           "detr", "att", "asy", "fuse")
 # the head steps of run_head, and the config each runs on
@@ -72,7 +74,6 @@ HEAD_CONFIGS = {"chm": "configs/pascal_match.yaml", "detr": "configs/pascal_tran
 # the heads whose consensus (DeTr's, the fuse head's frozen MatchNet) runs
 # on the flat route, the pivot kernels
 FLAT_HEADS = ("detr", "fuse")
-KERNELS = ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw")
 PIVOT_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4")
 TILES = (1, 2)   # FSS_INNER_TILE of the CWT step: K1, then K2
 LR = 0.01        # the CWT and MMN steps' SGD rate
@@ -149,17 +150,9 @@ def _cfg(part: Dict, *extra: str):
 
 
 def _launches() -> Dict[str, int]:
-    from ..ops import cuda_inner_loop, cuda_pivot
+    from ..ops import launch_counts
 
-    return {k: int(v) for k, v in {**cuda_inner_loop.LAUNCHES, **cuda_pivot.LAUNCHES}.items()
-            if k in KERNELS}
-
-
-def _reset_launches() -> None:
-    from ..ops import cuda_inner_loop, cuda_pivot
-
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    return launch_counts()
 
 
 def _shard(tree, rank: int, world: int):
@@ -211,7 +204,7 @@ def _step_record(fn, module, device, keep: bool) -> Dict:
     """Run one step ``fn`` with the launch counts reset around it: its
     metrics, ms and launches, the digests of ``module``'s parameters and
     buffers after it, and with ``keep`` the gradients it left."""
-    _reset_launches()
+    tracing.reset()
     metrics, ms = _timed(fn, device)
     named = list(module.named_parameters())
     rec = {"metrics": {k: v.detach().cpu() for k, v in metrics.items()}, "ms": ms,
@@ -465,7 +458,7 @@ def run_eval(part: Dict, seed: int, device, rank: int, world: int, n_ranks: int)
         engine.backbone.load_state_dict(part["weights"]["backbone"])
         engine.cwt.load_state_dict(part["weights"]["cwt"])
     episodes = make_episode_batch(seed + 1, e, size=int(cfg.image_size))
-    _reset_launches()
+    tracing.reset()
     if world > 1:
         local = _shard(episodes, rank, world)
         out, ms = _timed(lambda: to_host(engine.eval_metrics_batch(
@@ -526,7 +519,7 @@ def run_validate(part: Dict, seed: int, device, rank: int, world: int, n_ranks: 
     else:
         scorer = lambda: engine  # noqa: E731
     quiet = lambda *_: None  # noqa: E731
-    _reset_launches()
+    tracing.reset()
     (miou, loss), ms = _timed(lambda: validate_transformer(cfg, scorer(), loader, log=quiet),
                               device)
     ep_miou, ep_loss = episodic_validate(cfg, scorer(), loader, log=quiet)

@@ -1,5 +1,6 @@
 """Run a saved serve artifact (``tools/export_serve.py``) as a serving host
-does: with ``torch`` and the port's ``ops`` package alone, no model code.
+does: with ``torch`` and the port's ``ops`` package alone (and the launch
+counters it imports, ``utils.tracing``), no model code.
 
     python -m few_shot_seg_cwt_tpu_torch.tools.serve_loaded ARTIFACT.pt2 \\
         INPUTS.pt OUT.pt [ARTIFACT2.pt2 INPUTS2.pt OUT2.pt ...] [--reps 5]
@@ -12,9 +13,9 @@ does not carry the flags). The masks of the first call go to ``OUT.pt``.
 For each artifact, in order, the output has one line, a JSON object with
 the artifact's load seconds, the hand-written kernels' launches in that
 first call, the episodes per second of ``--reps`` timed calls after it,
-and the port modules that this process has imported (``ops`` only: the
-check that the artifact carries the whole program). Several artifacts in
-one process share its start-up.
+and the port modules that this process has imported (``ops`` and
+``utils`` only: the check that the artifact carries the whole program).
+Several artifacts in one process share its start-up.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import time
 import torch
 
 from .. import ops
-from ..ops import cuda_inner_loop, cuda_pivot
+from ..utils import tracing
 
 
 def _sync(device: torch.device) -> None:
@@ -58,12 +59,11 @@ def serve_one(artifact: str, inputs: str, out: str, reps: int, device: torch.dev
     load_s = time.perf_counter() - t0
     raw = torch.load(inputs, map_location="cpu", weights_only=True)
     args = [raw[k].to(device) for k in ("s_img", "s_label", "q_img", "w0")]
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     with torch.no_grad():
         masks = program(*args)
         _sync(device)
-        launches = {**cuda_inner_loop.LAUNCHES, **cuda_pivot.LAUNCHES}
+        launches = ops.launch_counts()
         t0 = time.perf_counter()
         for _ in range(reps):
             program(*args)

@@ -30,7 +30,7 @@ from few_shot_seg_cwt_tpu_torch.models.conv4d import (CenterPivotConv4d, Conv4d,
                                                       conv4d_im2col_mode)
 from few_shot_seg_cwt_tpu_torch.models.matching import spatial_descriptor
 from few_shot_seg_cwt_tpu_torch.models.msm import MSBlock
-from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 from few_shot_seg_cwt_tpu_torch.ops.corr import mutual_matching, mutual_nn_filter
 from few_shot_seg_cwt_tpu_torch.utils.convert import (matchnet_state_dict_from_flax,
                                                       msblock_state_dict_from_flax)
@@ -180,10 +180,10 @@ def test_flat_route_falls_back_to_the_6d_math(volume, case, monkeypatch):
     for swap in (False, True):
         want = jmod.apply(params, jnp.asarray(flat), swap_roles=swap, fuse_relu=True,
                           flat_dims=DIMS)
-        before = dict(cuda_pivot.LAUNCHES)
+        before = tracing.counts()
         with torch.no_grad():
             got = port(torch.from_numpy(flat), swap, True, DIMS)
-        assert cuda_pivot.LAUNCHES == before
+        assert tracing.counts() == before
         _close(got.numpy(), want, 1e-5, 1e-5)
 
 

@@ -26,7 +26,8 @@ import torch
 
 from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import (adapt_binary_batch,
                                                             binary_pixel_weights)
-from few_shot_seg_cwt_tpu_torch.ops import cuda_inner_loop
+from few_shot_seg_cwt_tpu_torch.ops import cuda_inner_loop, launch_counts
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -52,10 +53,10 @@ def _inputs(device, e, shot, h, big, c, seed=0):
 
 
 def _k1_against_plain(f_s, pw, pwy, u0, steps):
-    before = cuda_inner_loop.LAUNCHES["adapt_binary"]
+    before = tracing.counts()["adapt_binary"]
     acc_k = cuda_inner_loop.adapt_binary(f_s, pw, pwy, u0, steps, 0.1)
     torch.cuda.synchronize()
-    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == before + 1
+    assert tracing.counts()["adapt_binary"] == before + 1
     acc_p = cuda_inner_loop.adapt_binary_reference(f_s, pw, pwy, u0, steps, 0.1)
     err = float((acc_k - acc_p).abs().max())
     assert err <= 1e-4 * float(acc_p.abs().max()), err
@@ -121,11 +122,11 @@ def test_k1_spreads_an_episode_over_many_ctas(device):
 ])
 def test_tiled_kernel_matches_plain_and_k1(device, e, h, big, c, steps, tile):
     f_s, pw, pwy, u0 = _inputs(device, e, 1, h, big, c, seed=tile)
-    before = dict(cuda_inner_loop.LAUNCHES)
+    before = tracing.counts()
     acc_t = cuda_inner_loop.adapt_binary_tiled(f_s, pw, pwy, u0, steps, 0.1, tile)
     torch.cuda.synchronize()
-    assert cuda_inner_loop.LAUNCHES["adapt_binary_tiled"] == before["adapt_binary_tiled"] + 1
-    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == before["adapt_binary"]
+    assert tracing.counts()["adapt_binary_tiled"] == before["adapt_binary_tiled"] + 1
+    assert tracing.counts()["adapt_binary"] == before["adapt_binary"]
     acc_p = cuda_inner_loop.adapt_binary_reference(f_s, pw, pwy, u0, steps, 0.1)
     acc_1 = cuda_inner_loop.adapt_binary(f_s, pw, pwy, u0, steps, 0.1)
     scale = float(acc_p.abs().max())
@@ -165,10 +166,10 @@ def test_a_grid_the_card_cannot_hold_raises(device):
     plan = cuda_inner_loop.card_plan(lib, tuple(f_s.shape), 473, 473, 1, device)
     big = work_plan(8, 1, 60, 60, 512, 473, 473, 1, 8 * plan.sms * plan.blocks_per_sm)
     assert big.grid > plan.sms * plan.blocks_per_sm
-    before = dict(cuda_inner_loop.LAUNCHES)
+    before = tracing.counts()
     with pytest.raises(RuntimeError, match="launch failed"):
         cuda_inner_loop.launch(lib, f_s, pw, pwy, u0, 2, 0.1, 1, big)
-    assert cuda_inner_loop.LAUNCHES == before
+    assert tracing.counts() == before
     with pytest.raises(ValueError, match="multiple of 4"):
         cuda_inner_loop.adapt_binary(f_s[..., :6].contiguous(), pw, pwy,
                                      u0[:, :6].contiguous(), 2, 0.1)
@@ -179,11 +180,11 @@ def test_batched_dispatch_under_inner_tile_2_launches_k2(device, monkeypatch):
     f_s, _, _, _ = _inputs(device, 4, 1, 6, 25, 16)
     label = torch.randint(0, 2, (4, 1, 25, 25), device=device)
     w0 = torch.randn(4, 2, 16, device=device) * 0.1
-    before = dict(cuda_inner_loop.LAUNCHES)
+    before = tracing.counts()
     w = adapt_binary_batch(f_s, label, w0, 10, 0.1)
     torch.cuda.synchronize()
-    assert cuda_inner_loop.LAUNCHES["adapt_binary_tiled"] == before["adapt_binary_tiled"] + 1
-    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == before["adapt_binary"]
+    assert tracing.counts()["adapt_binary_tiled"] == before["adapt_binary_tiled"] + 1
+    assert tracing.counts()["adapt_binary"] == before["adapt_binary"]
     w_cpu = adapt_binary_batch(f_s.cpu(), label.cpu(), w0.cpu(), 10, 0.1)
     torch.testing.assert_close(w.cpu(), w_cpu, rtol=1e-4, atol=1e-6)
 
@@ -192,9 +193,9 @@ def test_batched_dispatch_on_cuda_goes_through_the_kernel(device):
     f_s, pw, _, _ = _inputs(device, 2, 1, 6, 25, 16)
     label = torch.randint(0, 2, (2, 1, 25, 25), device=device)
     w0 = torch.randn(2, 2, 16, device=device) * 0.1
-    before = cuda_inner_loop.LAUNCHES["adapt_binary"]
+    before = tracing.counts()["adapt_binary"]
     w = adapt_binary_batch(f_s, label, w0, 10, 0.1)
-    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == before + 1
+    assert tracing.counts()["adapt_binary"] == before + 1
     w_cpu = adapt_binary_batch(f_s.cpu(), label.cpu(), w0.cpu(), 10, 0.1)
     torch.testing.assert_close(w.cpu(), w_cpu, rtol=1e-4, atol=1e-6)
 
@@ -283,11 +284,11 @@ def test_pivot_kernels_match_plain(device, b, ci, co, dims, relu):
 
     torch.backends.cudnn.allow_tf32 = False
     x, wa, wb, bias, t = _pivot_inputs(device, b, ci, co, dims)
-    before = dict(cuda_pivot.LAUNCHES)
+    before = tracing.counts()
     y_k, g_k = _pivot_grads(cuda_pivot.pivot_fwd, x, wa, wb, bias, t, dims, relu)
     torch.cuda.synchronize()
-    assert cuda_pivot.LAUNCHES["pivot_fwd"] == before["pivot_fwd"] + 2   # y and dx
-    assert cuda_pivot.LAUNCHES["pivot_dw"] == before["pivot_dw"] + 1
+    assert tracing.counts()["pivot_fwd"] == before["pivot_fwd"] + 2   # y and dx
+    assert tracing.counts()["pivot_dw"] == before["pivot_dw"] + 1
     ref = cuda_pivot.pivot_conv_flat_reference
     y_p, g_p = _pivot_grads(ref, x, wa, wb, bias, t, dims, relu)
     assert float((y_k - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
@@ -348,17 +349,17 @@ def test_pivot_dw_smem_query_agrees_with_the_wrappers_refusal(device):
         x, _, _, _, t = _pivot_inputs(device, 1, ci, co, dims)
         over = smem > cuda_pivot.MAX_SMEM_BYTES
         seen.add(over)
-        before = cuda_pivot.LAUNCHES["pivot_dw"]
+        before = tracing.counts()["pivot_dw"]
         if over:
             with pytest.raises(ValueError, match="shared memory"):
                 cuda_pivot.pivot_dw(x, t, dims)
-            assert cuda_pivot.LAUNCHES["pivot_dw"] == before
+            assert tracing.counts()["pivot_dw"] == before
         else:
             got = cuda_pivot.pivot_dw(x, t, dims)
             want = cuda_pivot.pivot_dw_reference(x, t, dims)
             for a, b in zip(got, want):
                 assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6
-            assert cuda_pivot.LAUNCHES["pivot_dw"] == before + 1
+            assert tracing.counts()["pivot_dw"] == before + 1
     assert seen == {True, False}
     assert lib.fss_pivot_dw_smem_bytes(10, 10, 60) < lib.fss_pivot_dw_smem_bytes(10, 10, 200)
     ci = lib.fss_pivot_dw_max_ci() + 1
@@ -394,34 +395,33 @@ def test_pivot_wrappers_refuse_what_the_kernels_do_not_take(device):
         small = (1, 2, 1, 60)
         assert (lib.fss_pivot_fwd_smem_bytes(ci, 4, 1, 60) > cuda_pivot.MAX_SMEM_BYTES) == over
         x, wa, wb, bias, _ = _pivot_inputs(device, 1, ci, 4, small)
-        before = cuda_pivot.LAUNCHES["pivot_fwd"]
+        before = tracing.counts()["pivot_fwd"]
         if over:
             with pytest.raises(ValueError, match="shared memory"):
                 cuda_pivot.pivot_fwd(x, wa, wb, bias, small)
-            assert cuda_pivot.LAUNCHES["pivot_fwd"] == before
+            assert tracing.counts()["pivot_fwd"] == before
         else:
             y = cuda_pivot.pivot_fwd(x, wa, wb, bias, small)
             want = cuda_pivot.pivot_conv_flat_reference(x, wa, wb, bias, small)
             assert float((y - want).abs().max()) <= 1e-5 * float(want.abs().max())
-            assert cuda_pivot.LAUNCHES["pivot_fwd"] == before + 1
+            assert tracing.counts()["pivot_fwd"] == before + 1
 
 
 def test_flat_route_on_cuda_launches_the_pivot_kernels(device, monkeypatch):
     """NeighConsensus on the flat route: 6 forward launches per symmetric
     3-block stack, and its backward runs pivot_dw for every block."""
     from few_shot_seg_cwt_tpu_torch.models.matching import NeighConsensus
-    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
 
     monkeypatch.setenv("FSS_PIVOT_MXU", "1")
     dims = (7, 8, 6, 9)
     net = NeighConsensus(in_channel=2, block_remat=False).to(device)
     x = torch.randn((1, 2, 56, 54), device=device)
-    before = dict(cuda_pivot.LAUNCHES)
+    before = tracing.counts()
     net(x, flat_dims=dims).sum().backward()
     torch.cuda.synchronize()
     # dx of every block but each stack's first (its input needs no grad)
-    assert cuda_pivot.LAUNCHES["pivot_fwd"] - before["pivot_fwd"] == 6 + 4
-    assert cuda_pivot.LAUNCHES["pivot_dw"] - before["pivot_dw"] == 6
+    assert tracing.counts()["pivot_fwd"] - before["pivot_fwd"] == 6 + 4
+    assert tracing.counts()["pivot_dw"] - before["pivot_dw"] == 6
 
 
 def test_match_consensus_at_ci_1_on_the_flat_route(device, monkeypatch):
@@ -430,7 +430,6 @@ def test_match_consensus_at_ci_1_on_the_flat_route(device, monkeypatch):
     scale, weight gradients within 1e-3 of each tensor's largest entry;
     pivot_dw runs at Ci = 1 for each stack's first block."""
     from few_shot_seg_cwt_tpu_torch.models.matching import NeighConsensus
-    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
 
     torch.backends.cudnn.allow_tf32 = False
     dims = (9, 10, 8, 11)
@@ -447,12 +446,12 @@ def test_match_consensus_at_ci_1_on_the_flat_route(device, monkeypatch):
         else:
             monkeypatch.delenv("FSS_PIVOT_MXU")
         net.zero_grad()
-        before = dict(cuda_pivot.LAUNCHES)
+        before = tracing.counts()
         y = (net(x, flat_dims=dims) if flat
              else net.bqsc(x.permute(0, 2, 3, 1), dims).permute(0, 3, 1, 2))
         (y * y).sum().backward()
         torch.cuda.synchronize()
-        launched = cuda_pivot.LAUNCHES["pivot_dw"] - before["pivot_dw"]
+        launched = tracing.counts()["pivot_dw"] - before["pivot_dw"]
         assert launched == (6 if flat else 0)
         outs.append(y.detach())
         grads.append({k: p.grad.clone() for k, p in net.named_parameters()})
@@ -579,7 +578,6 @@ def test_chm_and_detr_eval_on_the_card_match_the_cpu_port(device, head, route, m
     from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
     from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
     from few_shot_seg_cwt_tpu_torch.models.matching import live_consensus
-    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
     from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
 
     fp32_parity()
@@ -601,12 +599,11 @@ def test_chm_and_detr_eval_on_the_card_match_the_cpu_port(device, head, route, m
     ep = make_episode_batch(12, 2, size=size)
     w0 = cpu.init_weights(2, torch.Generator().manual_seed(3))
     want = cpu.predict_batch(ep, w0=w0)
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     got = card.predict_batch(ep, w0=w0.to(device))
     torch.cuda.synchronize()
-    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == 1
-    assert cuda_pivot.LAUNCHES["pivot_fwd"] == (12 if route == "flat" else 0)
+    assert tracing.counts()["adapt_binary"] == 1
+    assert tracing.counts()["pivot_fwd"] == (12 if route == "flat" else 0)
     for key in ("pred1", "pred"):
         g, w = got[key].cpu(), want[key]
         torch.testing.assert_close(g, w, rtol=1e-2, atol=2e-3 * float(w.abs().max()))
@@ -623,16 +620,16 @@ def test_bf16_volume_runs_the_fp32_kernels_between_casts(device):
 
     dims = (5, 6, 4, 7)
     x, wa, wb, bias, t = (a.bfloat16() for a in _pivot_inputs(device, 2, 3, 4, dims))
-    before = dict(cuda_pivot.LAUNCHES)
+    before = tracing.counts()
     y_op = cuda_pivot.pivot_fwd(x, wa, wb, bias, dims, relu=True)
-    assert cuda_pivot.LAUNCHES["pivot_fwd"] - before["pivot_fwd"] == 1
-    before = dict(cuda_pivot.LAUNCHES)
+    assert tracing.counts()["pivot_fwd"] - before["pivot_fwd"] == 1
+    before = tracing.counts()
     leaves = [a.clone().requires_grad_(True) for a in (x, wa, wb, bias)]
     y = cuda_pivot.pivot_fwd(*leaves, dims, relu=True)
     (y.float() * t.float()).sum().backward()
     torch.cuda.synchronize()
-    assert cuda_pivot.LAUNCHES["pivot_fwd"] - before["pivot_fwd"] == 2      # y and dx
-    assert cuda_pivot.LAUNCHES["pivot_dw"] - before["pivot_dw"] == 1
+    assert tracing.counts()["pivot_fwd"] - before["pivot_fwd"] == 2      # y and dx
+    assert tracing.counts()["pivot_dw"] - before["pivot_dw"] == 1
     f32 = [a.float() for a in (x, wa, wb, bias)]
     y32 = cuda_pivot.pivot_fwd(f32[0], *f32[1:], dims, relu=True)
     assert y.dtype == torch.bfloat16 and torch.equal(y, y32.bfloat16())
@@ -657,11 +654,8 @@ def test_operator_passes_opcheck_on_the_card(device, op):
     """``torch.library.opcheck`` on CUDA tensors (schema, fake against the
     real CUDA implementation, autograd registration, AOT dispatch); the
     CUDA implementations launch the kernels (counted)."""
-    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
-
     rng = np.random.default_rng(5)
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     if op.startswith("adapt"):
         f_s, pw, pwy, u0 = _inputs(device, 2, 1, 6, 41, 32)
         args = (f_s, pw, pwy, u0, 3, 0.1) + ((2,) if op.endswith("tiled") else ())
@@ -677,7 +671,7 @@ def test_operator_passes_opcheck_on_the_card(device, op):
                              device=device)
             args = (x, g, dims)
     torch.library.opcheck(getattr(torch.ops.fss, op), args)
-    launches = {**cuda_inner_loop.LAUNCHES, **cuda_pivot.LAUNCHES}
+    launches = launch_counts()
     assert launches[op] >= 1, launches
 
 
@@ -688,7 +682,6 @@ def test_saved_serve_program_launches_the_kernels(device, tmp_path, monkeypatch)
     from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
     from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
     from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
-    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
     from few_shot_seg_cwt_tpu_torch.tools.export_serve import build_head_serve_export
 
     monkeypatch.setenv("FSS_PIVOT_MXU", "1")
@@ -700,14 +693,13 @@ def test_saved_serve_program_launches_the_kernels(device, tmp_path, monkeypatch)
     w0 = engine.init_weights(2, torch.Generator().manual_seed(0))
     torch.export.save(build_head_serve_export(cfg, "mmn", engine, 2), str(tmp_path / "m.pt2"))
     program = torch.export.load(str(tmp_path / "m.pt2")).module()
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     with torch.no_grad():
         masks = program(*(torch.as_tensor(ep[k]).to(device) for k in ("s_img", "s_label",
                                                                          "q_img")), w0)
     torch.cuda.synchronize()
-    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == 1
-    assert cuda_pivot.LAUNCHES["pivot_fwd"] == 12       # 3 blocks x 2 directions x 2
+    assert tracing.counts()["adapt_binary"] == 1
+    assert tracing.counts()["pivot_fwd"] == 12       # 3 blocks x 2 directions x 2
     assert torch.equal(masks, engine.serve_batch(ep, w0=w0))
 
 
@@ -861,7 +853,6 @@ def test_cca_flat_route_step_against_rank4(device, monkeypatch):
     from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
     from few_shot_seg_cwt_tpu_torch.episodic.cca import CCAEngine
     from few_shot_seg_cwt_tpu_torch.models.matching import live_consensus
-    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
     from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
 
     fp32_parity()
@@ -886,14 +877,13 @@ def test_cca_flat_route_step_against_rank4(device, monkeypatch):
             monkeypatch.setenv("FSS_PIVOT_MXU", "1")
         else:
             monkeypatch.delenv("FSS_PIVOT_MXU", raising=False)
-        cuda_inner_loop.reset_launches()
-        cuda_pivot.reset_launches()
+        tracing.reset()
         m = engine.backward_batch(ep, w0=w0, deterministic=True)
         torch.cuda.synchronize()
         assert torch.isfinite(m["loss_mean"])
-        assert cuda_inner_loop.LAUNCHES["adapt_binary"] == 0
-        assert (cuda_pivot.LAUNCHES["pivot_fwd"] > 0) == (route == "flat")
-        assert (cuda_pivot.LAUNCHES["pivot_dw"] > 0) == (route == "flat")
+        assert tracing.counts()["adapt_binary"] == 0
+        assert (tracing.counts()["pivot_fwd"] > 0) == (route == "flat")
+        assert (tracing.counts()["pivot_dw"] > 0) == (route == "flat")
         got[route] = ({k: p.grad.clone() for k, p in engine.head.named_parameters()},
                       engine.predict_batch(ep, w0=w0))
     rel = {k: float((got["flat"][0][k] - g).abs().max() / g.abs().max())

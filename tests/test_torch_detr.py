@@ -44,7 +44,7 @@ from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine, build_head
 from few_shot_seg_cwt_tpu_torch.models import deform as tdef
 from few_shot_seg_cwt_tpu_torch.models.detr import DeTr
 from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
-from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 from few_shot_seg_cwt_tpu_torch.utils.convert import (detr_state_dict_from_flax,
                                                       pspnet_state_dict_from_flax)
 
@@ -363,11 +363,11 @@ def test_detr_eval_and_serve_match_jax(detr_pair, route):
     ``_loss_detr`` on the same parts; the flat route runs the pivot pair
     (its plain version here: no launch is counted on CPU tensors)."""
     teng, want, batch, w0 = detr_pair
-    before = dict(cuda_pivot.LAUNCHES)
+    before = tracing.counts()
     got = teng.predict_batch(batch, w0=torch.from_numpy(w0))
     metrics = teng.eval_metrics_batch(batch, w0=torch.from_numpy(w0))
     masks = teng.serve_batch(batch, w0=torch.from_numpy(w0))
-    assert cuda_pivot.LAUNCHES == before
+    assert tracing.counts() == before
     assert masks.shape == (E, SIZE, SIZE) and masks.dtype == torch.int32
     for i, (_, preds, _) in enumerate(want):
         for key in ("pred1", "pred"):

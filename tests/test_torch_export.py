@@ -40,7 +40,8 @@ from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
 from few_shot_seg_cwt_tpu_torch.models.cwt import build_cwt
 from few_shot_seg_cwt_tpu_torch.models.matching import live_consensus
 from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
-from few_shot_seg_cwt_tpu_torch.ops import cuda_inner_loop, cuda_pivot
+from few_shot_seg_cwt_tpu_torch.ops import cuda_inner_loop, cuda_pivot, launch_counts
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 from few_shot_seg_cwt_tpu_torch.tools import export_serve
 from few_shot_seg_cwt_tpu_torch.utils.convert import (cwt_state_dict_from_flax,
                                                       pspnet_state_dict_from_flax)
@@ -93,8 +94,7 @@ def test_operator_passes_opcheck(op):
 
 def test_operators_run_the_plain_versions_on_cpu_uncounted():
     rng = np.random.default_rng(4)
-    cuda_inner_loop.reset_launches()
-    cuda_pivot.reset_launches()
+    tracing.reset()
     f, pw, pwy, u0 = _loop_inputs(rng)
     torch.testing.assert_close(torch.ops.fss.adapt_binary(f, pw, pwy, u0, 4, 0.1),
                                cuda_inner_loop.adapt_binary_reference(f, pw, pwy, u0, 4, 0.1),
@@ -103,7 +103,7 @@ def test_operators_run_the_plain_versions_on_cpu_uncounted():
     torch.testing.assert_close(torch.ops.fss.pivot_fwd(x, wa, wb, bias, dims, True),
                                cuda_pivot.pivot_conv_flat_reference(x, wa, wb, bias, dims, True),
                                rtol=0, atol=0)
-    assert {**cuda_inner_loop.LAUNCHES, **cuda_pivot.LAUNCHES} == dict.fromkeys(
+    assert launch_counts() == dict.fromkeys(
         ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw"), 0)
 
 

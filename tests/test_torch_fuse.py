@@ -48,7 +48,7 @@ from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine, build_head
 from few_shot_seg_cwt_tpu_torch.models import fusion as tfu
 from few_shot_seg_cwt_tpu_torch.models.matching import MatchNet
 from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
-from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 from few_shot_seg_cwt_tpu_torch.tools import export_serve, serve_loaded
 from few_shot_seg_cwt_tpu_torch.train.train_head import init_frozen_match
 from few_shot_seg_cwt_tpu_torch.utils.convert import (fuse_state_dict_from_flax,
@@ -272,11 +272,11 @@ def test_fuse_eval_and_serve_match_jax(fuse_setup, route):
     no launch is counted on CPU tensors)."""
     teng = _port_engine(fuse_setup)
     batch, w0 = fuse_setup["batch"], torch.from_numpy(fuse_setup["w0"])
-    before = dict(cuda_pivot.LAUNCHES)
+    before = tracing.counts()
     got = teng.predict_batch(batch, w0=w0)
     metrics = teng.eval_metrics_batch(batch, w0=w0)
     masks = teng.serve_batch(batch, w0=w0)
-    assert cuda_pivot.LAUNCHES == before
+    assert tracing.counts() == before
     assert masks.shape == (E, SIZE, SIZE) and masks.dtype == torch.int32
     for i, (_, preds, _) in enumerate(fuse_setup["want"]):
         for key in ("pred1", "pred"):

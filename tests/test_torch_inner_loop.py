@@ -31,6 +31,7 @@ from few_shot_seg_cwt_tpu_torch.episodic.inner_loop import (
     support_loss,
 )
 from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_inner_loop
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 from few_shot_seg_cwt_tpu_torch.ops.losses import class_balance_weights
 from few_shot_seg_cwt_tpu_torch.ops.resize import interp_matrix_align_corners
 
@@ -150,9 +151,9 @@ def test_adapt_binary_checks_its_inputs_and_counts_no_cpu_launch():
     pw = torch.full((2, 1, 9, 9), 1.0 / 81)
     pwy = torch.zeros((2, 1, 9, 9))
     u0 = torch.zeros((2, 8))
-    before = cuda_inner_loop.LAUNCHES["adapt_binary"]
+    before = tracing.counts()["adapt_binary"]
     assert cuda_inner_loop.adapt_binary(f, pw, pwy, u0, 3, 0.1).shape == (2, 8)
-    assert cuda_inner_loop.LAUNCHES["adapt_binary"] == before  # plain path: no launch
+    assert tracing.counts()["adapt_binary"] == before  # plain path: no launch
     with pytest.raises(TypeError):
         cuda_inner_loop.adapt_binary(f.double(), pw, pwy, u0, 3, 0.1)
     with pytest.raises(ValueError):
@@ -253,10 +254,10 @@ def test_plain_adapt_binary_tiled_matches_pallas_tiled_kernel_interpret():
     ref = np.asarray(adapt_binary_pallas_tiled(
         jnp.asarray(f_s), jnp.asarray(pw), jnp.asarray(pwy), jnp.asarray(u0),
         num_steps=25, lr=0.1, tile=2, interpret=True))
-    before = dict(cuda_inner_loop.LAUNCHES)
+    before = tracing.counts()
     got = cuda_inner_loop.adapt_binary_tiled(
         *(torch.from_numpy(a) for a in (f_s, pw, pwy, u0)), 25, 0.1, 2).numpy()
-    assert cuda_inner_loop.LAUNCHES == before  # plain path: no launch
+    assert tracing.counts() == before  # plain path: no launch
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
     for i in range(4):
         for j in range(i):

@@ -43,7 +43,7 @@ from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine, build_match
 from few_shot_seg_cwt_tpu_torch.models.matching import MatchNet, NeighConsensus
 from few_shot_seg_cwt_tpu_torch.models.mmn import MMN
 from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
-from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 from few_shot_seg_cwt_tpu_torch.utils.convert import (matchnet_state_dict_from_flax,
                                                       mmn_state_dict_from_flax,
                                                       pspnet_state_dict_from_flax)
@@ -170,13 +170,13 @@ def matchnet_pair(request):
 @pytest.mark.parametrize("route", ["r4", "flat", "6d"], indirect=True)
 def test_matchnet_matches_jax(matchnet_pair, route):
     case, (fq, fs, v, s_mask, ig), want, _, port = matchnet_pair
-    before = dict(cuda_pivot.LAUNCHES)
+    before = tracing.counts()
     with torch.no_grad():
         got = port(torch.from_numpy(fq), torch.from_numpy(fs), torch.from_numpy(v),
                    s_mask=torch.from_numpy(s_mask).long(),
                    ig_mask=None if ig is None else torch.from_numpy(ig),
                    use_cyc=MATCH_CASES[case]["cyc"], deterministic=True, ret_corr=True)
-    assert cuda_pivot.LAUNCHES == before
+    assert tracing.counts() == before
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         _close(g.numpy(), w, 1e-4, 1e-4)

@@ -28,7 +28,7 @@ from few_shot_seg_cwt_tpu_torch.models.conv4d import CenterPivotConv4d
 from few_shot_seg_cwt_tpu_torch.models.matching import MatchNet
 from few_shot_seg_cwt_tpu_torch.models.mmn import MMN
 from few_shot_seg_cwt_tpu_torch.models.msm import WeightAverage
-from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 from few_shot_seg_cwt_tpu_torch.utils.convert import mmn_state_dict_from_flax
 
 torch.set_num_threads(1)
@@ -141,14 +141,14 @@ def test_neigh_consensus_symmetric_matches_jax_bqsc(consensus, route):
     """Symmetric stack = unswapped stack + role-swapped stack, no transposes,
     against the JAX rank-4 route."""
     xr, want, port = consensus
-    before = dict(cuda_pivot.LAUNCHES)
+    before = tracing.counts()
     with torch.no_grad():
         if route == "flat":
             x = torch.from_numpy(np.ascontiguousarray(xr.transpose(0, 3, 1, 2)))
             got = port.NeighConsensus(x, flat_dims=DIMS).permute(0, 2, 3, 1)
         else:
             got = port.NeighConsensus.bqsc(torch.from_numpy(xr), DIMS)
-    assert cuda_pivot.LAUNCHES == before            # CPU tensors: plain versions
+    assert tracing.counts() == before            # CPU tensors: plain versions
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 from few_shot_seg_cwt_tpu.ops.pallas_pivot import pivot_conv_flat as jax_pivot_vpu
 from few_shot_seg_cwt_tpu.ops.pallas_pivot_mxu import pivot_conv_flat_mxu as jax_pivot_mxu
 from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+from few_shot_seg_cwt_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -110,11 +111,11 @@ def test_cpu_tensors_never_reach_the_kernel_library(inputs, monkeypatch):
         raise AssertionError("kernel library loaded for CPU tensors")
 
     monkeypatch.setattr(cuda_pivot, "load_library", refuse)
-    before = dict(cuda_pivot.LAUNCHES)
+    before = tracing.counts()
     x, wa, wb, bias = _torch(inputs, grad=True)
     cuda_pivot.pivot_fwd(x, wa, wb, bias, DIMS, relu=True).sum().backward()
     assert x.grad is not None and wa.grad is not None
-    assert cuda_pivot.LAUNCHES == before
+    assert tracing.counts() == before
 
 
 def test_weight_gradient_plain_version_equals_autograd(inputs):

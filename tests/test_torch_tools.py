@@ -501,8 +501,9 @@ def test_parity_drill_end_to_end(tree, tmp_path):
 
 def test_serving_process_imports_only_ops(tmp_path):
     """``tools/serve_loaded.py`` in a fresh process runs a CWT artifact with
-    torch and the port's ``ops`` alone, and its masks are the exporting
-    engine's."""
+    torch and the port's ``ops`` alone (with the launch counters of
+    ``utils.tracing``, which ``ops`` imports), and its masks are the
+    exporting engine's."""
     from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
     from few_shot_seg_cwt_tpu_torch.episodic.engine import EpisodicEngine
     from few_shot_seg_cwt_tpu_torch.tools.export_serve import build_serve_export
@@ -522,7 +523,8 @@ def test_serving_process_imports_only_ops(tmp_path):
         capture_output=True, text=True, cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
         check=True)
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert {m.split(".")[1] for m in result["port_modules"] if "." in m} <= {"ops", "tools"}
+    assert {m.split(".")[1] for m in result["port_modules"] if "." in m} <= {"ops", "tools",
+                                                                              "utils"}
     assert set(result["launches"].values()) == {0}          # the CPU runs the plain versions
     assert torch.equal(torch.load(tmp_path / "out.pt", weights_only=True),
                        engine.serve_batch(ep, w0=w0))
