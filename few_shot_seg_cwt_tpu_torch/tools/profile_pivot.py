@@ -1,20 +1,26 @@
 """Time the centre-pivot kernels ``pivot_dw`` and ``pivot_fwd`` on the card.
 
-    python -m few_shot_seg_cwt_tpu_torch.tools.profile_pivot [--reps 10]
+    python -m few_shot_seg_cwt_tpu_torch.tools.profile_pivot [--reps 10] [--against PATH]
     python -m few_shot_seg_cwt_tpu_torch.tools.profile_pivot --fwd [--against PATH]
 
 At 473 px (60x60 query and support planes, one batch element), for each
-NeighConsensus block of the MMN head (Ci->Co 2->10, 10->10, 10->1), it
-prints ``pivot_dw``'s time and its plain version's (two cuDNN
-weight-gradient calls, TF32 off) by CUDA events (median after a warm-up),
-their ratio, the grid and shared memory of the launch, and the largest
-difference between the two. With ``--phases`` it also builds the kernel
-with ``-DFSS_PHASE_CLOCKS`` (thread 0 of each CTA adds the cycles of each
-phase of a step, up to the barrier that closes it) and prints the cycles a
-step and CTA per phase: issuing the next step's copies, waiting for this
-step's, splitting them into TF32 parts, the MMAs, staging a fresh run.
-Run it in two trees in one call (parent, change, change, parent) to compare
-two versions of the kernel on one card.
+NeighConsensus block of the MMN head (Ci->Co 2->10, 10->10, 10->1) and the
+match head's first (1->10), it prints ``pivot_dw``'s time and its plain
+version's (two cuDNN weight-gradient calls, TF32 off) by CUDA events
+(median after a warm-up), their ratio, the time's share of the bound, the
+launch (grid, shared memory, support rows a step, column and g slots), and
+the largest difference between the two. With ``--phases`` it also builds
+the kernel with ``-DFSS_PHASE_CLOCKS`` (one thread of each role adds the
+cycles of its phases) and prints the cycles a step and CTA of each: the MMA
+warps' wait on a landed stage, the producer's wait on an empty slot, the
+producer's issue of its copies, the MMAs with the TF32 split of their
+fragments; and the MMA warps' wait as a share of their step (wait + MMAs),
+which says how far the copies hide under the MMAs. The two roles run at
+once, so the four do not add up to a step.
+``--against PATH`` (a ``pivot.cu``, built here with the same flags, or a
+built library) also runs that library's ``fss_pivot_dw`` on the same
+inputs, in turns with this one (the other, this, this, the other): its
+time and the largest difference from this one's values.
 
 With ``--fwd`` it times ``pivot_fwd`` instead, at the six shapes the MMN
 path gives it at 473 px: the three blocks' forwards (ReLU on) and their dx
@@ -50,11 +56,10 @@ from ..ops import cuda_build, cuda_pivot
 from ..train.common import fp32_parity
 from .profile_inner_loop import cuda_ms
 
-BLOCKS = ((2, 10), (10, 10), (10, 1))
+BLOCKS = ((2, 10), (10, 10), (10, 1), (1, 10))
 DIMS = (60, 60, 60, 60)
 PHASE_DEFINES = ("-DFSS_PHASE_CLOCKS",)
-PHASES = ("issue next copies", "wait for copies", "split TF32", "MMAs",
-          "stage fresh run")
+PHASES = ("consumers' wait", "producer's wait", "producer's issue", "MMAs and split")
 FWD_PHASES = ("issue next copies", "wait for copies", "compute and store",
               "stage fresh run")
 # pivot_fwd's calls on the MMN path: (name, Ci, Co, the forward's ReLU); a
@@ -64,6 +69,18 @@ FWD_SHAPES = (("fwd 2->10", 2, 10, True), ("fwd 10->10", 10, 10, True),
               ("dx 10->10", 10, 10, False), ("dx 1->10", 1, 10, False))
 # H100 SXM data-sheet peaks, as chip_smoke.py takes them
 PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_HBM_BYTES = 67e12, 495e12, 3.35e12
+
+
+def dw_plan(ci: int, co: int) -> dict:
+    """pivot_dw's layout at DIMS: support rows a step, column and g slots,
+    threads a CTA, shared bytes a CTA."""
+    lib = cuda_pivot.load_library()
+    lib.fss_pivot_dw_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fss_pivot_dw_plan.restype = ctypes.c_size_t
+    out = (ctypes.c_int * 4)()
+    smem = lib.fss_pivot_dw_plan(ci, co, DIMS[3], ctypes.addressof(out))
+    return {"rows": out[0], "column_slots": out[1], "g_slots": out[2], "threads": out[3],
+            "smem": smem}
 
 
 def phase_cycles(x, g, reps: int):
@@ -83,12 +100,13 @@ def phase_cycles(x, g, reps: int):
         raise RuntimeError("fss_pivot_dw_phase_cycles failed")
     # the CTAs' sums over all steps of a launch: a step's cycles in the CTA
     # that ran it
-    steps = DIMS[0] * ((DIMS[2] + 1) // 2) * DIMS[1]          # qi, tile, qj
+    rows = dw_plan(x.shape[1], g.shape[1])["rows"]
+    steps = x.shape[0] * DIMS[0] * -(-DIMS[2] // rows) * DIMS[1]      # b, qi, tile, qj
     per_step = cycles.astype(np.float64) / reps / steps
-    total = per_step.sum()
+    wait, mma = per_step[0], per_step[3]
     return {"ms_with_clocks": ms, "same_bits": same,
             "cycles_per_step_and_cta": {n: float(c) for n, c in zip(PHASES, per_step)},
-            "share": {n: float(c / total) for n, c in zip(PHASES, per_step)}}
+            "consumers_wait_share": float(wait / (wait + mma))}
 
 
 def fwd_bounds(ci: int, co: int, q: int, s: int):
@@ -104,8 +122,9 @@ def fwd_bounds(ci: int, co: int, q: int, s: int):
 
 def load_against(path: str) -> ctypes.CDLL:
     """A second pivot library: ``path`` is a ``pivot.cu`` (built now with this
-    tree's nvcc flags) or a built ``.so``; only its ``fss_pivot_fwd`` is
-    bound (the C interface every version has had)."""
+    tree's nvcc flags) or a built ``.so``; its ``fss_pivot_fwd``,
+    ``fss_pivot_dw`` and ``fss_pivot_dw_blocks`` are bound (the C interface
+    every version has had)."""
     src = Path(path)
     if src.suffix == ".cu":
         src = cuda_build.build([(src.resolve(), "libfss_pivot_against", ())])[0]
@@ -113,7 +132,33 @@ def load_against(path: str) -> ctypes.CDLL:
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.fss_pivot_fwd.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.fss_pivot_fwd.restype = i
+    lib.fss_pivot_dw.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.fss_pivot_dw.restype = i
+    lib.fss_pivot_dw_blocks.argtypes = [i] * 7
+    lib.fss_pivot_dw_blocks.restype = i
     return lib
+
+
+def against_dw(against: ctypes.CDLL, x: torch.Tensor, g: torch.Tensor):
+    """The second library's pivot_dw on x and g at DIMS: a launch function
+    and the buffer its flat (dW, db) lands in."""
+    b, ci = x.shape[:2]
+    co = g.shape[1]
+    with torch.cuda.device(x.device):
+        blocks = against.fss_pivot_dw_blocks(b, ci, co, *DIMS)
+    if blocks < 1:
+        raise RuntimeError("the second library's pivot_dw takes no CTA")
+    partial = torch.empty((blocks, 18 * ci * co + co), device=x.device)
+    out = torch.empty((18 * ci * co + co,), device=x.device)
+
+    def launch():
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = against.fss_pivot_dw(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                                   out.data_ptr(), b, ci, co, *DIMS, blocks, stream)
+        if err != 0:
+            raise RuntimeError(f"the second library's pivot_dw failed ({err})")
+
+    return launch, out
 
 
 def fwd_plan(x: torch.Tensor, co: int) -> dict:
@@ -226,7 +271,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--phases", action="store_true", help="also the per-phase cycles")
     ap.add_argument("--fwd", action="store_true", help="time pivot_fwd, not pivot_dw")
-    ap.add_argument("--against", help="with --fwd: a second pivot.cu or built library")
+    ap.add_argument("--against", help="a second pivot.cu or built library to time in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_pivot: needs a CUDA device", file=sys.stderr)
@@ -235,8 +280,8 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    against = load_against(args.against) if args.against else None
     if args.fwd:
-        against = load_against(args.against) if args.against else None
         print(json.dumps({"card": card, "pivot_fwd": profile_fwd(args.reps, card, against,
                                                                  args.phases)}))
         return 0
@@ -251,24 +296,40 @@ def main(argv=None) -> int:
         got = cuda_pivot.pivot_dw(x, g, DIMS)
         want = cuda_pivot.pivot_dw_reference(x, g, DIMS)
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        ms = cuda_ms(lambda: cuda_pivot.pivot_dw(x, g, DIMS), args.reps)
-        plain_ms = cuda_ms(lambda: cuda_pivot.pivot_dw_reference(x, g, DIMS), args.reps)
+        dw = lambda: cuda_pivot.pivot_dw(x, g, DIMS)  # noqa: E731
         with torch.cuda.device(dev):
             grid = lib.fss_pivot_dw_blocks(1, ci, co, *DIMS)
-        row = {"block": f"{ci}->{co}", "ms": ms, "plain_ms": plain_ms,
-               "ratio": ms / plain_ms, "grid": grid,
-               "smem": lib.fss_pivot_dw_smem_bytes(ci, co, DIMS[3]),
-               "max_abs_diff_vs_plain": err}
-        print(f"pivot_dw {ci}->{co}: {ms:.3f} ms, plain (cuDNN wgrad) {plain_ms:.3f} ms, "
-              f"ratio {ms / plain_ms:.3f}; grid {grid}, {row['smem']} B shared; "
-              f"max|dw - dw_plain| {err:.3e} [{card}]")
+        row = {"block": f"{ci}->{co}", "grid": grid, "plan": dw_plan(ci, co),
+               "bound_ms": fwd_bounds(ci, co, q, s)[0], "max_abs_diff_vs_plain": err,
+               "scale": max(float(b.abs().max()) for b in want)}
+        if against is None:
+            row["ms_runs"] = [cuda_ms(dw, args.reps)]
+        else:   # in turns: the second library, this one, this one, the second
+            other, flat = against_dw(against, x, g)
+            other()
+            mine = torch.cat([got[0].reshape(-1), got[1].reshape(-1), got[2]])
+            row["max_abs_diff_vs_against"] = float((mine - flat).abs().max())
+            first = cuda_ms(other, args.reps)
+            row["ms_runs"] = [cuda_ms(dw, args.reps), cuda_ms(dw, args.reps)]
+            row["against_ms_runs"] = [first, cuda_ms(other, args.reps)]
+        ms = row["ms"] = statistics.median(row["ms_runs"])
+        row["plain_ms"] = plain_ms = cuda_ms(lambda: cuda_pivot.pivot_dw_reference(x, g, DIMS),
+                                             args.reps)
+        row["ratio"], row["share_of_bound"] = ms / plain_ms, row["bound_ms"] / ms
+        line = (f"pivot_dw {ci}->{co}: {ms:.3f} ms {row['ms_runs']}, plain (cuDNN wgrad) "
+                f"{plain_ms:.3f} ms, ratio {ms / plain_ms:.3f}; bound {row['bound_ms']:.3f} ms "
+                f"({row['share_of_bound']:.1%}); grid {grid}, plan {row['plan']}; "
+                f"max|dw - dw_plain| {err:.3e}")
+        if against is not None:
+            line += (f"; second library {row['against_ms_runs']} ms, max|dw - dw_second| "
+                     f"{row['max_abs_diff_vs_against']:.3e}")
+        print(line + f" [{card}]")
         if args.phases:
-            row["phases"] = phase_cycles(x, g, args.reps)
-            print(f"pivot_dw {ci}->{co} phases (cycles a step and CTA, share): " + "; ".join(
-                f"{n} {c:.0f} ({row['phases']['share'][n]:.1%})"
-                for n, c in row["phases"]["cycles_per_step_and_cta"].items())
-                + f"; {row['phases']['ms_with_clocks']:.3f} ms with clocks, same bits "
-                f"{row['phases']['same_bits']}")
+            row["phases"] = ph = phase_cycles(x, g, args.reps)
+            print(f"pivot_dw {ci}->{co} phases (cycles a step and CTA): " + "; ".join(
+                f"{n} {c:.0f}" for n, c in ph["cycles_per_step_and_cta"].items())
+                + f"; consumers' wait {ph['consumers_wait_share']:.1%} of their step; "
+                f"{ph['ms_with_clocks']:.3f} ms with clocks, same bits {ph['same_bits']}")
         rows.append(row)
         del x, g
         torch.cuda.empty_cache()

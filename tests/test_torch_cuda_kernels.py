@@ -269,6 +269,13 @@ def _pivot_grads(fn, x, wa, wb, bias, t, dims, relu, dtype=torch.float32):
     (1, 1, 10, (5, 7, 6, 11)),      # Ci = 1, Co = 10, ragged
     (2, 1, 10, (9, 11, 13, 7)),     # Ci = 1 -> 10 (the match head's first block), B = 2
     (1, 1, 10, (16, 16, 16, 16)),   # Ci = 1 -> 10, whole 8-wide support tiles
+    # shapes pivot_dw's pipeline can get wrong (its ring of column slots and
+    # g slots, filled by a producer warp, split and read by other warps)
+    (1, 3, 4, (20, 30, 20, 8)),     # ~14 steps a CTA: not a multiple of the ring's depth
+    (2, 3, 4, (12, 16, 10, 12)),    # B = 2: CTAs' runs cross from one episode to the next
+    (1, 10, 10, (7, 60, 9, 60)),    # 473 px's 10->10 layout: runs restart at qj = 0
+    (1, 10, 1, (30, 17, 11, 20)),   # the rest split mid-run; ws a multiple of 4, not 8
+    (2, 2, 10, (9, 13, 21, 6)),     # ragged ws: the producer's lanes copy, no TMA
 ] + [(1, 2, co, (3, 4, 3, 9)) for co in range(1, 11)])   # every Co
 @pytest.mark.parametrize("relu", [True, False])
 def test_pivot_kernels_match_plain(device, b, ci, co, dims, relu):
@@ -306,18 +313,47 @@ def test_pivot_kernels_match_plain(device, b, ci, co, dims, relu):
         assert err_k <= 4 * err_p + 2e-6 * float(w.abs().max()), (name, err_k, err_p)
 
 
-def test_pivot_dw_gives_the_same_bits_every_launch(device):
+@pytest.mark.parametrize("b,ci,co,dims", [
+    (1, 10, 10, (60, 60, 60, 60)),  # 473 px 10->10
+    (1, 2, 10, (60, 60, 60, 60)),   # 8 support rows a step
+    (2, 10, 1, (60, 60, 60, 60)),   # B = 2, five column slots
+    (1, 3, 4, (5, 6, 4, 7)),        # the producer's lanes copy
+])
+def test_pivot_dw_gives_the_same_bits_every_launch(device, b, ci, co, dims):
     """No atomics: a fixed grid, fixed work per CTA and fixed summation
     orders give equal bits from launch to launch."""
     from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
 
-    for ci, co, dims in ((10, 10, (60, 60, 60, 60)), (3, 4, (5, 6, 4, 7))):
-        x, _, _, _, t = _pivot_inputs(device, 1, ci, co, dims, seed=3)
-        first = cuda_pivot.pivot_dw(x, t, dims)
-        second = cuda_pivot.pivot_dw(x, t, dims)
-        torch.cuda.synchronize()
-        for a, b in zip(first, second):
-            assert torch.equal(a, b)
+    x, _, _, _, t = _pivot_inputs(device, b, ci, co, dims, seed=3)
+    first = cuda_pivot.pivot_dw(x, t, dims)
+    second = cuda_pivot.pivot_dw(x, t, dims)
+    torch.cuda.synchronize()
+    for one, two in zip(first, second):
+        assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("ci", [1, 2, 10, 42])
+@pytest.mark.parametrize("co", range(1, 11))
+def test_pivot_dw_matches_plain_at_every_ci_and_co(device, ci, co):
+    """pivot_dw alone (the forward's dx takes at most 10 output channels, so
+    Ci = 42 has no place in the pair's test) against an fp64 run, under the
+    pair's gradient limit: 4x the plain fp32 version's distance plus 2e-6
+    of the scale. Every layout the plan gives these widths at ws = 8."""
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
+
+    torch.backends.cudnn.allow_tf32 = False
+    dims = (6, 7, 5, 8)
+    x, _, _, _, t = _pivot_inputs(device, 1, ci, co, dims, seed=ci * 10 + co)
+    before = tracing.counts()["pivot_dw"]
+    got = cuda_pivot.pivot_dw(x, t, dims)
+    torch.cuda.synchronize()
+    assert tracing.counts()["pivot_dw"] == before + 1
+    plain = cuda_pivot.pivot_dw_reference(x, t, dims)
+    wide = cuda_pivot.pivot_dw_reference(x.double(), t.double(), dims)
+    for name, k, p, w in zip(("dwa", "dwb", "db"), got, plain, wide):
+        err_k = float((k.double() - w).abs().max())
+        err_p = float((p.double() - w).abs().max())
+        assert err_k <= 4 * err_p + 2e-6 * float(w.abs().max()), (name, err_k, err_p)
 
 
 def test_pivot_fwd_gives_the_same_bits_every_launch(device):
@@ -337,7 +373,9 @@ def test_pivot_fwd_gives_the_same_bits_every_launch(device):
 def test_pivot_dw_smem_query_agrees_with_the_wrappers_refusal(device):
     """The library's shared-memory query decides: a shape over a block's
     shared memory is refused before launch, one under it runs. The query
-    grows with ws and Ci; Ci over the library's limit is refused too."""
+    fills a block with as deep a layout as fits, so it is over only where
+    one support row a step does not fit; Ci over the library's limit is
+    refused too."""
     from few_shot_seg_cwt_tpu_torch.ops import cuda_pivot
 
     lib = cuda_pivot.load_library()
@@ -361,7 +399,8 @@ def test_pivot_dw_smem_query_agrees_with_the_wrappers_refusal(device):
                 assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6
             assert tracing.counts()["pivot_dw"] == before + 1
     assert seen == {True, False}
-    assert lib.fss_pivot_dw_smem_bytes(10, 10, 60) < lib.fss_pivot_dw_smem_bytes(10, 10, 200)
+    assert (lib.fss_pivot_dw_smem_bytes(10, 10, 60) <= cuda_pivot.MAX_SMEM_BYTES
+            < lib.fss_pivot_dw_smem_bytes(10, 1, 1000))
     ci = lib.fss_pivot_dw_max_ci() + 1
     x, _, _, _, t = _pivot_inputs(device, 1, ci, 1, (1, 1, 1, 8))
     with pytest.raises(ValueError, match="input"):

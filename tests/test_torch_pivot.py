@@ -36,7 +36,7 @@ torch.set_num_threads(1)
 
 DIMS = (5, 6, 4, 7)
 CI, CO, B = 3, 4, 2
-DW_ROWS = 2   # support rows in one step of the card's pivot_dw (csrc/pivot.cu)
+DW_ROWS = 8   # support rows in one step of the card's pivot_dw at ws = 7 (csrc/pivot_dw.cuh)
 JAX_FORMS = {"vpu": jax_pivot_vpu, "mxu": jax_pivot_mxu}
 
 
@@ -171,17 +171,26 @@ def test_kernel_source_and_build():
                 "fss_pivot_fwd_smem_bytes(", "fss_pivot_dw_smem_bytes(", "fss_pivot_fwd_plan(",
                 "fss_pivot_max_co(", "fss_pivot_dw_max_ci(", "fss_pivot_error_string("):
         assert sym in src, sym
-    # the forward's body is a header of its own, which the build hash covers
-    assert '#include "pivot_fwd.cuh"' in src
+    # each kernel's body is a header of its own, which the build hash covers
+    assert '#include "pivot_fwd.cuh"' in src and '#include "pivot_dw.cuh"' in src
     fwd = cuda_build.CSRC.joinpath("pivot_fwd.cuh").read_text()
-    for text in (src, fwd):
+    dw = cuda_build.CSRC.joinpath("pivot_dw.cuh").read_text()
+    for text in (src, fwd, dw):
         assert "atomicAdd" not in text and "atomicCAS" not in text
     # the weight gradient runs on the tensor cores, split in 3xTF32 form
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
     assert "cvt.rna.tf32.f32" in src
-    assert "wgmma.mma_async" not in src                                 # no wgmma
-    # the forward stages its query window by TMA bulk copies on mbarriers
+    assert "wgmma.mma_async" not in src + dw                            # no wgmma
+    assert "mma_tf32(" in dw and "split_tf32(" in dw
+    # both kernels stage by TMA bulk copies that complete on mbarriers
     assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
+    for text in (fwd, dw):
+        assert "bulk_copy_g2s(" in text and "mbar_wait(" in text
+    # the weight gradient is a pipeline: its producer and MMA warps hand
+    # stages on by full and empty mbarriers, not by barriers of the whole
+    # CTA in its step loop (the kernel's two __syncthreads open it)
+    assert "mbar_wait(full" in dw and "mbar_arrive(empty" in dw
+    assert dw.count("__syncthreads()") == 2
     path = cuda_build.library_path(*cuda_pivot.build_spec())
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
 
