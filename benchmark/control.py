@@ -6,8 +6,8 @@ the configurations' fp32 with TF32 off). Not part of a benchmark run.
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3 --seconds 3
 
 One JSON line a seed: {"seed", "program": {reading: value}, "control": ...};
-``--control 0`` reads the program alone; ``--fault <name>`` plants a fault
-of ``harness/faults.py`` in the program first.
+``--control 0`` reads the program alone; ``--fault <name>`` plants one of
+the cell's faults (``faults/<cell>.py``) in the program first.
 """
 
 from __future__ import annotations
@@ -30,21 +30,22 @@ def main() -> int:
     ap.add_argument("--fault", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
-    from benchmark.harness.spec import load_cell
+    from benchmark.harness.spec import fault, load_cell
 
     cell = load_cell(args.workload)
+    planted = fault(cell, args.fault) if args.fault else None
     os.environ.update(cell.config.get("env", {}))
     import random
 
     import torch
 
-    from benchmark.harness import ddp, faults, runner
+    from benchmark.harness import ddp, runner
 
     if not torch.cuda.is_available():
         print("control.py reads the card", file=sys.stderr)
         return 2
-    if args.fault:
-        getattr(faults, args.fault)(setattr)
+    if planted is not None:
+        planted(setattr)
         os.environ[ddp.FAULT_ENV] = args.fault        # and in every other rank
     for seed in (int(s) for s in args.seeds.split(",")):
         drv, ctx, state = runner.prepare(cell, seed, "cuda")

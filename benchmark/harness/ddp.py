@@ -32,7 +32,7 @@ from .spec import ROOT
 
 GO, STOP, TRACE, END = 1, 2, 3, 4
 RANK_KEYS = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-# a fault of ``faults.py`` that every rank plants (tests and control.py)
+# the name of a fault of the cell that every rank plants (tests and control.py)
 FAULT_ENV = "BENCHMARK_FAULT"
 
 
@@ -109,13 +109,13 @@ def worker(cell_name: str, seed: int, device: str, shrink, bench_json: str,
     """Rank r: join the group, set up as rank 0 does, follow its messages."""
     from few_shot_seg_cwt_tpu_torch.parallel.mesh import distributed_init
 
-    from . import faults, runner, trace
-    from .spec import load_cell
+    from . import runner, trace
+    from .spec import fault, load_cell
 
     cell = load_cell(cell_name, Path(bench_json), Path(bench_dir))
     os.environ.update(cell.config.get("env", {}))
     if os.environ.get(FAULT_ENV):
-        getattr(faults, os.environ[FAULT_ENV])(setattr)
+        fault(cell, os.environ[FAULT_ENV])(setattr)
     if device == "cuda":                   # this rank's card
         device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
     distributed_init(device=device)

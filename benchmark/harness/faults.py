@@ -1,7 +1,9 @@
 """Faults planted in the program under test, for the tests and for
 ``control.py``: each breaks the timed path where it produces its result,
 so the cell's comparison must come out not correct. Each takes ``setattr``
-(``monkeypatch.setattr`` in a test, a recording one in ``control.py``)."""
+(``monkeypatch.setattr`` in a test, a recording one in ``control.py``).
+The faults a cell can have are listed in ``faults/<cell>.py``; these are
+the ones several cells share."""
 
 from __future__ import annotations
 
@@ -90,11 +92,3 @@ def ddp_exchange_left_out(setattr):
     from few_shot_seg_cwt_tpu_torch.episodic import heads
 
     setattr(heads, "all_reduce_grads", lambda params: 0)
-
-
-# the faults each cell can have
-BY_CELL = {"cwt-eval-b8": [eval_answer_altered, eval_half_batch],
-           "cwt-serve-c1": [serve_answer_altered],
-           "mmn-train-b2": [train_state_unchanged, train_half_batch,
-                            train_update_skipped_once_warm],
-           "mmn-ddp4-train": [train_state_unchanged, train_half_batch, ddp_exchange_left_out]}

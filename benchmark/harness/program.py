@@ -27,14 +27,16 @@ def tf32_off() -> None:
 
 def port_cfg(config: Dict, shrink: Optional[Tuple[int, int]] = None):
     """The program's configuration: its defaults with the file's keys set.
-    ``shrink`` (image size, inner steps) is for the CPU tests alone."""
+    ``shrink`` (image size, inner steps) is for the CPU tests alone; a
+    configuration file that states ``cpu_image_size``, the smallest image
+    its model takes, gives that size in place of the shrink's."""
     from few_shot_seg_cwt_tpu_torch.config import default_cfg
 
     cfg = default_cfg()
     for key, value in config["keys"].items():
         setattr(cfg, key, value)
     if shrink is not None:
-        cfg.image_size, cfg.adapt_iter = shrink
+        cfg.image_size, cfg.adapt_iter = config.get("cpu_image_size", shrink[0]), shrink[1]
     return cfg
 
 

@@ -6,14 +6,13 @@ named ``fss/<phase>`` (``few_shot_seg_cwt_tpu_torch/utils/tracing.py``):
 inside them ``fss/stage``, ``fss/features``, ``fss/inner_loop``,
 ``fss/transform``, ``fss/tail``, ``fss/prologue``, ``fss/head_forward``,
 ``fss/head_backward``, ``fss/optimizer`` and ``fss/consensus`` (the last
-also on autograd's thread). A reader here takes a ``Trace`` whose
-``spans`` hold them under their full names, and works on the union of the
+also on autograd's thread). ``trace.parse`` keeps them in ``Trace.spans``
+under their full names. A reader here works on the union of the
 host intervals of several named spans, so that a nested or repeated span
 counts once. The host intervals and the device operations come from one
 trace on one clock: each reading is arithmetic over intervals measured
 together. Where the trace holds none of the named spans (a program without
-them, or a trace that keeps only the benchmark's own spans) a reader
-returns None.
+them) a reader returns None.
 """
 
 from __future__ import annotations

@@ -2,9 +2,11 @@
 
 A cell names its configuration (``configs/<config>.json``) and its traffic
 mix (``traffic/<traffic>.json``, which names its driver,
-``drivers/<driver>.py``); its comparison limits are ``limits/<cell>.json``
-and each per-layer metric is read by ``metrics/<metric>.py``. A later cell,
-mix or metric is new files and entries; no file here changes for it.
+``drivers/<driver>.py``); its comparison limits are ``limits/<cell>.json``,
+the faults it can have are ``faults/<cell>.py`` (its ``FAULTS``, functions
+defined there or taken from ``harness/faults.py``), and each per-layer
+metric is read by ``metrics/<metric>.py``. A later cell, mix or metric is
+new files and entries; no file here changes for it.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -76,3 +78,18 @@ def driver(cell: Cell) -> ModuleType:
 
 def metric_reader(cell: Cell, name: str) -> ModuleType:
     return load_module(cell.bench_dir / "metrics" / f"{name}.py")
+
+
+def fault(cell: Cell, name: str) -> Callable:
+    """The fault called ``name`` among the cell's (``faults/<cell>.py``)."""
+    found = {f.__name__: f
+             for f in load_module(cell.bench_dir / "faults" / f"{cell.name}.py").FAULTS}
+    if name not in found:
+        raise SystemExit(f"{cell.name} has no fault {name!r}: one of {sorted(found)}")
+    return found[name]
+
+
+def faults_by_cell(bench_dir: Path = BENCH_DIR) -> Dict[str, List[Callable]]:
+    """{cell: its faults} over every file under ``faults/``."""
+    return {p.stem: list(load_module(p).FAULTS)
+            for p in sorted((bench_dir / "faults").glob("*.py"))}

@@ -3,8 +3,10 @@ items, and the reduction of its trace to what the per-layer metrics read.
 
 The profiler's Chrome trace goes to a file in ``TMPDIR``, is read back and
 deleted. From it: every device operation (kernel, copy, set) with its
-interval; the host time of each launch (by its correlation id); and the
-benchmark's ``bench::`` spans. A kernel belongs to a span when the host
+interval; the host time of each launch (by its correlation id); the
+benchmark's ``bench::`` spans, under their names without the prefix; and the
+program's own ``fss/`` spans, under their full names, so that neither set
+can take the other's name. A kernel belongs to a span when the host
 launched it inside the span's interval.
 """
 
@@ -23,6 +25,8 @@ import torch
 
 from .spans import PREFIX
 
+# the prefix of the program's spans (few_shot_seg_cwt_tpu_torch/utils/tracing.py)
+PROGRAM_PREFIX = "fss/"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
@@ -30,7 +34,8 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 @dataclass
 class Trace:
     """Device operations (name, start us, end us, launch us or None) and
-    spans {layer: [(start us, end us)]} of one traced window."""
+    spans {layer: [(start us, end us)]} of one traced window: the
+    benchmark's by their layer, the program's by their ``fss/`` names."""
     window_s: float
     items: int
     ops: List[Tuple[str, float, float, Optional[float]]] = field(default_factory=list)
@@ -151,10 +156,11 @@ def parse(events: List[Dict], window_s: float, items: int) -> Trace:
             s = float(ev["ts"])
             corr = ev.get("args", {}).get("correlation")
             out.ops.append((ev["name"], s, s + float(ev.get("dur", 0.0)), launches.get(corr)))
-        elif cat == "user_annotation" and ev["name"].startswith(PREFIX):
+        elif cat == "user_annotation" and ev["name"].startswith((PREFIX, PROGRAM_PREFIX)):
+            name = ev["name"]
             s = float(ev["ts"])
-            out.spans.setdefault(ev["name"][len(PREFIX):], []).append(
-                (s, s + float(ev.get("dur", 0.0))))
+            out.spans.setdefault(name[len(PREFIX):] if name.startswith(PREFIX) else name,
+                                 []).append((s, s + float(ev.get("dur", 0.0))))
     return out
 
 

@@ -1,0 +1,9 @@
+"""Device idle ms per evaluation batch while the host is inside the
+program's transform or tail (fss/transform: EpisodicEngine._predict;
+fss/tail: metrics_from_predictions), in the traced window."""
+
+from benchmark.harness import program_readers
+
+
+def read(view):
+    return program_readers.idle_ms_within(view, ("fss/transform", "fss/tail"))

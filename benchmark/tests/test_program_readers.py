@@ -95,3 +95,34 @@ def test_parse_keeps_the_benchmark_spans_whatever_the_program_adds():
     beside = trace.parse(events + program, 100e-6, 2)
     assert alone.ops == beside.ops == [("k1", 10.0, 20.0, 5.0)]
     assert beside.spans["backbone"] == alone.spans["backbone"] == [(4.0, 21.0)]
+
+
+def test_parse_keeps_bench_spans_stripped_and_program_spans_whole():
+    """``bench::`` spans under their names without the prefix, ``fss/``
+    spans under their full names, other annotations (a user's range, the
+    device-side copy of a range) dropped; the program's spans then feed
+    its readers and name the idle gap before the kernel launched in them."""
+    events = [{"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 5.0,
+               "dur": 1.0, "args": {"correlation": 1}},
+              {"ph": "X", "cat": "kernel", "name": "k1", "ts": 10.0, "dur": 10.0,
+               "args": {"correlation": 1}},
+              {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 52.0,
+               "dur": 1.0, "args": {"correlation": 2}},
+              {"ph": "X", "cat": "kernel", "name": "k2", "ts": 60.0, "dur": 10.0,
+               "args": {"correlation": 2}},
+              {"ph": "X", "cat": "user_annotation", "name": "bench::backbone", "ts": 4.0,
+               "dur": 17.0},
+              {"ph": "X", "cat": "user_annotation", "name": "fss/tail", "ts": 50.0, "dur": 15.0},
+              {"ph": "X", "cat": "user_annotation", "name": "fss/tail", "ts": 20.0, "dur": 15.0},
+              {"ph": "X", "cat": "user_annotation", "name": "my_range", "ts": 0.0, "dur": 90.0},
+              {"ph": "X", "cat": "gpu_user_annotation", "name": "fss/tail", "ts": 60.0,
+               "dur": 10.0},
+              {"ph": "i", "cat": "user_annotation", "name": "fss/stage", "ts": 1.0}]
+    tr = trace.parse(events, 100e-6, 2)
+    assert tr.ops == [("k1", 10.0, 20.0, 5.0), ("k2", 60.0, 70.0, 52.0)]
+    assert tr.spans == {"backbone": [(4.0, 21.0)], "fss/tail": [(50.0, 65.0), (20.0, 35.0)]}
+    view = runner.Readout(device=torch.device("cuda"), trace=tr, host={}, work={})
+    assert pr.device_ms_within(view, ("fss/tail",)) == pytest.approx(10e-3 / 2)
+    assert pr.idle_ms_within(view, ("fss/tail",)) == pytest.approx(25e-3 / 2)
+    assert readers.span_ms_per_call(view, "backbone") == pytest.approx(10e-3)
+    assert tr.breakdown()["idle_gaps"] == [["before k2 (fss/tail)", pytest.approx(40e-6)]]
