@@ -21,7 +21,10 @@ The 4D and 6D convolutions are cuDNN convolutions (the JAX package's are
 XLA ops, outside any Pallas kernel). Parameter names follow the flax tree:
 ``scale_conv_{i}.weight``, ``chm6d.param_{i}``, ``chm6d.bias``,
 ``chm4d.weight``, ``chm4d.bias``. Initialisers are the JAX package's, drawn
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator``. ``CHMLearner.forward`` runs its phases
+inside spans of ``utils.tracing``: ``chm_corr`` (scale convs, correlations,
+4D resizes), ``chm6d``, ``chm_pool`` (sigmoid, scale max-pool, 4D upsample),
+``chm4d`` and ``chm_readout`` (softplus, mutual filter, readout).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 
 from ..ops.corr import masked_attention_readout, mutual_nn_filter
 from ..ops.resize import upsample_bilinear_ac
+from ..utils.tracing import span
 from .conv4d import conv4d
 
 SCALES = (0.5, 1.0, 2.0)
@@ -82,14 +86,22 @@ def _group_index(groups, ksz: int) -> np.ndarray:
     return gid
 
 
-def _spread_weights(weights: torch.Tensor, groups, ksz: int,
+def _register_groups(module: nn.Module, groups, ksz: int) -> None:
+    """The group of every kernel entry and each group's size as buffers
+    that move with the module: made on the host at each call, each would be
+    a copy from pageable memory that waits for the device's queue."""
+    module.register_buffer("group_index", torch.as_tensor(_group_index(groups, ksz)),
+                           persistent=False)
+    module.register_buffer("group_sizes", torch.tensor([float(len(g)) for g in groups]),
+                           persistent=False)
+
+
+def _spread_weights(weights: torch.Tensor, index: torch.Tensor, sizes: torch.Tensor,
                     extra_div: float = 1.0) -> torch.Tensor:
     """(n_groups,) -> (ksz^4,) kernel with w / (len(group) * extra_div) per
-    entry."""
-    denom = torch.tensor([len(g) * extra_div for g in groups], dtype=weights.dtype,
-                         device=weights.device)
-    gid = torch.as_tensor(_group_index(groups, ksz), device=weights.device)
-    return (weights / denom)[gid]
+    entry; ``index`` is the group of every entry, ``sizes`` each group's
+    size (``_register_groups``)."""
+    return (weights / (sizes.to(weights.dtype) * extra_div))[index]
 
 
 def _shared_weight_init(groups, n_scale: int, generator) -> torch.Tensor:
@@ -117,6 +129,7 @@ class CHM4d(nn.Module):
             self.weight = nn.Parameter(torch.randn(ksz**4, generator=generator).abs())
         else:
             self.weight = nn.Parameter(_shared_weight_init(self.groups, 1, generator))
+            _register_groups(self, self.groups, ksz)
         if use_bias:
             # shared kernels keep _ConvNd's uniform bias, the full kernel a
             # zero bias (base/chm.py:109-112)
@@ -127,7 +140,7 @@ class CHM4d(nn.Module):
 
     def kernel(self) -> torch.Tensor:
         flat = (self.weight if self.groups is None
-                else _spread_weights(self.weight, self.groups, self.ksz))
+                else _spread_weights(self.weight, self.group_index, self.group_sizes))
         return flat.reshape((self.ksz,) * 4 + (1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -177,18 +190,23 @@ class CHM6d(nn.Module):
                 _shared_weight_init(self.groups, len(sg), generator)))
         # torch _ConvNd bias bound, fan_in = 3 * 3 * 5**4 (as JAX hard-codes it)
         self.bias = nn.Parameter(_uniform((), 1.0 / math.sqrt(3 * 3 * 5**4), generator))
+        _register_groups(self, self.groups, ksz4d)
+        n = len(SCALES)
+        self.register_buffer("scale_mix", torch.as_tensor(_scale_mix_index(n, n, ksz6d)),
+                             persistent=False)
 
     def channel_kernel(self, nsp_side: Tuple[int, int]) -> torch.Tensor:
         """The block-sparse (k, k, k, k, s1*s2, s1*s2) kernel of the one conv4d."""
         k4 = self.ksz4d
         blocks = [None] * (self.ksz6d * self.ksz6d)
         for i, sg in enumerate(self.scale_groups):
-            spread = _spread_weights(getattr(self, f"param_{i}"), self.groups, k4,
-                                     extra_div=len(sg))
+            spread = _spread_weights(getattr(self, f"param_{i}"), self.group_index,
+                                     self.group_sizes, extra_div=len(sg))
             for j in sg:
                 blocks[j] = spread
         k6 = torch.stack(blocks + [torch.zeros_like(blocks[0])])   # (ksz6d^2 + 1, k^4)
-        idx = torch.as_tensor(_scale_mix_index(*nsp_side, self.ksz6d), device=k6.device)
+        idx = (self.scale_mix if tuple(nsp_side) == (len(SCALES),) * 2
+               else torch.as_tensor(_scale_mix_index(*nsp_side, self.ksz6d), device=k6.device))
         kch = k6[idx]                                              # (nsp, nsp, k^4)
         nsp = idx.shape[0]
         return kch.permute(2, 0, 1).reshape((k4,) * 4 + (nsp, nsp))
@@ -270,14 +288,20 @@ class CHMLearner(nn.Module):
     def forward(self, src_feat: torch.Tensor, trg_feat: torch.Tensor, v: torch.Tensor,
                 ig_mask: Optional[torch.Tensor] = None, ret_corr: bool = False):
         convs = [getattr(self, f"scale_conv_{i}") for i in range(len(SCALES))]
-        corr = build_correlation6d(src_feat, trg_feat, SCALES, convs)
+        with span("chm_corr"):
+            corr = build_correlation6d(src_feat, trg_feat, SCALES, convs)
         b, s, _, h, w = corr.shape[:5]
-        corr = torch.sigmoid(self.chm6d(corr))
-        corr = torch.amax(corr.reshape(b, s * s, h, w, h, w), dim=1)   # scale max-pool
-        corr = interpolate4d(corr, h * 2)
-        corr = self.chm4d(corr.reshape(b, 2 * h, 2 * w, 2 * h, 2 * w, 1))[..., 0]
-        n = (2 * h) * (2 * w)
-        corr2d = mutual_nn_filter(F.softplus(corr).reshape(b, n, n))
-        out = masked_attention_readout(corr2d, v, temp=self.temp, ig_mask=ig_mask)
-        out = out.reshape(b, 2 * h, 2 * w, -1)
+        with span("chm6d"):
+            corr = self.chm6d(corr)
+        with span("chm_pool"):
+            corr = torch.sigmoid(corr)
+            corr = torch.amax(corr.reshape(b, s * s, h, w, h, w), dim=1)   # scale max-pool
+            corr = interpolate4d(corr, h * 2)
+        with span("chm4d"):
+            corr = self.chm4d(corr.reshape(b, 2 * h, 2 * w, 2 * h, 2 * w, 1))[..., 0]
+        with span("chm_readout"):
+            n = (2 * h) * (2 * w)
+            corr2d = mutual_nn_filter(F.softplus(corr).reshape(b, n, n))
+            out = masked_attention_readout(corr2d, v, temp=self.temp, ig_mask=ig_mask)
+            out = out.reshape(b, 2 * h, 2 * w, -1)
         return (out, corr2d) if ret_corr else out

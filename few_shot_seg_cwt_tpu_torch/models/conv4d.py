@@ -64,7 +64,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda_pivot import pivot_fwd, pivot_impl, pivot_kernel_available
 from ..ops.quant import fake_quant, ncons_int8_mode, qconv2d
-from ..utils.tracing import span
+from ..utils.tracing import count, span
 
 
 def init_conv_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -367,10 +367,13 @@ def conv4d(x: torch.Tensor, kernel: torch.Tensor,
 
     x (B, h, w, hs, ws, Ci); kernel (k0, k1, k2, k3, Ci, Co); odd kernels
     only. The route is ``conv4d_im2col_mode()``; all four compute the same
-    function (the reference's looped conv3d, src/model/conv4d.py:65-106)."""
+    function (the reference's looped conv3d, src/model/conv4d.py:65-106).
+    Each call adds 1 to the counter ``conv4d_<route>`` (``utils.tracing``),
+    so ``ops.launch_counts("conv4d_q", ...)`` shows the route a run took."""
     if any(k % 2 != 1 for k in kernel.shape[:4]):
         raise ValueError(f"conv4d supports odd kernels only, got {tuple(kernel.shape[:4])}")
     mode = conv4d_im2col_mode()
+    count(f"conv4d_{mode}")
     dtype = _promote(x, kernel)
     x, kernel = x.to(dtype), kernel.to(dtype)
     if mode == "gemm":

@@ -60,8 +60,9 @@ def adaptive_pool_matrix(out_size: int, in_size: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
-def _sep_apply(x: torch.Tensor, m_h: np.ndarray, m_w: np.ndarray) -> torch.Tensor:
-    """Apply separable row/col matrices to NHWC (or HWC / HW) input."""
+def _sep_apply(x: torch.Tensor, m_h, m_w) -> torch.Tensor:
+    """Apply separable row/col matrices (arrays, or tensors of ``x``'s dtype
+    and device) to NHWC (or HWC / HW) input."""
     mh = torch.as_tensor(m_h, dtype=x.dtype, device=x.device)
     mw = torch.as_tensor(m_w, dtype=x.dtype, device=x.device)
     if x.ndim == 2:  # (H, W)
@@ -75,22 +76,38 @@ def _sep_apply(x: torch.Tensor, m_h: np.ndarray, m_w: np.ndarray) -> torch.Tenso
     raise ValueError(f"unsupported rank {x.ndim}")
 
 
+@functools.lru_cache(maxsize=None)
+def _device_matrix(kind, out_size: int, in_size: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """``kind(out_size, in_size)`` as a tensor on ``device``, made once and
+    shared: do not write to it."""
+    return torch.as_tensor(kind(out_size, in_size), dtype=dtype, device=device)
+
+
+def _matrices(kind, x: torch.Tensor, out_hw: Tuple[int, int]):
+    """The row and column matrices ``kind`` takes ``x``'s two spatial dims
+    to ``out_hw`` by. A plain tensor gets them from a per-device cache: a
+    copy from pageable host memory waits for the device's queue to drain,
+    so making them at every call stalls the host at every resize. A traced
+    tensor (a ``torch.export`` fake) gets the host arrays, made into
+    constants of the trace."""
+    (out_h, out_w), h_in, w_in = out_hw, x.shape[-3], x.shape[-2]
+    if type(x) is torch.Tensor:
+        return (_device_matrix(kind, out_h, h_in, x.dtype, x.device),
+                _device_matrix(kind, out_w, w_in, x.dtype, x.device))
+    return kind(out_h, h_in), kind(out_w, w_in)
+
+
 def upsample_bilinear_ac(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear align_corners=True resize over the two spatial dims of NHWC."""
-    h_in, w_in = x.shape[-3], x.shape[-2]
-    out_h, out_w = out_hw
-    if (h_in, w_in) == (out_h, out_w):
+    if (x.shape[-3], x.shape[-2]) == tuple(out_hw):
         return x
-    return _sep_apply(x, interp_matrix_align_corners(out_h, h_in),
-                      interp_matrix_align_corners(out_w, w_in))
+    return _sep_apply(x, *_matrices(interp_matrix_align_corners, x, out_hw))
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """nn.AdaptiveAvgPool2d over the two spatial dims of NHWC input."""
-    h_in, w_in = x.shape[-3], x.shape[-2]
-    out_h, out_w = out_hw
-    return _sep_apply(x, adaptive_pool_matrix(out_h, h_in),
-                      adaptive_pool_matrix(out_w, w_in))
+    return _sep_apply(x, *_matrices(adaptive_pool_matrix, x, out_hw))
 
 
 def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -176,7 +176,10 @@ def test_matchnet_matches_jax(matchnet_pair, route):
                    s_mask=torch.from_numpy(s_mask).long(),
                    ig_mask=None if ig is None else torch.from_numpy(ig),
                    use_cyc=MATCH_CASES[case]["cyc"], deterministic=True, ret_corr=True)
-    assert tracing.counts() == before
+    # CPU tensors run the plain versions: no kernel counts a launch; the one
+    # counter that may move is the true 4D conv's route (``conv4d_<route>``)
+    moved = tracing.counts() - before
+    assert set(moved) <= {"conv4d_q", "conv4d_qp", "conv4d_gemm", "conv4d_loop"}, moved
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         _close(g.numpy(), w, 1e-4, 1e-4)
