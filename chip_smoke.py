@@ -573,6 +573,62 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=PIVOT_BLOCK
 
 
 @torch.no_grad()
+def hough_phase(cuda_hough, cuda_ms, card):
+    """The Hough kernel at the CHM head's 473 px shapes, CHM4d (1 -> 1 on
+    60^4) and CHM6d (9 -> 9 on 30^4, CHM6d's block-sparse kernel on its
+    channel-major view): within 1e-5 of the scale of route q in fp64; its
+    bare launch beside the ``fss::hough4d`` operator, the plain version, and
+    route q's cuDNN convs (``library_ms``: the path the kernel replaced),
+    against the bound (the taps inside the volume at fp32's peak)."""
+    from few_shot_seg_cwt_tpu_torch.models.chm import CHM4d, CHM6d
+    from few_shot_seg_cwt_tpu_torch.models.conv4d import _conv4d_im2col
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(24)
+    lib = cuda_hough.load_library()
+    out = {}
+    for name, side, module in (("chm4d", FEAT, CHM4d(generator=gen)),
+                               ("chm6d", FEAT // 2, CHM6d(generator=gen))):
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+        if name == "chm4d":
+            k, ci = module.kernel(), 1
+            x = torch.rand((1,) + (side,) * 4 + (1,), generator=gen)
+        else:
+            k, ci = module.channel_kernel((3, 3)), 9
+            x = torch.rand((1, 9) + (side,) * 4, generator=gen).permute(0, 2, 3, 4, 5, 1)
+        k, x = (0.05 * k / k.abs().max()).to(dev), x.to(dev)
+        bias = module.bias.to(dev)
+        want = _conv4d_im2col(x.double(), k.double(), False) + bias.double()
+        got = cuda_hough.hough4d(x, k, bias)
+        torch.cuda.synchronize()
+        err = float((got.double() - want).abs().max())
+        scale = float(want.abs().max())
+        del want
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"hough4d {name}: max|y - y64| {err:.3e} over 1e-5 of the "
+                                 f"scale {scale:.3e}")
+        t = launch_and_op_ms(lambda: cuda_hough.launch(lib, x, k, bias),
+                             lambda: cuda_hough.hough4d(x, k, bias))
+        plain_ms = cuda_ms(lambda: cuda_hough.hough4d_reference(x, k, bias), 3)
+        library_ms = cuda_ms(lambda: _conv4d_im2col(x, k, False) + bias, 5)
+        links = int((k != 0).reshape(-1, ci, ci).any(0).sum())
+        flops, nbytes = cuda_hough.hough4d_work(tuple(x.shape), ci, links)
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"hough4d {name} ({ci}->{ci} on {side}^4, {links} links): {t['ms']:.3f} ms "
+              f"(op {t['op_ms']:.3f}), plain {plain_ms:.3f} ms, route q's cuDNN convs "
+              f"(library_ms) {library_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+              f"{flops / 1e9:.2f} GFLOP / 67 TFLOP/s, {nbytes / 1e9:.3f} GB / 3.35 TB/s), "
+              f"{b_ms / t['ms']:.1%} of it; max|y - y64| {err:.3e} (scale {scale:.3e}); "
+              f"{dispatch_text(t)} [{card}]")
+        out[name] = dict(err=err, ms=t["ms"], t=t, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        del x, got
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
 def calibrate_blocks(consensus, x):
     """Set each block's bias of ``consensus`` so that half of its outputs on
     the flat volume ``x`` (after mutual matching) are positive (median
@@ -661,7 +717,8 @@ def device_profile(fn, label, card, groups=()):
         return
     patterns = (("K1 adapt_binary", "adapt_binary_kernel"),
                 ("K2 adapt_binary_tiled", "adapt_binary_tiled_kernel"),
-                ("pivot_fwd", "pivot_fwd_kernel"), ("pivot_dw", "pivot_dw_"))
+                ("pivot_fwd", "pivot_fwd_kernel"), ("pivot_dw", "pivot_dw_"),
+                ("hough4d", "hough4d_kernel"))
     ours = {name: sum(v for k, v in ms.items() if pat in k) for name, pat in patterns}
     others = sorted(((v, k) for k, v in ms.items()
                      if not any(pat in k for _, pat in patterns)), reverse=True)[:6]
@@ -1173,7 +1230,9 @@ def chm_phase(card, calib_images, modules):
     ``rmid mid4``, ktype psi, fp32): on each ``FSS_CONV4D_IM2COL`` route
     (q, the default, then qp, gemm and loop) eval + serve of E_MMN and a
     train step of 2 (the whole-loss checkpoint on, CHM's default), counted
-    (K1 must launch, no pivot kernel), episodes/s and peak GiB of each;
+    (K1 must launch, no pivot kernel; hough4d twice an episode in eval and
+    serve on route q, never in the train step or on another route),
+    episodes/s and peak GiB of each;
     predictions within 1e-4 of the q route's scale and gradients within
     1e-3 of each tensor's largest entry of the q route's."""
     (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
@@ -1195,9 +1254,12 @@ def chm_phase(card, calib_images, modules):
         with env_var("FSS_CONV4D_IM2COL", route):
             r = head_route_run(engine, episodes, w0, 2, 1)
         for key in ("eval_launches", "train_launches"):
-            if r[key]["adapt_binary"] < 1 or r[key]["pivot_fwd"] + r[key]["pivot_dw"]:
+            # eval + serve run CHM6d and CHM4d once an episode each, without autograd
+            hough = 4 * E_MMN if route == "q" and key == "eval_launches" else 0
+            if r[key]["adapt_binary"] < 1 or r[key]["pivot_fwd"] + r[key]["pivot_dw"] \
+                    or r[key]["hough4d"] != hough:
                 raise AssertionError(f"CHM {route} route {key} {r[key]}: K1 must launch, no "
-                                     "pivot kernel")
+                                     f"pivot kernel, hough4d {hough} times")
         fg = {k: (r["metrics"][f"inter{k}"][:, 1] / r["metrics"][f"union{k}"][:, 1]
                   .clamp(min=1)).cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
         print(f"CHM FSS_CONV4D_IM2COL={route}: {route_text(r, E_MMN, 2)}; per-episode fg IoU "
@@ -3240,7 +3302,7 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
             raise AssertionError(f"the loaded MMN artifact launched {mmn_art['launches']}")
         head_arts = {head: arts[names[head]] for head in flats}
         for head, flat in flats.items():
-            need = ("adapt_binary", "pivot_fwd") if flat else ("adapt_binary",)
+            need = ("adapt_binary", "pivot_fwd") if flat else ("adapt_binary", "hough4d")
             got = head_arts[head]["launches"]
             if min(got.get(k, 0) for k in need) < 1 or (not flat and got.get("pivot_fwd")):
                 raise AssertionError(f"the loaded {head} artifact launched {got}")
@@ -3525,7 +3587,7 @@ def main() -> int:
                                                                 pick_tile)
     from few_shot_seg_cwt_tpu_torch.models.conv4d import CenterPivotConv4d
     from few_shot_seg_cwt_tpu_torch.models.pspnet import build_pspnet
-    from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_inner_loop, cuda_pivot
+    from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_hough, cuda_inner_loop, cuda_pivot
     from few_shot_seg_cwt_tpu_torch.ops.corr import get_corr
     from few_shot_seg_cwt_tpu_torch.tools.profile_inner_loop import cuda_ms
     from few_shot_seg_cwt_tpu_torch.train import test as test_entry
@@ -3538,11 +3600,13 @@ def main() -> int:
 
     # ---- 2. build every kernel: one nvcc per source, all at once ----
     t0 = time.perf_counter()
-    cuda_build.build([cuda_inner_loop.build_spec(), cuda_pivot.build_spec()])
+    cuda_build.build([cuda_inner_loop.build_spec(), cuda_pivot.build_spec(),
+                      cuda_hough.build_spec()])
     cuda_inner_loop.load_library()
     cuda_pivot.load_library()
-    print(f"build: 2 libraries (inner_loop.cu: K1, K2; pivot.cu: pivot_fwd, pivot_dw) in "
-          f"{time.perf_counter() - t0:.2f} s")
+    cuda_hough.load_library()
+    print(f"build: 3 libraries (inner_loop.cu: K1, K2; pivot.cu: pivot_fwd, pivot_dw; "
+          f"hough4d.cu: hough4d) in {time.perf_counter() - t0:.2f} s")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2021)
@@ -3618,6 +3682,9 @@ def main() -> int:
 
     # ---- 3b. pivot kernels at the MMN path's shapes ----
     pivot = pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card)
+
+    # ---- 3e. the Hough kernel at the CHM head's shapes ----
+    hough = hough_phase(cuda_hough, cuda_ms, card)
 
     lap("2-3 (build, kernels)")
 
@@ -4014,6 +4081,22 @@ def main() -> int:
         "library_ms": None,
         "dispatch": main_block["dw_t"],
         "scale_out": scale_out["pivot_dw"],
+    }, {
+        "name": "hough4d",
+        "route": "cuda",
+        "source": "few_shot_seg_cwt_tpu_torch/csrc/hough4d.cu",
+        "replaces": None,   # the JAX package's CHM6d and CHM4d are XLA convolutions
+        "launches": chm["rows"]["q"]["eval_launches"]["hough4d"],
+        "train_launches": chm["rows"]["q"]["train_launches"]["hough4d"],
+        "loaded_artifact_launches": tools["chm"]["launches"].get("hough4d", 0),
+        "chm6d": hough["chm6d"],
+        "max_abs_err": hough["chm4d"]["err"],
+        "ms": hough["chm4d"]["ms"],
+        "plain_ms": hough["chm4d"]["plain_ms"],
+        "bound_ms": hough["chm4d"]["bound_ms"],
+        "bound_by": hough["chm4d"]["bound_by"],
+        "library_ms": hough["chm4d"]["library_ms"],
+        "dispatch": hough["chm4d"]["t"],
     }]
     print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 // Runs a CUDA kernel's body on the CPU, so that a test can check its
 // indexing with g++ where there is no card: each CTA's threads run as
 // std::threads, __syncthreads is a std::barrier (and __syncwarp one a
-// warp), a TMA bulk copy is a plain copy, an mbarrier counts its arrivals
-// and bytes as the card does, and mma.sync's TF32 product is exchanged
-// between a warp's lanes as the PTX ISA lays out its fragments. It cannot
+// warp), a TMA bulk copy or a cp.async is a plain copy, an mbarrier counts
+// its arrivals and bytes as the card does, and mma.sync's TF32 product is
+// exchanged between a warp's lanes as the PTX ISA lays out its fragments. It cannot
 // see races between asynchronous copies and the threads, nor anything of
 // the card's timing. Compile with -std=c++20 -pthread.
 
@@ -207,6 +207,14 @@ inline void mbar_wait(unsigned long long* bar, unsigned parity) {
   }
 }
 inline void fence_proxy_async() {}
+
+// cp.async of 4, 8 or 16 bytes is a plain copy here; its groups need no wait
+inline void cp_async4(float* dst, const float* src) { std::memcpy(dst, src, 4); }
+inline void cp_async8(float* dst, const float* src) { std::memcpy(dst, src, 8); }
+inline void cp_async16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
 
 // cvt.rna.tf32.f32: to nearest, ties away from zero, on the magnitude.
 inline uint32_t tf32_rna(float a) { return (__float_as_uint(a) + 0x1000u) & 0xffffe000u; }

@@ -17,9 +17,11 @@ src/model/base/chm.py, chm_kernel.py and src/model/match.py:191-244):
   CHM6d -> sigmoid -> scale max-pool -> 4D upsample -> CHM4d -> softplus ->
   mutual nearest-neighbour filter -> temperature-softmax readout.
 
-The 4D and 6D convolutions are cuDNN convolutions (the JAX package's are
-XLA ops, outside any Pallas kernel). Parameter names follow the flax tree:
-``scale_conv_{i}.weight``, ``chm6d.param_{i}``, ``chm6d.bias``,
+The 4D and 6D convolutions run through ``conv4d``: in evaluation on the
+card the hand-written ``hough4d`` kernel (``ops.cuda_hough``), with the
+scalar bias added at its store; under autograd cuDNN convolutions (the
+JAX package's are XLA ops, outside any Pallas kernel). Parameter names
+follow the flax tree: ``scale_conv_{i}.weight``, ``chm6d.param_{i}``, ``chm6d.bias``,
 ``chm4d.weight``, ``chm4d.bias``. Initialisers are the JAX package's, drawn
 from an explicit ``torch.Generator``. ``CHMLearner.forward`` runs its phases
 inside spans of ``utils.tracing``: ``chm_corr`` (scale convs, correlations,
@@ -144,8 +146,7 @@ class CHM4d(nn.Module):
         return flat.reshape((self.ksz,) * 4 + (1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = conv4d(x, self.kernel())
-        return out if self.bias is None else out + self.bias.to(out.dtype)
+        return conv4d(x, self.kernel(), self.bias)
 
 
 def _scale_groups(ktype: str) -> List[List[int]]:
@@ -215,9 +216,8 @@ class CHM6d(nn.Module):
         b, s1, s2, h, w, hs, ws = corr.shape
         nsp = s1 * s2
         x = corr.reshape(b, nsp, h, w, hs, ws).permute(0, 2, 3, 4, 5, 1)
-        out = conv4d(x, self.channel_kernel((s1, s2)))
-        out = out.permute(0, 5, 1, 2, 3, 4).reshape(b, s1, s2, h, w, hs, ws)
-        return out + self.bias.to(out.dtype)
+        out = conv4d(x, self.channel_kernel((s1, s2)), self.bias)
+        return out.permute(0, 5, 1, 2, 3, 4).reshape(b, s1, s2, h, w, hs, ws)
 
 
 def interpolate4d(t: torch.Tensor, size: int) -> torch.Tensor:

@@ -34,9 +34,13 @@ src/model/conv4d.py). Two flavours:
   package computes these outside any Pallas kernel; here they are cuDNN
   and cuBLAS calls, differentiated by autograd (the JAX custom VJP exists
   only to bound XLA:TPU's compile time), save ``qp``'s weight gradient,
-  taken one tap row at a time (``_FoldedTapConv``) for its precision. The
-  weight is stored in the reference's pre-permuted layout (k0, O, I, k1,
-  k2, k3), so a reference ``.pth`` loads with ``load_state_dict``.
+  taken one tap row at a time (``_FoldedTapConv``) for its precision. On
+  route ``q``, a CUDA fp32 call with a 5^4 kernel at (Ci, Co) = (1, 1) or
+  (9, 9) (the CHM head's CHM4d and CHM6d) that autograd does not record
+  runs the hand-written ``hough4d`` kernel instead (``ops.cuda_hough``;
+  CHM training keeps the cuDNN path). The weight is stored in the
+  reference's pre-permuted layout (k0, O, I, k1, k2, k3), so a reference
+  ``.pth`` loads with ``load_state_dict``.
 
 On every route the volume meets the weights by the JAX ``_promote`` rule:
 bf16 weights (the head under ``use_amp``) cast the volume down and the
@@ -62,6 +66,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda_hough import hough4d, hough4d_takes
 from ..ops.cuda_pivot import pivot_fwd, pivot_impl, pivot_kernel_available
 from ..ops.quant import fake_quant, ncons_int8_mode, qconv2d
 from ..utils.tracing import count, span
@@ -369,13 +374,18 @@ def conv4d(x: torch.Tensor, kernel: torch.Tensor,
     only. The route is ``conv4d_im2col_mode()``; all four compute the same
     function (the reference's looped conv3d, src/model/conv4d.py:65-106).
     Each call adds 1 to the counter ``conv4d_<route>`` (``utils.tracing``),
-    so ``ops.launch_counts("conv4d_q", ...)`` shows the route a run took."""
+    so ``ops.launch_counts("conv4d_q", ...)`` shows the route a run took.
+    On route ``q`` the calls ``hough4d_takes`` (CUDA fp32, 5^4 kernel at
+    (Ci, Co) = (1, 1) or (9, 9), nothing for autograd to record) run the
+    ``hough4d`` kernel, with the bias added at its store."""
     if any(k % 2 != 1 for k in kernel.shape[:4]):
         raise ValueError(f"conv4d supports odd kernels only, got {tuple(kernel.shape[:4])}")
     mode = conv4d_im2col_mode()
     count(f"conv4d_{mode}")
     dtype = _promote(x, kernel)
     x, kernel = x.to(dtype), kernel.to(dtype)
+    if mode == "q" and hough4d_takes(x, kernel, bias):
+        return hough4d(x, kernel, None if bias is None else bias.to(dtype))
     if mode == "gemm":
         out = _conv4d_gemm(x, kernel)
     elif mode == "loop":

@@ -1,6 +1,6 @@
 """The port's ops. Importing the package registers the hand-written kernels
 as PyTorch operators (``fss::adapt_binary``, ``fss::adapt_binary_tiled``,
-``fss::pivot_fwd``, ``fss::pivot_dw``), so a program saved by
+``fss::pivot_fwd``, ``fss::pivot_dw``, ``fss::hough4d``), so a program saved by
 ``torch.export`` that calls them loads with this package alone; each
 kernel is built at its first launch and counts each launch under its name
 (``utils.tracing.count``): ``launch_counts`` reads them."""
@@ -8,7 +8,7 @@ kernel is built at its first launch and counts each launch under its name
 from typing import Dict
 
 from ..utils import tracing
-from . import cuda_inner_loop, cuda_pivot  # noqa: F401  (registers the operators)
+from . import cuda_hough, cuda_inner_loop, cuda_pivot  # noqa: F401  (registers the operators)
 from .resize import (
     adaptive_avg_pool,
     adaptive_pool_matrix,
@@ -37,7 +37,7 @@ from .corr import (
 from .metrics import intersection_and_union
 
 # the hand-written kernels, by the names their launches are counted under
-KERNELS = ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw")
+KERNELS = ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw", "hough4d")
 
 
 def launch_counts(*names: str) -> Dict[str, int]:

@@ -104,7 +104,7 @@ def test_operators_run_the_plain_versions_on_cpu_uncounted():
                                cuda_pivot.pivot_conv_flat_reference(x, wa, wb, bias, dims, True),
                                rtol=0, atol=0)
     assert launch_counts() == dict.fromkeys(
-        ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw"), 0)
+        ("adapt_binary", "adapt_binary_tiled", "pivot_fwd", "pivot_dw", "hough4d"), 0)
 
 
 def _inputs(cfg, e=E, seed=5, k=2):

@@ -213,7 +213,7 @@ def test_counters_count_snapshot_and_reset():
     tracing.count("adapt_binary")
     assert snap == {"pivot_fwd": 3}
     assert ops.launch_counts() == {"adapt_binary": 1, "adapt_binary_tiled": 0,
-                                   "pivot_fwd": 3, "pivot_dw": 0}
+                                   "pivot_fwd": 3, "pivot_dw": 0, "hough4d": 0}
     tracing.reset()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
