@@ -20,10 +20,11 @@ Phases (any failure raises and the script exits non-zero):
    K1, with its shared memory and the tile ``pick_tile`` gives for
    FSS_INNER_TILE 2 and 4 (3c); then the
    centre-pivot pair (pivot_fwd, pivot_dw) for each consensus block at 473 px
-   (2->10, 10->10, 10->1), its gradients held against an fp64 run, beside the
-   rank-4 route's cuDNN time, pivot_fwd also timed at each block's dx shape
-   (10->2, 10->10, 1->10), with pivot_dw's time over the plain version's
-   (cuDNN's weight gradient) and the bound and its kind: the bytes, or the
+   (2->10, 10->10, 10->1), its gradients held against an fp64 run, beside
+   cuDNN's plane convs (the rank-4 layout), pivot_fwd also timed at each
+   block's dx shape (10->2, 10->10, 1->10), with pivot_dw's time over the
+   plain version's (cuDNN's weight gradient) and the bound and its kind: the
+   bytes, or the
    operations at the lesser of fp32 on the CUDA cores and 3xTF32 on the
    tensor cores (3b). K1 at E = 8 and shot 5 (episode 0 with an all-255
    padded shot) against the plain loop, timed beside its bound, with the
@@ -47,81 +48,68 @@ Phases (any failure raises and the script exits non-zero):
 5. The evaluation entry point ``train.test.main`` on configs/pascal.yaml
    with synthetic episodes; its mIoU line is printed.
 6. MMN head at full width, configs/pascal_mmn.yaml as shipped (``use_amp
-   True``: bf16 backbone with BN calibrated in fp32, fp32 head in eval and
-   serve, bf16 head in the train step; 1-shot, 473 px, adapt_iter 200, 4
-   episodes): eval + serve (batch and one episode) on the flat route with
-   the counts reset around them (K1 and pivot_fwd must launch),
-   predictions against the rank-4 route (argmax agreement >= 99.5% for
-   pred and pred1), episodes/s on both routes and where the time goes. Then
-   one training step's head gradients on the flat route (pivot_dw must
-   launch) against the rank-4 route's: with the head in fp32 within 1e-3
-   of each tensor's largest entry, and with the bf16 head (use_amp) within
-   5e-2 or twice the rank-4 route's own bf16 spread (its distance from the
-   fp32-head step), per tensor in the L2 norm; timed optimizer steps with
-   dropout on. Then
-   (6b) the train step of 2 at shot 5 on the flat route, counted, with the
-   k-shot defaults and, where their peak memory leaves room, ``shot_tile
-   5`` and ``shot_native``: episodes/s and peak memory of each. (6c) On
-   the same engine: one train step of 2 with ``meta_aug 2`` and
-   ``att_type 3`` (two views a support, the better one read; pivot_dw must
-   launch), and eval of 4 with ``eval_episode_tile 2`` (masks and I/U
-   equal to the untiled run's). (6d) The match head, configs/
-   pascal_match.yaml as shipped (ResNet-50, ``rmid mid4``, ``crm_type nc``,
-   cycle mask at eval, cosine classifier, fp32; BN statistics and
-   consensus biases calibrated as for MMN): the pivot pair at its first
-   block's new shape 1 -> 10 as in 3b; eval + serve of 4 and a train step
-   of 2 on the rank-4, flat and 6D routes, counted (K1 on every route, the
-   pivot kernels on the flat route only), argmax of pred and pred1 >= 99.5%
-   equal to rank-4's, gradients within 1e-3 of each tensor's largest
-   entry, episodes/s and peak memory; then ``conv4d cv4`` on each
-   ``FSS_CONV4D_IM2COL`` route (q, qp, gemm, loop): an eval batch of 2 and
-   a train step of 2, predictions within 1e-4 and gradients within 1e-3 of
-   the q route's, ms and peak memory of each. (6e) The CHM head,
-   configs/pascal_match.yaml with ``crm_type chm`` (fp32; BN statistics
-   calibrated as for MMN): on each ``FSS_CONV4D_IM2COL`` route (q, qp,
-   gemm, loop) eval + serve of 4 and a train step of 2 (its whole-loss
-   checkpoint on), counted (K1 must launch, no pivot kernel), episodes/s
-   and peak memory of each, predictions within 1e-4 and gradients within
-   1e-3 of the q route's; where a q-route eval batch's time goes. (6f)
-   The DeTr head, configs/pascal_trans.yaml as shipped and with ``sf_att
-   True``: on the rank-4 and flat routes eval + serve of 4 and a train
-   step of 2, counted (K1 on both, the pivot kernels on the flat route
-   only), episodes/s and peak memory, argmax of pred and pred1 >= 99.5%
-   equal to rank-4's, fp32 head gradients within 1e-3 of each tensor's
-   largest entry, the flat route's masks >= 99.5% equal to the plain
-   path's (rank-4 consensus, K1's plain version). (6g) The attention,
+   True``: bf16 backbone with BN statistics calibrated in fp32, fp32 head in
+   eval and serve, bf16 head in the train step; 1-shot, 473 px, adapt_iter
+   200, 4 episodes): eval + serve (batch and one episode) with the counts
+   reset around them (K1 and pivot_fwd must launch), predictions against
+   the plain path (the 6D route's cuDNN plane convs, the pivot kernels'
+   gate refused: ``plain_consensus``; argmax agreement >= 99.5% for pred
+   and pred1), episodes/s and where the time goes. Then one training step's
+   head gradients (pivot_dw must launch) against the plain path's: with the
+   head in fp32 within 1e-3 of each tensor's largest entry, and with the
+   bf16 head (use_amp) within 5e-2 or twice the plain path's own bf16
+   spread (its distance from the fp32-head step), per tensor in the L2
+   norm; timed optimizer steps with dropout on. Then (6b) the train step of
+   2 at shot 5, counted, with the k-shot defaults and, where their peak
+   memory leaves room, ``shot_tile 5`` and ``shot_native``: episodes/s and
+   peak memory of each. (6c) On the same engine: one train step of 2 with
+   ``meta_aug 2`` and ``att_type 3`` (two views a support, the better one
+   read; pivot_dw must launch), and eval of 4 with ``eval_episode_tile 2``
+   (masks and I/U equal to the untiled run's). (6d) The match head,
+   configs/pascal_match.yaml as shipped (ResNet-50, ``rmid mid4``,
+   ``crm_type nc``, cycle mask at eval, cosine classifier, fp32; BN
+   statistics and consensus biases calibrated as for MMN): the pivot pair
+   at its first block's new shape 1 -> 10 as in 3b; eval + serve of 4 and
+   a train step of 2, counted (K1 and the pivot kernels), every head tensor
+   with a gradient, episodes/s and peak memory; then ``conv4d cv4``: an
+   eval batch of 2 and a train step of 2, finite, ms and peak memory. (6e)
+   The CHM head, configs/pascal_match.yaml with ``crm_type chm`` (fp32; BN
+   statistics calibrated as for MMN): eval + serve of 4 and a train step
+   of 2 (its whole-loss checkpoint on), counted (K1 and hough4d must
+   launch, no pivot kernel), episodes/s and peak memory, every head tensor
+   with a gradient; where an eval batch's time goes. (6f) The DeTr head,
+   configs/pascal_trans.yaml as shipped and with ``sf_att True``: eval +
+   serve of 4 and a train step of 2, counted (K1 and the pivot kernels),
+   episodes/s and peak memory, the masks >= 99.5% equal to the plain
+   path's (the 6D consensus, K1's plain version). (6g) The attention,
    transductive and fusion heads (fp32): ``att`` on configs/pascal_asy.yaml
    (``cross_att``, as no att config ships) eval of 4 and a train step of 2,
    ``mha`` and ``att_blk`` eval of 4 each, a 5-shot eval of 2 with a padded
    shot; ``asy`` on the same config, eval of 4 and a step of 2; ``fuse`` on
-   configs/pascal_fuse.yaml, its frozen MatchNet the match head of 6d, on
-   the flat and rank-4 routes eval of 4, serve of 4 and a step of 2. Each
-   run counted alone (K1 1 a batch or step; pivot_fwd 6 an episode on the
-   fuse flat route, none on rank-4; pivot_dw never), episodes/s and peak
-   memory; the kernel path's masks >= 99.5% equal to the plain path's
-   (K1's plain version, rank-4); fuse flat against rank-4: argmax >= 99.5%,
-   FuseNet1's gradients within 1e-3 of each tensor's largest entry; the
+   configs/pascal_fuse.yaml, its frozen MatchNet the match head of 6d, eval
+   of 4, serve of 4 and a step of 2. Each run counted alone (K1 1 a batch
+   or step; pivot_fwd 6 an episode in fuse, none elsewhere; pivot_dw
+   never), episodes/s and peak memory; the kernel path's masks >= 99.5%
+   equal to the plain path's (K1's plain version, the 6D consensus); the
    fuse head's ``_Conv4dStack`` on its 6D route at (1, 60, 60, 60, 60, 1)
-   in fp32 against fp64, and its 16 -> 1 block on 6D against rank-4,
-   outputs and gradients within 1e-4 of the scale; where a fuse flat eval
-   batch's time goes; ``train_att``, ``train_asy`` and ``train_fuse``
-   (``matchnet_ckpt`` a file of the match head of 6d, flat route) at 4
+   in fp32 against fp64, and its 16 -> 1 block on 6D against the rank-4
+   layout's plane convs, outputs and gradients within 1e-4 of the scale;
+   where a fuse eval batch's time goes; ``train_att``, ``train_asy`` and
+   ``train_fuse`` (``matchnet_ckpt`` a file of the match head of 6d) at 4
    steps of 2. (6h) Incremental CCA, configs/pascal_cca.yaml as shipped
    (16-way base classifier, ``wt_dc``, fp32; BN statistics and consensus
    calibrated; the episodes' classes folded into 1..15): eval of 4 and a
-   train step of 2 on the rank-4 and the flat route, counted (the pivot
-   pair on flat only, K1 never: the inner loop is K-way), argmax of pred
-   and pred1 >= 99.5% equal between the routes, head gradients within 1e-3
-   of each tensor's largest entry; the K-way inner loop's ms an episode;
-   cca1's host relabel pass of 2 and a step on it (flat route), the pass's
-   ms beside the step's; ``train_cca``, ``train_cca1`` (flat route, one
-   step of 2) and ``train_count`` on synthetic episodes. (6i) The int8
-   consensus: ``tools.ab_int8`` on configs/pascal_mmn.yaml's head (rank-4
-   route, 473 px, 8 episodes, calibrated) for ``fake`` and ``dot`` (flip
-   rate, mIoU delta; ``dot``'s int8 GEMMs counted on the card); the 10 ->
-   10 support-plane conv at 473 px: ``qconv2d`` (int8 operands on the card)
-   within 1e-5 of max|y| of cuDNN's fp32 conv of the same dequantized
-   operands, timed beside the fp32 conv.
+   train step of 2, counted (the pivot pair, K1 never: the inner loop is
+   K-way), a live head gradient; the K-way inner loop's ms an episode;
+   cca1's host relabel pass of 2 and a step on it, the pass's ms beside
+   the step's; ``train_cca``, ``train_cca1`` (one step of 2) and
+   ``train_count`` on synthetic episodes. (6i) The int8 consensus:
+   ``tools.ab_int8`` on configs/pascal_mmn.yaml's head (the rank-4 route
+   the flag selects, 473 px, 8 episodes, calibrated) for ``fake`` and
+   ``dot`` (flip rate, mIoU delta; ``dot``'s int8 GEMMs counted on the
+   card); the 10 -> 10 support-plane conv at 473 px: ``qconv2d`` (int8
+   operands on the card) within 1e-5 of max|y| of cuDNN's fp32 conv of the
+   same dequantized operands, timed beside the fp32 conv.
 7. The trainer entry points ``train.train_head.main`` on pascal_mmn.yaml as
    shipped and ``train.train_kshot.main`` at shot 5, with synthetic
    episodes; their validation lines are printed.
@@ -157,14 +145,13 @@ Phases (any failure raises and the script exits non-zero):
     lines both times, and run 2 scores log episodes 16-31 (their classes
     alone). ``train_cwt.main`` (debug, FSS_INNER_TILE=2: K2 must launch).
     Then, with cv2 (``resize_np`` is cv2's resize, as in the JAX package):
-    ``train_head.main`` on configs/pascal_mmn.yaml as shipped on the flat
-    route (pivot_fwd and pivot_dw must launch); ``train_match.main`` on
-    configs/pascal_match.yaml on the flat route (K1 and both pivot kernels
-    must launch), one epoch with its train state saved, then a ``debug``
-    run resuming from it for the second epoch; ``train_match.main`` with
-    ``crm_type chm`` (K1 must launch) and ``train_trans.main`` on
-    configs/pascal_trans.yaml on the flat route (K1 and both pivot kernels
-    must launch), one epoch of 2 steps each. Every trainer's ``log.txt``
+    ``train_head.main`` on configs/pascal_mmn.yaml as shipped (pivot_fwd
+    and pivot_dw must launch); ``train_match.main`` on
+    configs/pascal_match.yaml (K1 and both pivot kernels must launch), one
+    epoch with its train state saved, then a ``debug`` run resuming from it
+    for the second epoch; ``train_match.main`` with ``crm_type chm`` (K1
+    must launch) and ``train_trans.main`` on configs/pascal_trans.yaml (K1
+    and both pivot kernels must launch), one epoch of 2 steps each. Every trainer's ``log.txt``
     must hold its validation line (train_cwt's in phase 9, train_head's in
     phase 7 and here, pretrain's in 11b, whose TensorBoard scalars must
     hold ``train_loss`` and ``mean_iou/val``). The tools on the tree:
@@ -187,13 +174,13 @@ Phases (any failure raises and the script exits non-zero):
     8 with ``arch vgg``: K1 at VGG's 30x30 features against the plain loop
     (1e-4 * max|acc|), masks against the plain loop's (>= 99.5%), K1 timed
     beside its bound; (d) ``tools.bench.run`` in every mode with 3 timed
-    batches (MMN modes on the flat route, the CWT train step at
+    batches (the pivot kernels in the MMN modes, the CWT train step at
     FSS_INNER_TILE=2), each JSON line printed.
 12. The serve artifacts (``tools.export_serve``): the CWT serve program at
     batch 8 on phase 4's calibrated weights and the MMN one
-    (configs/pascal_mmn.yaml as shipped, flat route) at batch 4 on phase
-    6's, and the CHM (q route), DeTr (flat route) and fuse (flat route,
-    its frozen MatchNet inside) ones at batch 4 on phases 6e, 6f and 6g's,
+    (configs/pascal_mmn.yaml as shipped) at batch 4 on phase 6's, and the
+    CHM, DeTr and fuse (its frozen MatchNet inside) ones at batch 4 on
+    phases 6e, 6f and 6g's,
     each exported with ``torch.export`` around the ``fss::`` operators,
     saved, and all loaded in one fresh process that imports only torch and
     the port's ``ops`` (``tools.serve_loaded``; TF32 off, as the entry
@@ -211,7 +198,7 @@ Phases (any failure raises and the script exits non-zero):
     of 4 episodes on the K1 path and on K2 (FSS_INNER_TILE=2), every
     dropout off, gradients within 1e-3 of each tensor's largest entry of
     one process's step on the same 4 episodes and inits; the MMN step of
-    configs/pascal_mmn.yaml as shipped (2 episodes, flat route, head
+    configs/pascal_mmn.yaml as shipped (2 episodes, head
     dropout off) at phase 6's fp32 (1e-3) and bf16 (L2, max(5e-2, twice
     the bf16 head's spread)) limits against one process running the ranks'
     slices one after another (the backbone's results depend on the batch it
@@ -277,8 +264,7 @@ SHOT5 = 5                                    # the k-shot paths' shot count
 MIXED = "stem,layer1,layer2"                 # the mixed bf16 stage policy
 PIVOT_BLOCKS = ((2, 10), (10, 10), (10, 1))  # NeighConsensus (Ci, Co), rmid l34
 PIVOT_DIMS = (FEAT, FEAT, FEAT, FEAT)
-ROUTE_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4",
-                  "FSS_INNER_TILE")
+SWITCHES = ("FSS_INNER_TILE", "FSS_NCONS_INT8")     # the port's two, unset at the start
 
 
 def host_seconds(fn, reps: int) -> float:
@@ -441,10 +427,19 @@ def env_var(name: str, value):
             os.environ[name] = saved
 
 
-def pivot_route(flat: bool):
-    """The consensus route for the enclosed calls: flat (the pivot kernels,
-    ``FSS_PIVOT_MXU=1``) or rank-4 (cuDNN plane convs, the default)."""
-    return env_var("FSS_PIVOT_MXU", "1" if flat else None)
+@contextlib.contextmanager
+def plain_consensus():
+    """The plain path the pivot kernels are held against: the enclosed
+    engines run their centre-pivot consensus on the 6D route's cuDNN plane
+    convs (the kernels' gate refuses every stack)."""
+    from few_shot_seg_cwt_tpu_torch.models import matching
+
+    gate = matching.pivot_takes
+    matching.pivot_takes = lambda *args: False
+    try:
+        yield
+    finally:
+        matching.pivot_takes = gate
 
 
 def inner_tile(tile):
@@ -460,7 +455,7 @@ def pivot_grads(fn, x, wa, wb, bias, t, dtype=torch.float32):
     within rounding of 0 are masked differently in fp32 and fp64, and each
     such flip moves db and dx by a whole |t| ~ 1, far above rounding; so the
     fp64 witness runs the linear pair. The ReLU's mask (applied in Python
-    before the kernels) is held on the MMN path: flat against rank-4 grads."""
+    before the kernels) is held on the MMN path: against the plain path's grads."""
     leaves = [a.to(dtype).clone().requires_grad_(True) for a in (x, wa, wb, bias)]
     (fn(*leaves, PIVOT_DIMS, relu=False) * t.to(dtype)).sum().backward()
     return [a.grad for a in leaves]
@@ -548,8 +543,8 @@ def pivot_phase(cuda_pivot, cuda_ms, CenterPivotConv4d, card, blocks=PIVOT_BLOCK
         flops, nbytes = pivot_work(ci, co, q, s)
         b_ms, b_by = bound(flops, nbytes, tensor_cores=True)
         print(f"pivot {ci}->{co}: pivot_fwd {fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f} ms), "
-              f"pivot_dw {dw_ms:.3f} ms (plain {dw_plain_ms:.3f} ms), rank-4 route "
-              f"forward (2 cuDNN conv2d + permute) {r4_ms:.3f} ms; bound {b_ms:.3f} ms "
+              f"pivot_dw {dw_ms:.3f} ms (plain {dw_plain_ms:.3f} ms), cuDNN plane convs "
+              f"(rank-4 layout: 2 conv2d + permute) {r4_ms:.3f} ms; bound {b_ms:.3f} ms "
               f"({b_by}: {flops / 1e9:.2f} GFLOP / 67 TFLOP/s = "
               f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms or as 3xTF32 / 495 TFLOP/s = "
               f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.3f} ms, {nbytes / 1e9:.3f} GB / "
@@ -581,7 +576,7 @@ def hough_phase(cuda_hough, cuda_ms, card):
     route q's cuDNN convs (``library_ms``: the path the kernel replaced),
     against the bound (the taps inside the volume at fp32's peak)."""
     from few_shot_seg_cwt_tpu_torch.models.chm import CHM4d, CHM6d
-    from few_shot_seg_cwt_tpu_torch.models.conv4d import _conv4d_im2col
+    from few_shot_seg_cwt_tpu_torch.models.conv4d import _conv4d_q
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(24)
@@ -599,7 +594,7 @@ def hough_phase(cuda_hough, cuda_ms, card):
             x = torch.rand((1, 9) + (side,) * 4, generator=gen).permute(0, 2, 3, 4, 5, 1)
         k, x = (0.05 * k / k.abs().max()).to(dev), x.to(dev)
         bias = module.bias.to(dev)
-        want = _conv4d_im2col(x.double(), k.double(), False) + bias.double()
+        want = _conv4d_q(x.double(), k.double()) + bias.double()
         got = cuda_hough.hough4d(x, k, bias)
         torch.cuda.synchronize()
         err = float((got.double() - want).abs().max())
@@ -611,7 +606,7 @@ def hough_phase(cuda_hough, cuda_ms, card):
         t = launch_and_op_ms(lambda: cuda_hough.launch(lib, x, k, bias),
                              lambda: cuda_hough.hough4d(x, k, bias))
         plain_ms = cuda_ms(lambda: cuda_hough.hough4d_reference(x, k, bias), 3)
-        library_ms = cuda_ms(lambda: _conv4d_im2col(x, k, False) + bias, 5)
+        library_ms = cuda_ms(lambda: _conv4d_q(x, k) + bias, 5)
         links = int((k != 0).reshape(-1, ci, ci).any(0).sum())
         flops, nbytes = cuda_hough.hough4d_work(tuple(x.shape), ci, links)
         b_ms, b_by = bound(flops, nbytes)
@@ -653,9 +648,9 @@ def calibrate_consensus(engine, calib_episodes, get_corr):
 
     With the seeded random init (zero biases) the last block's ReLU can zero
     the whole filtered volume: the readout is then a plain average over the
-    support and neither route's consensus reaches the prediction. This gives
+    support and the consensus does not reach the prediction. This gives
     the consensus the live units a trained one has, as ``calibrate_batchnorm``
-    does for the backbone. Runs on the flat route.
+    does for the backbone. Runs on the pivot kernels.
     """
     from few_shot_seg_cwt_tpu_torch.episodic.heads import match_stage
     from few_shot_seg_cwt_tpu_torch.ops.corr import mutual_matching, mutual_matching_flat
@@ -737,9 +732,10 @@ def device_profile(fn, label, card, groups=()):
 
 
 def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
-    """MMN eval/serve on the flat route (counted), against the rank-4 route;
-    episodes/s on both; where an eval batch's time goes; one training step's
-    gradients on both routes; timed optimizer steps with dropout on."""
+    """MMN eval/serve on the pivot kernels (counted), against the plain path
+    (``plain_consensus``); episodes/s; where an eval batch's time goes; one
+    training step's gradients on both paths; timed optimizer steps with
+    dropout on."""
     (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
      cuda_pivot, adapt_classifier_batch, get_corr, build_optimizer, build_pspnet) = modules
     cfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"),
@@ -755,28 +751,25 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     cfg32.use_amp = False
     backbone = build_pspnet(cfg32).to("cuda")
     calibrate_batchnorm(backbone, calib_images)
-    with pivot_route(True):
-        engine = HeadEngine(cfg, "mmn", backbone=backbone, device="cuda")
+    engine = HeadEngine(cfg, "mmn", backbone=backbone, device="cuda")
     if {p.dtype for m in engine.backbone.stage_modules().values()
             for p in m.parameters()} != {torch.bfloat16}:
         raise AssertionError("use_amp: the MMN backbone is not bf16")
-    with pivot_route(True):
-        calibrate_consensus(engine, calib_episodes, get_corr)
+    calibrate_consensus(engine, calib_episodes, get_corr)
     episodes = make_episode_batch(13, E_MMN, size=IMG, shot=SHOT)
     w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(5))
 
-    # ---- the main path: eval + serve on the flat route, counted ----
+    # ---- the main path: eval + serve, counted ----
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with pivot_route(True):
-        tracing.reset()
-        metrics = engine.eval_metrics_batch(episodes, w0=w0)
-        masks = engine.serve_batch(episodes, w0=w0)
-        one = engine.serve_episode({k: v[0] for k, v in episodes.items()}, w0=w0[0])
-        torch.cuda.synchronize()
-        eval_launches = launch_counts()
+    tracing.reset()
+    metrics = engine.eval_metrics_batch(episodes, w0=w0)
+    masks = engine.serve_batch(episodes, w0=w0)
+    one = engine.serve_episode({k: v[0] for k, v in episodes.items()}, w0=w0[0])
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
     print(f"MMN eval_metrics_batch + serve_batch of {E_MMN} + serve_episode launches "
-          f"(use_amp, flat route): {eval_launches}; serve_episode vs serve_batch mask "
+          f"(use_amp): {eval_launches}; serve_episode vs serve_batch mask "
           f"agreement {float((one == masks[0]).float().mean()):.6f}; peak memory "
           f"{peak_gib():.2f} GiB [{card}]")
     if eval_launches["adapt_binary"] < 1 or eval_launches["pivot_fwd"] < 1:
@@ -792,38 +785,35 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
         if not torch.isfinite(metrics[k].float()).all():
             raise AssertionError(f"MMN eval: non-finite {k}")
 
-    # ---- flat vs rank-4 predictions, same weights and inits ----
-    with pivot_route(True):
-        p_flat = engine.predict_batch(episodes, w0=w0)
-    with pivot_route(False):
+    # ---- the kernels' predictions against the plain path's, same weights and inits ----
+    p_flat = engine.predict_batch(episodes, w0=w0)
+    with plain_consensus():
         before = tracing.counts()["pivot_fwd"]
-        p_r4 = engine.predict_batch(episodes, w0=w0)
+        p_plain = engine.predict_batch(episodes, w0=w0)
         torch.cuda.synchronize()
         if tracing.counts()["pivot_fwd"] != before:
-            raise AssertionError("the rank-4 route launched the pivot kernels")
-    agree = {k: float((p_flat[k].argmax(-1) == p_r4[k].argmax(-1)).float().mean())
+            raise AssertionError("the plain path launched the pivot kernels")
+    agree = {k: float((p_flat[k].argmax(-1) == p_plain[k].argmax(-1)).float().mean())
              for k in ("pred", "pred1")}
-    rel = {k: float((p_flat[k] - p_r4[k]).abs().max() / p_r4[k].abs().max())
+    rel = {k: float((p_flat[k] - p_plain[k]).abs().max() / p_plain[k].abs().max())
            for k in ("pred", "pred1")}
     fg = {k: (metrics[f"inter{k}"][:, 1] / metrics[f"union{k}"][:, 1].clamp(min=1))
           .cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
-    print(f"MMN flat vs rank-4 route: argmax agreement {agree} (>= 0.995 needed), "
-          f"max|p_flat - p_r4| / max|p_r4| {rel}; flat-route per-episode fg IoU of "
+    print(f"MMN pivot kernels vs the plain path: argmax agreement {agree} (>= 0.995 "
+          f"needed), max|p - p_plain| / max|p_plain| {rel}; per-episode fg IoU of "
           f"pred, pred1 and the adapted classifier alone: {fg}")
     if min(agree.values()) < 0.995:
-        raise AssertionError(f"MMN flat and rank-4 routes disagree: {agree}")
+        raise AssertionError(f"MMN kernels and the plain path disagree: {agree}")
 
-    for name, flat in (("flat", True), ("rank-4", False)):
-        with pivot_route(flat):
-            serve_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
-            eval_s = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 3)
-        print(f"MMN {name} route: serve_batch {E_MMN / serve_s:.3f} episodes/s "
-              f"({serve_s * 1e3:.1f} ms per batch of {E_MMN}); eval_metrics_batch "
-              f"{E_MMN / eval_s:.3f} episodes/s ({eval_s * 1e3:.1f} ms) [{card}; use_amp "
-              f"(bf16 backbone, fp32 head), TF32 off, 1-shot, 473 px, adapt_iter {STEPS}]")
+    serve_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
+    eval_s = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 3)
+    print(f"MMN: serve_batch {E_MMN / serve_s:.3f} episodes/s "
+          f"({serve_s * 1e3:.1f} ms per batch of {E_MMN}); eval_metrics_batch "
+          f"{E_MMN / eval_s:.3f} episodes/s ({eval_s * 1e3:.1f} ms) [{card}; use_amp "
+          f"(bf16 backbone, fp32 head), TF32 off, 1-shot, 473 px, adapt_iter {STEPS}]")
 
-    # ---- where an eval batch's device time goes (flat route) ----
-    with torch.no_grad(), pivot_route(True):
+    # ---- where an eval batch's device time goes ----
+    with torch.no_grad():
         batch = engine.to_device(episodes)
         imgs = torch.cat([batch["s_img"][:, 0], batch["q_img"]])
         t_backbone = cuda_ms(lambda: engine.backbone.extract_features(imgs), 3)
@@ -842,93 +832,94 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
                  for fq, fs in prep_all()]
         t_cons = cuda_ms(lambda: [head.corr_net.run_match_model_flat(c, PIVOT_DIMS)
                                   for c in corrs], 3)
-        # the filtered correlation itself, flat route against rank-4
+        # the filtered correlation itself, the kernels against the plain path
         c_flat = head.corr_net.run_match_model_flat(corrs[0], PIVOT_DIMS)
-        with pivot_route(False):
-            c_r4 = head.corr_net.run_match_model_flat(corrs[0], PIVOT_DIMS)
-        c_rel = float((c_flat - c_r4).abs().max() / c_r4.abs().max())
-        c_range = (float(c_r4.min()), float(c_r4.max()))
-        c_pos = float((c_r4 > 0).float().mean())
-        del corrs, c_flat, c_r4
+        with plain_consensus():
+            c_plain = head.corr_net.run_match_model_flat(corrs[0], PIVOT_DIMS)
+        c_rel = float((c_flat - c_plain).abs().max() / c_plain.abs().max())
+        c_range = (float(c_plain.min()), float(c_plain.max()))
+        c_pos = float((c_plain > 0).float().mean())
+        del corrs, c_flat, c_plain
         t_eval = cuda_ms(lambda: engine.eval_metrics_batch(episodes, w0=w0), 2)
     rest = t_eval - t_backbone - t_k1 - t_wa - t_cons
-    print(f"MMN consensus output (episode 0), flat vs rank-4 route: max|c_flat - c_r4| / "
-          f"max|c_r4| = {c_rel:.3e} (tolerance 1e-4); values in [{c_range[0]:.3e}, "
-          f"{c_range[1]:.3e}], {c_pos:.1%} positive")
+    print(f"MMN consensus output (episode 0), pivot kernels vs the plain path: max|c - "
+          f"c_plain| / max|c_plain| = {c_rel:.3e} (tolerance 1e-4); values in "
+          f"[{c_range[0]:.3e}, {c_range[1]:.3e}], {c_pos:.1%} positive")
     if not c_rel <= 1e-4 or c_pos < 0.01:
-        raise AssertionError(f"the consensus routes disagree ({c_rel}) or the filtered "
-                             f"volume is dead ({c_pos:.2%} positive)")
-    print(f"MMN eval batch of {E_MMN} by stage (flat route): backbone {t_backbone:.1f} ms, "
+        raise AssertionError(f"the consensus disagrees with the plain path ({c_rel}) or the "
+                             f"filtered volume is dead ({c_pos:.2%} positive)")
+    print(f"MMN eval batch of {E_MMN} by stage: backbone {t_backbone:.1f} ms, "
           f"inner loop (K1) {t_k1:.1f} ms, WeightAverage {t_wa:.1f} ms, consensus "
           f"(mutual matching + 2x3 pivot blocks) {t_cons:.1f} ms, correlation, readout, "
           f"classifier, 473 px tail and the rest {rest:.1f} ms; whole batch {t_eval:.1f} ms "
           f"[{card}]")
 
-    with pivot_route(True):
-        device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
-                       f"MMN eval batch of {E_MMN} (flat route), torch.profiler", card)
+    device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                   f"MMN eval batch of {E_MMN}, torch.profiler", card)
 
-    # ---- one training step's gradients: flat route against rank-4 ----
+    # ---- one training step's gradients: the kernels against the plain path ----
     # With the head in fp32 (use_amp off in the step; the backbone stays
-    # bf16, so both routes read the same parts) the routes agree within
-    # 1e-3 of each tensor's largest entry. use_amp runs the head in bf16:
-    # two bf16 routes each land within bf16 rounding of the fp32 gradient,
-    # so per tensor (L2) they may differ by twice the rank-4 route's own
-    # distance from its fp32-head step on the same parts, and by 5e-2 in
-    # any case.
+    # bf16, so both paths read the same parts) they agree within 1e-3 of
+    # each tensor's largest entry. use_amp runs the head in bf16: two bf16
+    # paths each land within bf16 rounding of the fp32 gradient, so per
+    # tensor (L2) they may differ by twice the plain path's own distance
+    # from its fp32-head step on the same parts, and by 5e-2 in any case.
     e2 = {k: v[:2] for k, v in episodes.items()}
     grads, train_launches = {}, {}
-    for name, flat, amp in (("flat", True, True), ("rank-4", False, True),
-                            ("flat fp32 head", True, False), ("rank-4 fp32 head", False, False)):
+    for name, plain, amp in (("flat", False, True), ("plain", True, True),
+                             ("flat fp32 head", False, False), ("plain fp32 head", True, False)):
         engine.cfg.use_amp = amp
-        with pivot_route(flat):
+        with plain_consensus() if plain else contextlib.nullcontext():
             tracing.reset()
             m = engine.backward_batch(e2, w0=w0[:2], deterministic=True)
             torch.cuda.synchronize()
-            if flat:
+            if not plain:
                 train_launches[name] = launch_counts()
         if not torch.isfinite(m["loss_mean"]):
             raise AssertionError(f"MMN train step ({name}): non-finite loss")
         grads[name] = {k: p.grad.clone() for k, p in engine.head.named_parameters()}
     engine.cfg.use_amp = True
-    print(f"MMN train step launches (flat route, 2 episodes): use_amp {train_launches['flat']}; "
+    print(f"MMN train step launches (2 episodes): use_amp {train_launches['flat']}; "
           f"fp32 head {train_launches['flat fp32 head']}")
     for counts in train_launches.values():
         if counts["pivot_dw"] < 1 or counts["pivot_fwd"] < 1:
             raise AssertionError(f"the MMN train step did not launch pivot_dw and pivot_fwd: "
                                  f"{train_launches}")
-    g32 = grads["rank-4 fp32 head"]
+    g32 = grads["plain fp32 head"]
     scale = {k: float(g.abs().max()) for k, g in g32.items()}
     worst32 = max((float((grads["flat fp32 head"][k] - g).abs().max()) / max(scale[k], 1e-30), k)
                   for k, g in g32.items())
-    print(f"MMN fp32 head gradients (bf16 backbone), flat vs rank-4 route: worst "
-          f"max|g_flat - g_r4| / max|g_r4| = {worst32[0]:.3e} ({worst32[1]}); tolerance 1e-3; "
-          f"max|g_r4| per tensor from {min(scale.values()):.3e} to {max(scale.values()):.3e}")
+    print(f"MMN fp32 head gradients (bf16 backbone), pivot kernels vs the plain path: worst "
+          f"max|g - g_plain| / max|g_plain| = {worst32[0]:.3e} ({worst32[1]}); tolerance "
+          f"1e-3; max|g_plain| per tensor from {min(scale.values()):.3e} to "
+          f"{max(scale.values()):.3e}")
     if not worst32[0] <= 1e-3:
-        raise AssertionError(f"MMN fp32-head gradients differ between routes: {worst32}")
+        raise AssertionError(f"MMN fp32-head gradients differ from the plain path's: {worst32}")
     if not all(np.isfinite(v) and v > 0 for v in scale.values()):
         raise AssertionError(f"MMN fp32-head gradients: a head tensor has zero or non-finite "
                              f"grads {scale}")
     rows = {}
-    for k, g in grads["rank-4"].items():
-        spread = float((g - grads["rank-4 fp32 head"][k]).norm() / grads["rank-4 fp32 head"][k].norm())
+    for k, g in grads["plain"].items():
+        spread = float((g - grads["plain fp32 head"][k]).norm() / grads["plain fp32 head"][k].norm())
         rows[k] = (float((grads["flat"][k] - g).norm() / g.norm()), spread)
     worst = max(rows.items(), key=lambda kv: kv[1][0] / max(5e-2, 2 * kv[1][1]))
-    print(f"MMN bf16 head gradients, flat vs rank-4 route, |g_flat - g_r4| / |g_r4| per tensor "
-          f"against the rank-4 route's bf16 spread |g_r4 - g_r4,fp32| / |g_r4,fp32| "
-          f"(tolerance max(5e-2, 2 x spread)): worst {worst[0]} {worst[1][0]:.3e} (spread "
-          f"{worst[1][1]:.3e}); all {json.dumps({k: [round(a, 5), round(b, 5)] for k, (a, b) in rows.items()})}; "
-          f"max|g_r4| per tensor from {min(float(g.abs().max()) for g in grads['rank-4'].values()):.3e} "
-          f"to {max(float(g.abs().max()) for g in grads['rank-4'].values()):.3e}")
+    print(f"MMN bf16 head gradients, pivot kernels vs the plain path, |g - g_plain| / "
+          f"|g_plain| per tensor against the plain path's bf16 spread |g_plain - "
+          f"g_plain,fp32| / |g_plain,fp32| (tolerance max(5e-2, 2 x spread)): worst "
+          f"{worst[0]} {worst[1][0]:.3e} (spread {worst[1][1]:.3e}); all "
+          f"{json.dumps({k: [round(a, 5), round(b, 5)] for k, (a, b) in rows.items()})}; "
+          f"max|g_plain| per tensor from "
+          f"{min(float(g.abs().max()) for g in grads['plain'].values()):.3e} "
+          f"to {max(float(g.abs().max()) for g in grads['plain'].values()):.3e}")
     bad = {k: v for k, v in rows.items() if not v[0] <= max(5e-2, 2 * v[1])}
     if bad:
-        raise AssertionError(f"MMN bf16 gradients differ between routes: {bad}")
+        raise AssertionError(f"MMN bf16 gradients differ from the plain path's: {bad}")
     if not all(np.isfinite(float(g.abs().max())) and float(g.abs().max()) > 0
-               for g in grads["rank-4"].values()):
+               for g in grads["plain"].values()):
         raise AssertionError("MMN gradients: a head tensor has zero or non-finite grads")
     del grads
 
-    # ---- optimizer steps with dropout on (flat route) ----
+    # ---- optimizer steps with dropout on ----
     opt, sched = build_optimizer(engine.head.parameters(), cfg,
                                  base_lr=cfg.trans_lr * cfg.scale_lr,
                                  iters_per_epoch=max(1, cfg.iter_per_epoch // 2))
@@ -936,46 +927,30 @@ def mmn_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     losses, times = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with pivot_route(True):
-        for i in range(3):
-            t0 = time.perf_counter()
-            m = step(e2, torch.Generator().manual_seed(100 + i))
-            losses.append(float(m["loss_mean"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+    for i in range(3):
+        t0 = time.perf_counter()
+        m = step(e2, torch.Generator().manual_seed(100 + i))
+        losses.append(float(m["loss_mean"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
     train_s = statistics.median(times[1:])
-    print(f"MMN train step (use_amp, flat route, dropout on, SGD): {2 / train_s:.3f} episodes/s "
+    print(f"MMN train step (use_amp, dropout on, SGD): {2 / train_s:.3f} episodes/s "
           f"({train_s * 1e3:.1f} ms per step of 2 episodes; steps {np.round(times, 3).tolist()} s); "
           f"losses {np.round(losses, 4).tolist()}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"MMN train steps: non-finite loss {losses}")
-    with pivot_route(True):
-        device_profile(lambda: step(e2, torch.Generator().manual_seed(200)),
-                       "MMN train step of 2 episodes (flat route), torch.profiler", card)
+    device_profile(lambda: step(e2, torch.Generator().manual_seed(200)),
+                   "MMN train step of 2 episodes, torch.profiler", card)
     return engine, eval_launches, train_launches["flat"]
-
-
-def consensus_route(name: str):
-    """The consensus route for the enclosed calls: "rank-4" (the default),
-    "flat" (FSS_PIVOT_MXU=1, the pivot kernels) or "6D" (FSS_NCONS_R4=0)."""
-    stack = contextlib.ExitStack()
-    stack.enter_context(env_var("FSS_PIVOT_MXU", "1" if name == "flat" else None))
-    stack.enter_context(env_var("FSS_NCONS_R4", "0" if name == "6D" else None))
-    return stack
-
-
-MATCH_ROUTES = ("rank-4", "flat", "6D")
-CV4_ROUTES = ("q", "qp", "gemm", "loop")
 
 
 def match_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     """The match head, configs/pascal_match.yaml as shipped: the pivot pair
     at its first block's new shape (1 -> 10) against the plain versions;
-    eval + serve of E_MMN and a train step of 2 on the rank-4, flat and 6D
-    routes (counted; argmax and gradients held against rank-4; episodes/s
-    and peak memory); then ``conv4d cv4``'s four routes on one eval batch
-    and one train step."""
+    eval + serve of E_MMN and a train step of 2 (counted: K1 and the pivot
+    kernels; episodes/s and peak memory); then ``conv4d cv4`` on one eval
+    batch and one train step."""
     (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
      cuda_pivot, get_corr, build_pspnet, CenterPivotConv4d) = modules
     cfg = merge_cfg_from_list(load_cfg("configs/pascal_match.yaml"),
@@ -993,163 +968,105 @@ def match_phase(card, calib_images, calib_episodes, cuda_ms, modules):
     backbone = build_pspnet(cfg).to("cuda")
     calibrate_batchnorm(backbone, calib_images)
     engine = HeadEngine(cfg, "match", backbone=backbone, device="cuda")
-    with consensus_route("flat"):
-        calibrate_consensus(engine, calib_episodes, get_corr)
+    calibrate_consensus(engine, calib_episodes, get_corr)
     episodes = make_episode_batch(17, E_MMN, size=IMG, shot=SHOT)
     w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(6))
 
-    # ---- eval + serve on each route, counted ----
-    preds, launches, rates = {}, {}, {}
-    for name in MATCH_ROUTES:
-        with consensus_route(name):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            tracing.reset()
-            metrics = engine.eval_metrics_batch(episodes, w0=w0)
-            masks = engine.serve_batch(episodes, w0=w0)
-            torch.cuda.synchronize()
-            launches[name] = launch_counts()
-            peak = peak_gib()
-            preds[name] = engine.predict_batch(episodes, w0=w0)
-            serve_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
-            eval_s = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 3)
-        rates[name] = dict(eval=E_MMN / eval_s, serve=E_MMN / serve_s, peak_gib=peak)
-        for k in ("inter", "union", "inter1", "union1", "loss"):
-            if not torch.isfinite(metrics[k].float()).all():
-                raise AssertionError(f"match eval ({name}): non-finite {k}")
-        if tuple(masks.shape) != (E_MMN, IMG, IMG) or not set(masks.unique().tolist()) <= {0, 1}:
-            raise AssertionError(f"match masks ({name}) {tuple(masks.shape)}")
-        fg = {k: (metrics[f"inter{k}"][:, 1] / metrics[f"union{k}"][:, 1].clamp(min=1))
-              .cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
-        print(f"match {name} route: eval_metrics_batch {rates[name]['eval']:.3f} episodes/s "
-              f"({eval_s * 1e3:.1f} ms per batch of {E_MMN}), serve_batch "
-              f"{rates[name]['serve']:.3f} episodes/s ({serve_s * 1e3:.1f} ms); peak memory "
-              f"{peak:.2f} GiB; launches (eval + serve) {launches[name]}; per-episode fg IoU "
-              f"of pred, pred1 and the adapted classifier {fg} [{card}; fp32, TF32 off, "
-              f"1-shot, 473 px, adapt_iter {STEPS}, cycle mask on]")
-        pivots = launches[name]["pivot_fwd"] + launches[name]["pivot_dw"]
-        if launches[name]["adapt_binary"] < 1 or (name == "flat") != (pivots > 0):
-            raise AssertionError(f"match {name} route launches {launches[name]}: K1 must "
-                                 "launch, the pivot kernels on the flat route only")
-    for name in ("rank-4", "flat"):
-        with consensus_route(name):
-            device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
-                           f"match eval batch of {E_MMN} ({name} route), torch.profiler", card,
-                           groups=(("conv (backbone, rank-4 planes)", ("conv", "fprop")),
-                                   ("gemm (correlation, readout)", ("gemm", "sgemm")),
-                                   ("copies and permutes", ("copy", "permute")),
-                                   ("reductions and argmax", ("reduce", "argmax", "max")),
-                                   ("elementwise", ("elementwise", "vectorized"))))
-    for name in ("flat", "6D"):
-        agree = {k: float((preds[name][k].argmax(-1) == preds["rank-4"][k].argmax(-1))
-                          .float().mean()) for k in ("pred", "pred1")}
-        rel = {k: float((preds[name][k] - preds["rank-4"][k]).abs().max()
-                        / preds["rank-4"][k].abs().max()) for k in ("pred", "pred1")}
-        print(f"match {name} vs rank-4 route: argmax agreement {agree} (>= 0.995 needed), "
-              f"max|p - p_r4| / max|p_r4| {rel}")
-        if min(agree.values()) < 0.995:
-            raise AssertionError(f"match {name} and rank-4 routes disagree: {agree}")
-    del preds
+    # ---- eval + serve, counted ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tracing.reset()
+    metrics = engine.eval_metrics_batch(episodes, w0=w0)
+    masks = engine.serve_batch(episodes, w0=w0)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = peak_gib()
+    serve_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 3)
+    eval_s = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 3)
+    for k in ("inter", "union", "inter1", "union1", "loss"):
+        if not torch.isfinite(metrics[k].float()).all():
+            raise AssertionError(f"match eval: non-finite {k}")
+    if tuple(masks.shape) != (E_MMN, IMG, IMG) or not set(masks.unique().tolist()) <= {0, 1}:
+        raise AssertionError(f"match masks {tuple(masks.shape)}")
+    fg = {k: (metrics[f"inter{k}"][:, 1] / metrics[f"union{k}"][:, 1].clamp(min=1))
+          .cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
+    print(f"match: eval_metrics_batch {E_MMN / eval_s:.3f} episodes/s "
+          f"({eval_s * 1e3:.1f} ms per batch of {E_MMN}), serve_batch "
+          f"{E_MMN / serve_s:.3f} episodes/s ({serve_s * 1e3:.1f} ms); peak memory "
+          f"{peak:.2f} GiB; launches (eval + serve) {launches}; per-episode fg IoU "
+          f"of pred, pred1 and the adapted classifier {fg} [{card}; fp32, TF32 off, "
+          f"1-shot, 473 px, adapt_iter {STEPS}, cycle mask on]")
+    if launches["adapt_binary"] < 1 or launches["pivot_fwd"] < 1:
+        raise AssertionError(f"match launches {launches}: K1 and pivot_fwd must launch")
+    device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                   f"match eval batch of {E_MMN}, torch.profiler", card,
+                   groups=(("conv (backbone)", ("conv", "fprop")),
+                           ("gemm (correlation, readout)", ("gemm", "sgemm")),
+                           ("copies and permutes", ("copy", "permute")),
+                           ("reductions and argmax", ("reduce", "argmax", "max")),
+                           ("elementwise", ("elementwise", "vectorized"))))
 
-    # ---- a train step of 2 on each route: gradients against rank-4 ----
+    # ---- a train step of 2, counted ----
     e2 = {k: v[:2] for k, v in episodes.items()}
-    grads, train = {}, {}
-    opt = torch.optim.SGD(engine.head.parameters(), lr=cfg.trans_lr)
-    step = engine.make_train_step(opt)
+    step = engine.make_train_step(torch.optim.SGD(engine.head.parameters(), lr=cfg.trans_lr))
     saved = {k: v.clone() for k, v in engine.head.state_dict().items()}
-    for name in MATCH_ROUTES:
-        with consensus_route(name):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            tracing.reset()
-            m = engine.backward_batch(e2, w0=w0[:2])
-            torch.cuda.synchronize()
-            counts = launch_counts()
-            grads[name] = {k: p.grad.clone() for k, p in engine.head.named_parameters()}
-            step_s = host_seconds(lambda: step(e2, w0=w0[:2]), 2)
-            peak = peak_gib()
-            engine.head.load_state_dict(saved)
-        if not torch.isfinite(m["loss_mean"]):
-            raise AssertionError(f"match train step ({name}): non-finite loss")
-        pivots = counts["pivot_fwd"] + counts["pivot_dw"]
-        if (name == "flat") != (min(counts["pivot_fwd"], counts["pivot_dw"]) > 0) \
-                or (name != "flat" and pivots) or counts["adapt_binary"] < 1:
-            raise AssertionError(f"match train step ({name}) launches {counts}")
-        train[name] = dict(rate=2 / step_s, peak_gib=peak, launches=counts)
-        print(f"match {name} route: train step of 2 (SGD) {2 / step_s:.3f} episodes/s "
-              f"({step_s * 1e3:.1f} ms); peak memory {peak:.2f} GiB; launches (the gradients' "
-              f"step) {counts} [{card}]")
-    scale = {k: float(g.abs().max()) for k, g in grads["rank-4"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tracing.reset()
+    m = engine.backward_batch(e2, w0=w0[:2])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    scale = {k: float(p.grad.abs().max()) for k, p in engine.head.named_parameters()}
+    step_s = host_seconds(lambda: step(e2, w0=w0[:2]), 2)
+    peak = peak_gib()
+    engine.head.load_state_dict(saved)
+    if not torch.isfinite(m["loss_mean"]):
+        raise AssertionError("match train step: non-finite loss")
     if not all(np.isfinite(v) and v > 0 for v in scale.values()):
         raise AssertionError(f"match gradients: zero or non-finite tensor {scale}")
-    for name in ("flat", "6D"):
-        worst = max((float((grads[name][k] - g).abs().max()) / scale[k], k)
-                    for k, g in grads["rank-4"].items())
-        print(f"match train step gradients, {name} vs rank-4 route: worst max|g - g_r4| / "
-              f"max|g_r4| = {worst[0]:.3e} ({worst[1]}); tolerance 1e-3")
-        if not worst[0] <= 1e-3:
-            raise AssertionError(f"match gradients differ, {name} vs rank-4: {worst}")
-    del grads
+    if min(counts["pivot_fwd"], counts["pivot_dw"]) < 1 or counts["adapt_binary"] < 1:
+        raise AssertionError(f"match train step launches {counts}")
+    print(f"match: train step of 2 (SGD) {2 / step_s:.3f} episodes/s ({step_s * 1e3:.1f} ms); "
+          f"peak memory {peak:.2f} GiB; launches (the gradients' step) {counts} [{card}]")
 
-    # ---- conv4d cv4: the true 4D conv's four routes ----
-    cv4 = cv4_phase(cfg, backbone, calib_episodes, episodes, w0, card,
-                    (HeadEngine, get_corr))
-    return dict(ci1=ci1, eval_launches=launches["flat"], train_launches=train["flat"]["launches"],
-                rates=rates, train=train, cv4=cv4, head_state=module_state(engine.head))
+    # ---- conv4d cv4: the true 4D conv ----
+    cv4_phase(cfg, backbone, calib_episodes, episodes, w0, card, (HeadEngine, get_corr))
+    return dict(ci1=ci1, eval_launches=launches, train_launches=counts,
+                head_state=module_state(engine.head))
 
 
 def cv4_phase(cfg, backbone, calib_episodes, episodes, w0, card, modules):
     """The match head with ``conv4d cv4`` (1 -> 10 -> 10 -> 1 true 4D convs,
-    symmetric, U(+-1/sqrt(fan_in)) weights and biases): one eval batch of 2
-    and one train step of 2 on each ``FSS_CONV4D_IM2COL`` route, its biases
-    calibrated as the centre-pivot stack's are. Predictions within 1e-4 of
-    the q route's scale, gradients within 1e-3 of each tensor's largest
-    entry; ms (eval after a warm-up call, the step's first call) and peak
-    memory of each."""
+    symmetric, U(+-1/sqrt(fan_in)) weights and biases), its biases
+    calibrated as the centre-pivot stack's are: one eval batch of 2 and one
+    train step of 2, finite, every head tensor with a gradient; ms (eval
+    after a warm-up call, the step's first call) and peak memory."""
     HeadEngine, get_corr = modules
     ccfg = cfg.clone()
     ccfg.conv4d = "cv4"
     engine = HeadEngine(ccfg, "match", backbone=backbone, device="cuda")
     calibrate_consensus(engine, calib_episodes, get_corr)
     e2 = {k: v[:2] for k, v in episodes.items()}
-    out, ref = {}, None
-    for route in CV4_ROUTES:
-        with env_var("FSS_CONV4D_IM2COL", route):
-            engine.predict_batch(e2, w0=w0[:2])            # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            p = engine.predict_batch(e2, w0=w0[:2])["pred1"]
-            torch.cuda.synchronize()
-            eval_ms = (time.perf_counter() - t0) * 1e3
-            eval_peak = peak_gib()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            m = engine.backward_batch(e2, w0=w0[:2])
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3
-            step_peak = peak_gib()
-        g = {k: q.grad.clone() for k, q in engine.head.named_parameters()}
-        if not torch.isfinite(m["loss_mean"]) or not torch.isfinite(p).all():
-            raise AssertionError(f"cv4 {route}: non-finite loss or prediction")
-        if ref is None:
-            ref = (p, g)
-            p_err, g_err = 0.0, 0.0
-        else:
-            p_err = float((p - ref[0]).abs().max() / ref[0].abs().max())
-            g_err = max(float((g[k] - r).abs().max() / r.abs().max()) for k, r in ref[1].items())
-        out[route] = dict(eval_ms=eval_ms, eval_peak_gib=eval_peak, step_ms=step_ms,
-                          step_peak_gib=step_peak, pred_rel=p_err, grad_rel=g_err)
-        print(f"match conv4d cv4, FSS_CONV4D_IM2COL={route}: eval batch of 2 {eval_ms:.1f} ms "
-              f"(peak {eval_peak:.2f} GiB), train step of 2 (gradients) {step_ms:.1f} ms "
-              f"(peak {step_peak:.2f} GiB); max|p - p_q| / max|p_q| = {p_err:.3e} (tolerance "
-              f"1e-4), worst gradient max|g - g_q| / max|g_q| = {g_err:.3e} (tolerance 1e-3) "
-              f"[{card}]")
-        if not (p_err <= 1e-4 and g_err <= 1e-3):
-            raise AssertionError(f"cv4 route {route} disagrees with q: {out[route]}")
-    if not all(float(r.abs().max()) > 0 for r in ref[1].values()):
+    engine.predict_batch(e2, w0=w0[:2])            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = engine.predict_batch(e2, w0=w0[:2])["pred1"]
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_peak = peak_gib()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = engine.backward_batch(e2, w0=w0[:2])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_peak = peak_gib()
+    if not torch.isfinite(m["loss_mean"]) or not torch.isfinite(p).all():
+        raise AssertionError("cv4: non-finite loss or prediction")
+    if not all(float(q.grad.abs().max()) > 0 for q in engine.head.parameters()):
         raise AssertionError("cv4: a head tensor has zero gradients")
-    return out
+    print(f"match conv4d cv4: eval batch of 2 {eval_ms:.1f} ms (peak {eval_peak:.2f} GiB), "
+          f"train step of 2 (gradients) {step_ms:.1f} ms (peak {step_peak:.2f} GiB) [{card}]")
 
 
 @contextlib.contextmanager
@@ -1167,9 +1084,9 @@ def plain_inner_loop():
         inner_loop.adapt_binary = kernel
 
 
-def head_route_run(engine, episodes, w0, e_train, reps):
-    """On the route in effect: eval + serve of ``episodes`` counted (launches,
-    peak GiB, episodes/s of each), the predictions, and one train step of
+def head_run(engine, episodes, w0, e_train, reps):
+    """Eval + serve of ``episodes`` counted (launches, peak GiB, episodes/s of
+    each) and one train step of
     ``e_train`` episodes counted (its gradients, launches, peak GiB and the
     timed SGD step's episodes/s; the head's weights are put back after)."""
     e = len(episodes["q_img"])
@@ -1181,7 +1098,6 @@ def head_route_run(engine, episodes, w0, e_train, reps):
     torch.cuda.synchronize()
     out = dict(metrics=metrics, masks=masks, eval_launches=launch_counts(),
                eval_peak_gib=peak_gib())
-    out["preds"] = engine.predict_batch(episodes, w0=w0)
     out["serve"] = e / host_seconds(lambda: engine.serve_batch(episodes, w0=w0), reps)
     out["eval"] = e / host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), reps)
     sub = {k: v[:e_train] for k, v in episodes.items()}
@@ -1210,31 +1126,20 @@ def head_route_run(engine, episodes, w0, e_train, reps):
     return out
 
 
-def route_text(r, e, e_train) -> str:
+def head_text(r, e, e_train) -> str:
     return (f"eval_metrics_batch {r['eval']:.3f} episodes/s, serve_batch {r['serve']:.3f} "
             f"episodes/s (batch {e}; peak {r['eval_peak_gib']:.2f} GiB; launches "
             f"{r['eval_launches']}), train step of {e_train} (SGD) {r['train']:.3f} episodes/s "
             f"(peak {r['train_peak_gib']:.2f} GiB; launches {r['train_launches']})")
 
 
-def worst_grad_rel(grads, ref):
-    """The worst max|g - g_ref| / max|g_ref| over the tensors, and its name."""
-    if sorted(grads) != sorted(ref):
-        raise AssertionError(f"gradient tensors differ: {sorted(grads)} {sorted(ref)}")
-    return max((float((grads[k] - g).abs().max()) / float(g.abs().max()), k)
-               for k, g in ref.items())
-
-
 def chm_phase(card, calib_images, modules):
     """The CHM head, configs/pascal_match.yaml with ``crm_type chm`` (ResNet-50,
-    ``rmid mid4``, ktype psi, fp32): on each ``FSS_CONV4D_IM2COL`` route
-    (q, the default, then qp, gemm and loop) eval + serve of E_MMN and a
-    train step of 2 (the whole-loss checkpoint on, CHM's default), counted
-    (K1 must launch, no pivot kernel; hough4d twice an episode in eval and
-    serve on route q, never in the train step or on another route),
-    episodes/s and peak GiB of each;
-    predictions within 1e-4 of the q route's scale and gradients within
-    1e-3 of each tensor's largest entry of the q route's."""
+    ``rmid mid4``, ktype psi, fp32): eval + serve of E_MMN and a train step
+    of 2 (the whole-loss checkpoint on, CHM's default), counted (K1 must
+    launch, no pivot kernel; hough4d twice an episode in eval and serve,
+    never in the train step), episodes/s and peak GiB, every head tensor
+    with a gradient; where an eval batch's time goes."""
     (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
      cuda_pivot, build_pspnet) = modules
     cfg = merge_cfg_from_list(load_cfg("configs/pascal_match.yaml"),
@@ -1249,39 +1154,24 @@ def chm_phase(card, calib_images, modules):
     engine = HeadEngine(cfg, "chm", backbone=backbone, device="cuda")
     episodes = make_episode_batch(19, E_MMN, size=IMG, shot=SHOT)
     w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(8))
-    rows = {}
-    for route in CV4_ROUTES:
-        with env_var("FSS_CONV4D_IM2COL", route):
-            r = head_route_run(engine, episodes, w0, 2, 1)
-        for key in ("eval_launches", "train_launches"):
-            # eval + serve run CHM6d and CHM4d once an episode each, without autograd
-            hough = 4 * E_MMN if route == "q" and key == "eval_launches" else 0
-            if r[key]["adapt_binary"] < 1 or r[key]["pivot_fwd"] + r[key]["pivot_dw"] \
-                    or r[key]["hough4d"] != hough:
-                raise AssertionError(f"CHM {route} route {key} {r[key]}: K1 must launch, no "
-                                     f"pivot kernel, hough4d {hough} times")
-        fg = {k: (r["metrics"][f"inter{k}"][:, 1] / r["metrics"][f"union{k}"][:, 1]
-                  .clamp(min=1)).cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
-        print(f"CHM FSS_CONV4D_IM2COL={route}: {route_text(r, E_MMN, 2)}; per-episode fg IoU "
-              f"of pred, pred1 and the adapted classifier {fg} [{card}; fp32, TF32 off, "
-              f"1-shot, 473 px, adapt_iter {STEPS}]")
-        if route != "q":
-            ref = rows["q"]
-            rel = {k: float((r["preds"][k] - ref["preds"][k]).abs().max()
-                            / ref["preds"][k].abs().max()) for k in ("pred", "pred1")}
-            g_rel = worst_grad_rel(r["grads"], ref["grads"])
-            print(f"CHM {route} vs q route: max|p - p_q| / max|p_q| {rel} (tolerance 1e-4), "
-                  f"worst gradient max|g - g_q| / max|g_q| {g_rel[0]:.3e} ({g_rel[1]}; "
-                  "tolerance 1e-3)")
-            if not (max(rel.values()) <= 1e-4 and g_rel[0] <= 1e-3):
-                raise AssertionError(f"CHM route {route} disagrees with q: {rel} {g_rel}")
-            del r["preds"], r["grads"]
-        rows[route] = r
-    scale = {k: float(g.abs().max()) for k, g in rows["q"]["grads"].items()}
+    r = head_run(engine, episodes, w0, 2, 1)
+    for key in ("eval_launches", "train_launches"):
+        # eval + serve run CHM6d and CHM4d once an episode each, without autograd
+        hough = 4 * E_MMN if key == "eval_launches" else 0
+        if r[key]["adapt_binary"] < 1 or r[key]["pivot_fwd"] + r[key]["pivot_dw"] \
+                or r[key]["hough4d"] != hough:
+            raise AssertionError(f"CHM {key} {r[key]}: K1 must launch, no pivot kernel, "
+                                 f"hough4d {hough} times")
+    fg = {k: (r["metrics"][f"inter{k}"][:, 1] / r["metrics"][f"union{k}"][:, 1]
+              .clamp(min=1)).cpu().numpy().round(4).tolist() for k in ("", "1", "0")}
+    print(f"CHM: {head_text(r, E_MMN, 2)}; per-episode fg IoU of pred, pred1 and the "
+          f"adapted classifier {fg} [{card}; fp32, TF32 off, 1-shot, 473 px, adapt_iter "
+          f"{STEPS}]")
+    scale = {k: float(g.abs().max()) for k, g in r["grads"].items()}
     if not all(np.isfinite(v) and v > 0 for v in scale.values()):
         raise AssertionError(f"CHM gradients: zero or non-finite tensor {scale}")
     device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
-                   f"CHM eval batch of {E_MMN} (q route), torch.profiler", card,
+                   f"CHM eval batch of {E_MMN}, torch.profiler", card,
                    groups=(("conv (backbone, scale convs, CHM6d/CHM4d)", ("conv", "fprop",
                                                                        "implicit")),
                            ("gemm (correlations, interpolation, readout)", ("gemm",)),
@@ -1290,24 +1180,17 @@ def chm_phase(card, calib_images, modules):
                            ("elementwise", ("elementwise", "vectorized"))))
     state = {"backbone": module_state(engine.backbone), "head": module_state(engine.head)}
     return dict(cfg=cfg, state=state, episodes=episodes, w0=w0,
-                rows={k: {kk: v for kk, v in r.items() if kk not in ("preds", "grads",
-                                                                    "metrics", "masks")}
-                      for k, r in rows.items()})
-
-
-DETR_ROUTES = ("rank-4", "flat")
+                run={k: v for k, v in r.items() if k not in ("grads", "metrics", "masks")})
 
 
 def detr_phase(card, calib_images, calib_episodes, modules):
     """The DeTr head, configs/pascal_trans.yaml as shipped (ResNet-50, l34
     taps reduced to 512, cross-attention only, fp32), then with ``sf_att
-    True`` (the deformable self-attention on top): on the rank-4 and flat
-    routes eval + serve of E_MMN and a train step of 2, counted (K1 on both,
-    pivot_fwd and pivot_dw on the flat route only), episodes/s and peak
-    GiB; the flat route's argmax of pred and pred1 >= 99.5% equal to
-    rank-4's and its fp32 head gradients within 1e-3 of each tensor's
-    largest entry; the kernel path's masks (flat route, K1) >= 99.5% equal
-    to the plain path's (rank-4 cuDNN consensus, K1's plain version)."""
+    True`` (the deformable self-attention on top): eval + serve of E_MMN and
+    a train step of 2, counted (K1, pivot_fwd and pivot_dw must launch),
+    episodes/s and peak GiB, every head tensor with a gradient; the kernel
+    path's masks (pivot kernels, K1) >= 99.5% equal to the plain path's
+    (``plain_consensus``, K1's plain version)."""
     (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
      cuda_pivot, get_corr, build_pspnet) = modules
     base = merge_cfg_from_list(load_cfg("configs/pascal_trans.yaml"),
@@ -1325,61 +1208,44 @@ def detr_phase(card, calib_images, calib_episodes, modules):
     for label, extra in (("shipped", []), ("sf_att", ["sf_att", "True"])):
         cfg = merge_cfg_from_list(base.clone(), extra)
         engine = HeadEngine(cfg, "detr", backbone=backbone, device="cuda")
-        with consensus_route("flat"):
-            calibrate_consensus(engine, calib_episodes, get_corr)
+        calibrate_consensus(engine, calib_episodes, get_corr)
         w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(10))
-        rows = {}
-        for name in DETR_ROUTES:
-            with consensus_route(name):
-                r = head_route_run(engine, episodes, w0, 2, 1)
-            flat = name == "flat"
-            ev, tr = r["eval_launches"], r["train_launches"]
-            if ev["adapt_binary"] < 1 or tr["adapt_binary"] < 1 \
-                    or (ev["pivot_fwd"] > 0) != flat \
-                    or (min(tr["pivot_fwd"], tr["pivot_dw"]) > 0) != flat \
-                    or (not flat and tr["pivot_fwd"] + tr["pivot_dw"]):
-                raise AssertionError(f"DeTr ({label}) {name} route launches {ev} {tr}: K1 "
-                                     "must launch, the pivot kernels on the flat route only")
-            print(f"DeTr ({label}) {name} route: {route_text(r, E_MMN, 2)} [{card}; fp32, "
-                  f"TF32 off, 1-shot, 473 px, adapt_iter {STEPS}]")
-            rows[name] = r
-        flat, r4 = rows["flat"], rows["rank-4"]
-        agree = {k: float((flat["preds"][k].argmax(-1) == r4["preds"][k].argmax(-1))
-                          .float().mean()) for k in ("pred", "pred1")}
-        g_rel = worst_grad_rel(flat["grads"], r4["grads"])
-        if not all(float(g.abs().max()) > 0 for g in r4["grads"].values()):
+        r = head_run(engine, episodes, w0, 2, 1)
+        ev, tr = r["eval_launches"], r["train_launches"]
+        if min(ev["adapt_binary"], tr["adapt_binary"], ev["pivot_fwd"], tr["pivot_fwd"],
+               tr["pivot_dw"]) < 1:
+            raise AssertionError(f"DeTr ({label}) launches {ev} {tr}: K1 and the pivot "
+                                 "kernels must launch")
+        print(f"DeTr ({label}): {head_text(r, E_MMN, 2)} [{card}; fp32, TF32 off, 1-shot, "
+              f"473 px, adapt_iter {STEPS}]")
+        if not all(float(g.abs().max()) > 0 for g in r["grads"].values()):
             raise AssertionError(f"DeTr ({label}): a head tensor has zero gradients")
-        with consensus_route("rank-4"), plain_inner_loop():
+        with plain_consensus(), plain_inner_loop():
             tracing.reset()
             plain_masks = engine.serve_batch(episodes, w0=w0)
             torch.cuda.synchronize()
-            if tracing.counts()["adapt_binary"]:
-                raise AssertionError("the plain path launched K1")
-        plain_agree = float((flat["masks"] == plain_masks).float().mean())
-        print(f"DeTr ({label}) flat vs rank-4 route: argmax agreement {agree} (>= 0.995 "
-              f"needed); worst gradient max|g - g_r4| / max|g_r4| {g_rel[0]:.3e} ({g_rel[1]}; "
-              f"tolerance 1e-3); kernel-path masks (flat, K1) equal to the plain path's "
-              f"(rank-4, K1's plain version) on {plain_agree:.6f} of pixels (>= 0.995 needed)")
-        if min(agree.values()) < 0.995 or g_rel[0] > 1e-3 or plain_agree < 0.995:
-            raise AssertionError(f"DeTr ({label}): flat vs rank-4 {agree} {g_rel}, kernel vs "
-                                 f"plain path {plain_agree}")
+            if tracing.counts()["adapt_binary"] or tracing.counts()["pivot_fwd"]:
+                raise AssertionError("the plain path launched K1 or pivot_fwd")
+        plain_agree = float((r["masks"] == plain_masks).float().mean())
+        print(f"DeTr ({label}): kernel-path masks (pivot kernels, K1) equal to the plain "
+              f"path's (6D cuDNN consensus, K1's plain version) on {plain_agree:.6f} of "
+              f"pixels (>= 0.995 needed)")
+        if plain_agree < 0.995:
+            raise AssertionError(f"DeTr ({label}): kernel vs plain path {plain_agree}")
         if label == "shipped":
-            with consensus_route("flat"):
-                device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
-                               f"DeTr eval batch of {E_MMN} (flat route), torch.profiler",
-                               card, groups=(("conv (backbone, adjust)", ("conv", "fprop")),
-                                             ("gemm (correlation, readout)", ("gemm",)),
-                                             ("copies and permutes", ("copy", "permute")),
-                                             ("reductions", ("reduce", "max")),
-                                             ("elementwise", ("elementwise", "vectorized"))))
+            device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                           f"DeTr eval batch of {E_MMN}, torch.profiler",
+                           card, groups=(("conv (backbone, adjust)", ("conv", "fprop")),
+                                         ("gemm (correlation, readout)", ("gemm",)),
+                                         ("copies and permutes", ("copy", "permute")),
+                                         ("reductions", ("reduce", "max")),
+                                         ("elementwise", ("elementwise", "vectorized"))))
             state = {"backbone": module_state(engine.backbone),
                      "head": module_state(engine.head)}
             out["serve"] = dict(cfg=cfg, state=state, episodes=episodes, w0=w0)
-        out[label] = {name: {k: v for k, v in r.items()
-                             if k not in ("preds", "grads", "metrics", "masks")}
-                      for name, r in rows.items()}
+        out[label] = {k: v for k, v in r.items() if k not in ("grads", "metrics", "masks")}
         out[label]["plain_agree"] = plain_agree
-        del engine, rows, flat, r4
+        del engine, r
         torch.cuda.empty_cache()
     return out
 
@@ -1407,8 +1273,8 @@ def eval_preds(engine, episodes, w0):
 
 
 def eval_step_run(engine, episodes, w0, e_train, serve):
-    """On the route in effect: eval of ``episodes`` counted and timed, its
-    predictions; with ``serve`` serve of them counted and timed (its masks
+    """Eval of ``episodes`` counted and timed, its predictions; with
+    ``serve`` serve of them counted and timed (its masks
     the argmax of the eval path's ``pred``); with ``e_train`` one train step
     of that many episodes counted (its gradients) and one timed SGD step
     (the head's weights put back after)."""
@@ -1465,14 +1331,14 @@ def expect_launches(label, got, k1, pivot_fwd):
 
 
 def plain_agreement(engine, episodes, w0, masks):
-    """The share of pixels where ``masks`` equal the plain path's: the rank-4
-    consensus and K1's plain version."""
-    with consensus_route("rank-4"), plain_inner_loop():
+    """The share of pixels where ``masks`` equal the plain path's: the 6D
+    cuDNN consensus (``plain_consensus``) and K1's plain version."""
+    with plain_consensus(), plain_inner_loop():
         tracing.reset()
         plain = eval_preds(engine, episodes, w0)["pred"].argmax(-1)
         torch.cuda.synchronize()
-        if tracing.counts()["adapt_binary"]:
-            raise AssertionError("the plain path launched K1")
+        if tracing.counts()["adapt_binary"] or tracing.counts()["pivot_fwd"]:
+            raise AssertionError("the plain path launched K1 or pivot_fwd")
     return float((masks == plain).float().mean())
 
 
@@ -1494,7 +1360,8 @@ def fuse_stack_holds(stack, card):
     """The fuse head's ``_Conv4dStack`` on its 6D route at the 473 px shape,
     (1, 60, 60, 60, 60, 1) -> (1, 60, 60, 30, 30, 1), fp32 against fp64 (the
     same route, the fp64 run's ReLU masks: ``stack_relu_fixed``); its 16 ->
-    1 block on 6D against rank-4 at its input (1, 60, 60, 30, 30, 16):
+    1 block on 6D against the rank-4 layout's plane convs at its input (1,
+    60, 60, 30, 30, 16):
     outputs and gradients within 1e-4 of each one's scale. The stack's
     biases are set to 0.05 (a seeded stack has zero biases and may be
     dead)."""
@@ -1547,9 +1414,9 @@ def fuse_stack_holds(stack, card):
 def att_asy_fuse_phase(card, calib_images, match_state, modules):
     """Phase 6g: the att head (configs/pascal_asy.yaml, no att config ships)
     in each ``trans_type`` and at 5 shots, the asy head on the same config,
-    the fuse head (configs/pascal_fuse.yaml) over the match head of 6d on
-    the flat and rank-4 routes, the fuse stack's holds and the three
-    trainers; returns the launch counts and what phase 12 exports."""
+    the fuse head (configs/pascal_fuse.yaml) over the match head of 6d, the
+    fuse stack's holds and the three trainers; returns the launch counts
+    and what phase 12 exports."""
     (load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
      cuda_pivot, build_pspnet) = modules
     out = {}
@@ -1612,47 +1479,33 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
     engine.frozen_match.load_state_dict(match_state)
     episodes = make_episode_batch(29, E_MMN, size=IMG, shot=SHOT)
     w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(13))
-    rows = {}
-    for name in ("flat", "rank-4"):
-        with consensus_route(name):
-            r = eval_step_run(engine, episodes, w0, 2, serve=True)
-        piv = 6 if name == "flat" else 0
-        expect_launches(f"fuse {name} eval", r["eval_launches"], 1, piv * E_MMN)
-        expect_launches(f"fuse {name} serve", r["serve_launches"], 1, piv * E_MMN)
-        expect_launches(f"fuse {name} train step", r["train_launches"], 1, piv * 2)
-        print(f"fuse {name} route: {run_text(r, E_MMN, 2)} [{card}; fp32, TF32 off, 1-shot, "
-              f"473 px, adapt_iter {STEPS}]")
-        rows[name] = r
-    flat, r4 = rows["flat"], rows["rank-4"]
-    agree = {k: float((flat["preds"][k].argmax(-1) == r4["preds"][k].argmax(-1))
-                      .float().mean()) for k in ("pred", "pred1")}
-    g_rel = worst_grad_rel(flat["grads"], r4["grads"])
-    live = all(float(g.abs().max()) > 0 for g in r4["grads"].values())
-    plain_agree = plain_agreement(engine, episodes, w0, flat["preds"]["pred"].argmax(-1))
-    print(f"fuse flat vs rank-4 route: argmax agreement {agree} (>= 0.995 needed); worst "
-          f"FuseNet1 gradient max|g - g_r4| / max|g_r4| {g_rel[0]:.3e} ({g_rel[1]}; tolerance "
-          f"1e-3); kernel-path masks (flat, K1) equal to the plain path's (rank-4, K1's plain "
-          f"version) on {plain_agree:.6f} of pixels (>= 0.995 needed)")
-    if min(agree.values()) < 0.995 or g_rel[0] > 1e-3 or plain_agree < 0.995 or not live:
-        raise AssertionError(f"fuse: flat vs rank-4 {agree} {g_rel} (live {live}), kernel vs "
-                             f"plain path {plain_agree}")
-    with consensus_route("flat"):
-        device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
-                       f"fuse eval batch of {E_MMN} (flat route), torch.profiler", card,
-                       groups=(("conv (backbone, FuseNet1's 6D plane convs)", ("conv", "fprop",
-                                                                             "implicit")),
-                               ("gemm (correlations, readout, MLP)", ("gemm",)),
-                               ("copies and permutes", ("copy", "permute", "cat")),
-                               ("reductions", ("reduce", "max")),
-                               ("elementwise", ("elementwise", "vectorized"))))
+    r = eval_step_run(engine, episodes, w0, 2, serve=True)
+    expect_launches("fuse eval", r["eval_launches"], 1, 6 * E_MMN)
+    expect_launches("fuse serve", r["serve_launches"], 1, 6 * E_MMN)
+    expect_launches("fuse train step", r["train_launches"], 1, 6 * 2)
+    live = all(float(g.abs().max()) > 0 for g in r["grads"].values())
+    plain_agree = plain_agreement(engine, episodes, w0, r["preds"]["pred"].argmax(-1))
+    print(f"fuse: {run_text(r, E_MMN, 2)} [{card}; fp32, TF32 off, 1-shot, 473 px, adapt_iter "
+          f"{STEPS}]; kernel-path masks (pivot kernels, K1) equal to the plain path's (6D "
+          f"cuDNN consensus, K1's plain version) on {plain_agree:.6f} of pixels (>= 0.995 "
+          f"needed)")
+    if plain_agree < 0.995 or not live:
+        raise AssertionError(f"fuse: kernel vs plain path {plain_agree}, live gradients {live}")
+    device_profile(lambda: engine.eval_metrics_batch(episodes, w0=w0),
+                   f"fuse eval batch of {E_MMN}, torch.profiler", card,
+                   groups=(("conv (backbone, FuseNet1's 6D plane convs)", ("conv", "fprop",
+                                                                         "implicit")),
+                           ("gemm (correlations, readout, MLP)", ("gemm",)),
+                           ("copies and permutes", ("copy", "permute", "cat")),
+                           ("reductions", ("reduce", "max")),
+                           ("elementwise", ("elementwise", "vectorized"))))
     out["stack"] = fuse_stack_holds(engine.head.conv4d, card)
-    out["fuse"] = {name: {k: v for k, v in r.items() if k not in ("preds", "grads")}
-                   for name, r in rows.items()}
+    out["fuse"] = {k: v for k, v in r.items() if k not in ("preds", "grads")}
     out["fuse"]["plain_agree"] = plain_agree
     out["serve"] = dict(cfg=fcfg, episodes=episodes, w0=w0, state={
         "backbone": module_state(engine.backbone), "head": module_state(engine.head),
         "frozen_match": module_state(engine.frozen_match)})
-    del engine, backbone, rows, flat, r4
+    del engine, backbone, r
     torch.cuda.empty_cache()
     out["trainers"] = att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state)
     return out
@@ -1660,7 +1513,7 @@ def att_asy_fuse_phase(card, calib_images, match_state, modules):
 
 def att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state):
     """``train_att`` (configs/pascal_asy.yaml, cross_att), ``train_asy`` and
-    ``train_fuse`` (configs/pascal_fuse.yaml, flat route, ``matchnet_ckpt`` a
+    ``train_fuse`` (configs/pascal_fuse.yaml, ``matchnet_ckpt`` a
     file of the match head of 6d) on synthetic episodes, 4 steps of 2 and a
     validation of 4, counted (K1 in each, pivot_fwd in train_fuse only,
     pivot_dw never); run in a directory of the smoke's own."""
@@ -1674,14 +1527,14 @@ def att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state):
               "2", "test_num", "4", "save_models", "False"]
     out = {}
     try:
-        for name, path, extra, entry, head, flat in (
+        for name, path, extra, entry, head, fuse in (
                 ("train_att", "configs/pascal_asy.yaml", [], train_att, "att", False),
                 ("train_asy", "configs/pascal_asy.yaml", [], train_asy, "asy", False),
                 ("train_fuse", "configs/pascal_fuse.yaml", ["matchnet_ckpt", ckpt], train_fuse,
                  "fuse", True)):
             cfg = merge_cfg_from_list(load_cfg(path), common + extra)
             lines = []
-            with contextlib.chdir(run_dir), pivot_route(flat):
+            with contextlib.chdir(run_dir):
                 t0 = time.perf_counter()
                 (best, launches, _) = counted(
                     lambda: entry.main(cfg, device="cuda", log=lines.append))
@@ -1689,13 +1542,12 @@ def att_asy_fuse_entries(load_cfg, merge_cfg_from_list, match_state):
                 log = log_txt_val(train_head.results_dir(cfg, head), "val: mIoU")
             val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
             loaded = any(str(l).startswith("=> loaded the frozen MatchNet") for l in lines)
-            print(f"{name}.main ({path}{' ' + ' '.join(extra[:1]) if extra else ''}"
-                  f"{', FSS_PIVOT_MXU=1' if flat else ''}; 4 steps of 2, test_num 4, synthetic "
-                  f"episodes): {val_line}; best {best:.4f}; {wall:.1f} s wall; launches "
-                  f"{launches}; log.txt {log}"
-                  + (f"; frozen MatchNet loaded from matchnet_ckpt: {loaded}" if flat else ""))
+            print(f"{name}.main ({path}{' ' + ' '.join(extra[:1]) if extra else ''}; 4 steps "
+                  f"of 2, test_num 4, synthetic episodes): {val_line}; best {best:.4f}; "
+                  f"{wall:.1f} s wall; launches {launches}; log.txt {log}"
+                  + (f"; frozen MatchNet loaded from matchnet_ckpt: {loaded}" if fuse else ""))
             if launches["adapt_binary"] < 1 or launches["pivot_dw"] or not np.isfinite(best) \
-                    or (launches["pivot_fwd"] > 0) != flat or (flat and not loaded):
+                    or (launches["pivot_fwd"] > 0) != fuse or (fuse and not loaded):
                 raise AssertionError(f"{name}: launches {launches}, best {best}, loaded {loaded}")
             out[name] = launches
     finally:
@@ -1719,11 +1571,9 @@ def cca_classes(episodes):
 def cca_phase(card, calib_images, calib_episodes, modules):
     """configs/pascal_cca.yaml as shipped (16-way base classifier, ``rmid
     l34``, ``wt_dc``, fp32), its BN statistics and consensus calibrated:
-    eval of 4 on the rank-4 and flat routes and a train step of 2 on each
-    (counted: the pivot pair on flat only, K1 never: the inner loop is
-    K-way), argmax of pred and pred1 >= 99.5% equal between the routes, head
-    gradients within 1e-3 of each tensor's largest entry; the K-way inner
-    loop's ms an episode; cca1's host relabel pass and a step on it; then
+    eval of 4 and a train step of 2 (counted: the pivot pair, K1 never: the
+    inner loop is K-way), a live head gradient; the K-way inner loop's ms
+    an episode; cca1's host relabel pass and a step on it; then
     ``train_cca``, ``train_cca1`` and ``train_count`` on synthetic episodes.
     Returns the launch counts and the calibrated fp32 backbone."""
     (load_cfg, merge_cfg_from_list, make_episode_batch, cuda_inner_loop, cuda_pivot,
@@ -1744,43 +1594,30 @@ def cca_phase(card, calib_images, calib_episodes, modules):
     calibrate_batchnorm(backbone, calib_images)
     fp32_backbone = module_state(backbone)
     engine = CCAEngine(cfg, backbone=backbone, device="cuda")
-    with pivot_route(True):
-        calibrate_consensus(engine, cca_classes(calib_episodes), get_corr)
+    calibrate_consensus(engine, cca_classes(calib_episodes), get_corr)
     episodes = cca_classes(make_episode_batch(17, E_CCA, size=IMG, shot=SHOT))
     rows = engine.new_rows(E_CCA, torch.Generator().manual_seed(5))
     w0 = engine.base_weight().expand(E_CCA, 16, CH).clone()
     w0[torch.arange(E_CCA), torch.as_tensor(episodes["cls"]).long()] = rows
-    out = {}
-    for route, flat in (("rank-4", False), ("flat", True)):
-        with pivot_route(flat):
-            r = cca_run(engine, episodes, w0)
-        out[route] = r
-        print(f"CCA ({route} route; configs/pascal_cca.yaml, fp32, {STEPS} K-way inner steps): "
-              f"eval of {E_CCA} {r['eval']:.3f} episodes/s (peak {r['eval_peak_gib']:.2f} GiB; "
-              f"launches {r['eval_launches']}), the train step's gradients for 2 "
-              f"{r['train']:.3f} episodes/s (peak {r['train_peak_gib']:.2f} GiB; launches "
-              f"{r['train_launches']}); loss {r['loss']:.5f} [{card}]")
-        expect = {"adapt_binary": 0, "adapt_binary_tiled": 0}
-        for key in ("eval_launches", "train_launches"):
-            got_l = r[key]
-            if {k: got_l.get(k, 0) for k in expect} != expect or \
-                    (got_l["pivot_fwd"] > 0) != flat or \
-                    (key == "train_launches" and (got_l["pivot_dw"] > 0) != flat):
-                raise AssertionError(f"CCA {route} {key}: {got_l}")
-    agree = {k: float((out["flat"]["preds"][k].argmax(-1) == out["rank-4"]["preds"][k]
-                       .argmax(-1)).float().mean()) for k in ("pred", "pred1")}
-    g4 = out["rank-4"]["grads"]
-    scale = {k: float(g.abs().max()) for k, g in g4.items()}
-    worst = max((float((out["flat"]["grads"][k] - g).abs().max()) / max(scale[k], 1e-30), k)
-                for k, g in g4.items())
+    r = cca_run(engine, episodes, w0)
+    print(f"CCA (configs/pascal_cca.yaml, fp32, {STEPS} K-way inner steps): "
+          f"eval of {E_CCA} {r['eval']:.3f} episodes/s (peak {r['eval_peak_gib']:.2f} GiB; "
+          f"launches {r['eval_launches']}), the train step's gradients for 2 "
+          f"{r['train']:.3f} episodes/s (peak {r['train_peak_gib']:.2f} GiB; launches "
+          f"{r['train_launches']}); loss {r['loss']:.5f} [{card}]")
+    expect = {"adapt_binary": 0, "adapt_binary_tiled": 0}
+    for key in ("eval_launches", "train_launches"):
+        got_l = r[key]
+        if {k: got_l.get(k, 0) for k in expect} != expect or got_l["pivot_fwd"] < 1 or \
+                (key == "train_launches" and got_l["pivot_dw"] < 1):
+            raise AssertionError(f"CCA {key}: {got_l}")
+    scale = {k: float(g.abs().max()) for k, g in r.pop("grads").items()}
     live = sum(v > 0 for v in scale.values())
-    print(f"CCA flat vs rank-4 route: argmax agreement {agree} (>= 0.995 needed); head "
-          f"gradients worst max|g_flat - g_r4| / max|g_r4| {worst[0]:.3e} ({worst[1]}; "
-          f"tolerance 1e-3), {live} of {len(scale)} tensors non-zero, max|g_r4| from "
+    print(f"CCA head gradients: {live} of {len(scale)} tensors non-zero, max|g| from "
           f"{min(scale.values()):.3e} to {max(scale.values()):.3e}")
-    if min(agree.values()) < 0.995 or not worst[0] <= 1e-3 or not live or not all(
-            np.isfinite(v) for v in scale.values()):
-        raise AssertionError(f"CCA routes disagree: {agree}, {worst}, {scale}")
+    if not live or not all(np.isfinite(v) for v in scale.values()):
+        raise AssertionError(f"CCA gradients: {scale}")
+    out = {"run": r}
 
     # the K-way inner loop alone (the generic autograd loop), one episode
     with torch.no_grad():
@@ -1791,8 +1628,8 @@ def cca_phase(card, calib_images, calib_episodes, modules):
                                                STEPS, CLS_LR, weights, fast_binary=False), 1,
                       warmup=1)
     print(f"CCA K-way inner loop ({STEPS} autograd steps, 16 classes, {FEAT}x{FEAT}x{CH} "
-          f"features, {IMG} px labels): {loop_ms:.1f} ms an episode; an eval batch of {E_CCA} on the flat "
-          f"route takes {E_CCA / out['flat']['eval'] * 1e3:.1f} ms [{card}]")
+          f"features, {IMG} px labels): {loop_ms:.1f} ms an episode; an eval batch of {E_CCA} "
+          f"takes {E_CCA / r['eval'] * 1e3:.1f} ms [{card}]")
     # whether the device or the host's launches bound the loop: its idle share
     device_profile(lambda: adapt_classifier(parts["f_s"][0], parts["s_label"][0], w0[0], STEPS,
                                             CLS_LR, weights, fast_binary=False),
@@ -1801,7 +1638,7 @@ def cca_phase(card, calib_images, calib_episodes, modules):
                            ("softmax / CE", ("softmax", "nll", "log_softmax")),
                            ("elementwise", ("elementwise", "vectorized", "reduce"))))
 
-    # cca1: the host relabel pass, then a step on it (flat route)
+    # cca1: the host relabel pass, then a step on it
     eng1 = CCAEngine(cfg, adaptive=True, backbone=engine.backbone, head=engine.head,
                      device="cuda")
     base_preds = make_base_preds_fn(cfg, eng1)
@@ -1810,11 +1647,10 @@ def cca_phase(card, calib_images, calib_episodes, modules):
     t0 = time.perf_counter()
     relabelled = adaptive_relabel_batch(cfg, eng1, e2, base_preds, np.random.default_rng([2021, 1]))
     host_ms = (time.perf_counter() - t0) * 1e3
-    with pivot_route(True):
-        m, launches1, peak1 = counted(lambda: eng1.backward_batch(relabelled))
-        step_s = host_seconds(lambda: eng1.backward_batch(relabelled), 1)
+    m, launches1, peak1 = counted(lambda: eng1.backward_batch(relabelled))
+    step_s = host_seconds(lambda: eng1.backward_batch(relabelled), 1)
     print(f"cca1: host relabel pass of 2 episodes {host_ms:.1f} ms (classes kept "
-          f"{relabelled['row_mask'].sum(-1).tolist()}), then a train step of 2 (flat route) "
+          f"{relabelled['row_mask'].sum(-1).tolist()}), then a train step of 2 "
           f"{step_s * 1e3:.1f} ms, loss {float(m['loss_mean']):.5f}, launches {launches1}, "
           f"peak {peak1:.2f} GiB [{card}]")
     if not torch.isfinite(m["loss_mean"]) or launches1["pivot_dw"] < 1 or \
@@ -1826,8 +1662,8 @@ def cca_phase(card, calib_images, calib_episodes, modules):
 
 
 def cca_run(engine, episodes, w0):
-    """On the route in effect, each counted and timed by the host clock
-    around it (one call each: the K-way loop makes a call seconds long):
+    """Each counted and timed by the host clock around it (one call each:
+    the K-way loop makes a call seconds long):
     eval of ``episodes``, their predictions, and the gradients of a train
     step of the first 2 (the head's ``.grad``)."""
     r = {}
@@ -1853,7 +1689,7 @@ def cca_run(engine, episodes, w0):
 
 
 def cca_entries(load_cfg, merge_cfg_from_list):
-    """``train_cca`` and ``train_cca1`` (configs/pascal_cca.yaml, flat route)
+    """``train_cca`` and ``train_cca1`` (configs/pascal_cca.yaml)
     on synthetic episodes, one step of 2 and a validation of 2, counted
     (the pivot pair, not K1); ``train_count`` over 32 episodes; in a
     directory of the smoke's own."""
@@ -1869,14 +1705,14 @@ def cca_entries(load_cfg, merge_cfg_from_list):
                                       ("train_cca1", train_cca1, True)):
             cfg = merge_cfg_from_list(load_cfg("configs/pascal_cca.yaml"), common)
             lines = []
-            with contextlib.chdir(run_dir), pivot_route(True):
+            with contextlib.chdir(run_dir):
                 t0 = time.perf_counter()
                 best, launches, _ = counted(
                     lambda: entry.main(cfg, device="cuda", log=lines.append))
                 wall = time.perf_counter() - t0
                 log = log_txt_val(train_cca.results_dir(cfg, adaptive), "val: mIoU")
             val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
-            print(f"{name}.main (configs/pascal_cca.yaml, FSS_PIVOT_MXU=1; 1 step of 2, "
+            print(f"{name}.main (configs/pascal_cca.yaml; 1 step of 2, "
                   f"test_num 2, synthetic episodes): {val_line}; best {best:.4f}; {wall:.1f} s "
                   f"wall; launches {launches}; log.txt {log}")
             if not np.isfinite(best) or launches["pivot_fwd"] < 1 or launches["pivot_dw"] < 1 \
@@ -1923,8 +1759,7 @@ def int8_phase(card, backbone_state, calib_episodes, modules):
     if [k for k in missing if not k.startswith("classifier.")] or unexpected:
         raise AssertionError(f"int8 phase backbone: {missing} {unexpected}")
     engine = HeadEngine(cfg, "mmn", backbone=copy.deepcopy(backbone), device="cuda")
-    with pivot_route(True):
-        calibrate_consensus(engine, calib_episodes, get_corr)
+    calibrate_consensus(engine, calib_episodes, get_corr)
     head = engine.head
     del engine
     for mode in ("fake", "dot"):
@@ -1986,16 +1821,15 @@ def mmn_options_phase(engine, card, modules):
     shipped = cfg.meta_aug, cfg.att_type
     cfg.meta_aug, cfg.att_type = 2, 3
     try:
-        with pivot_route(True):
-            tracing.reset()
-            t0 = time.perf_counter()
-            m = engine.backward_batch(views, w0=w0)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            counts = launch_counts()
+        tracing.reset()
+        t0 = time.perf_counter()
+        m = engine.backward_batch(views, w0=w0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
     finally:
         cfg.meta_aug, cfg.att_type = shipped
-    print(f"MMN meta_aug 2, att_type 3 (flat route): train step gradients of 2 episodes x 2 "
+    print(f"MMN meta_aug 2, att_type 3: train step gradients of 2 episodes x 2 "
           f"views in {ms:.1f} ms, loss {float(m['loss_mean']):.4f}; launches {counts} [{card}]")
     if not torch.isfinite(m["loss_mean"]) or counts["pivot_dw"] < 1:
         raise AssertionError(f"MMN meta_aug step: {m['loss_mean']}, {counts}")
@@ -2003,17 +1837,16 @@ def mmn_options_phase(engine, card, modules):
     episodes = make_episode_batch(13, E_MMN, size=IMG, shot=SHOT)
     w0 = engine.init_weights(E_MMN, torch.Generator().manual_seed(5))
     out = {}
-    with pivot_route(True):
-        for tile in (1, 2):
-            cfg.eval_episode_tile = tile
-            out[tile] = engine.eval_metrics_batch(episodes, w0=w0)
-            out[f"masks{tile}"] = engine.serve_batch(episodes, w0=w0)
-            out[f"s{tile}"] = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 2)
+    for tile in (1, 2):
+        cfg.eval_episode_tile = tile
+        out[tile] = engine.eval_metrics_batch(episodes, w0=w0)
+        out[f"masks{tile}"] = engine.serve_batch(episodes, w0=w0)
+        out[f"s{tile}"] = host_seconds(lambda: engine.eval_metrics_batch(episodes, w0=w0), 2)
     cfg.eval_episode_tile = 1
     differ = int((out["masks1"] != out["masks2"]).sum())
     same_iou = all(torch.equal(out[1][k], out[2][k]) for k in ("inter", "union", "inter1",
                                                                "union1"))
-    print(f"MMN eval_episode_tile 2 vs 1 (flat route, {E_MMN} episodes): {differ} of "
+    print(f"MMN eval_episode_tile 2 vs 1 ({E_MMN} episodes): {differ} of "
           f"{out['masks1'].numel()} mask pixels differ, I/U equal {same_iou}; eval "
           f"{E_MMN / out['s2']:.3f} vs {E_MMN / out['s1']:.3f} episodes/s [{card}]")
     if differ or not same_iou:
@@ -2382,7 +2215,7 @@ def ab_dtype_phase(engine, card):
 
 def mmn_shot5_phase(engine, card, modules):
     """The MMN train step of 2 at shot 5 (episode 0 with a padded shot), the
-    config as shipped (``use_amp True``), flat route, counted: the defaults
+    config as shipped (``use_amp True``), counted: the defaults
     (``shot_remat``, ``shot_hoist_query``, ``shot_tile 1``), then
     ``shot_tile 5`` and ``shot_native`` where the defaults' peak memory
     leaves room for five shots' activations."""
@@ -2410,18 +2243,17 @@ def mmn_shot5_phase(engine, card, modules):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times, losses = [], []
-        with pivot_route(True):
-            tracing.reset()
-            for i in range(3):
-                t0 = time.perf_counter()
-                m = step(e2, torch.Generator().manual_seed(400 + i))
-                losses.append(float(m["loss_mean"]))
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            launches = launch_counts()
+        tracing.reset()
+        for i in range(3):
+            t0 = time.perf_counter()
+            m = step(e2, torch.Generator().manual_seed(400 + i))
+            losses.append(float(m["loss_mean"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = launch_counts()
         peaks[name] = peak_gib()
         step_s = statistics.median(times[1:])
-        print(f"MMN {SHOT5}-shot train step of 2, {name} (use_amp, flat route, dropout on, "
+        print(f"MMN {SHOT5}-shot train step of 2, {name} (use_amp, dropout on, "
               f"SGD): {2 / step_s:.3f} episodes/s ({step_s * 1e3:.1f} ms per step; steps "
               f"{np.round(times, 3).tolist()} s); losses {np.round(losses, 4).tolist()}; "
               f"launches {launches}; peak memory {peaks[name]:.2f} GiB [{card}]")
@@ -2805,7 +2637,7 @@ def real_data_phase(card, modules):
             if cwt_launches["adapt_binary_tiled"] < 1 or not np.isfinite(best):
                 raise AssertionError(f"real-data CWT training: {cwt_launches}, {best}")
 
-        # ---- the MMN trainer on pascal_mmn.yaml as shipped, flat route ----
+        # ---- the MMN trainer on pascal_mmn.yaml as shipped ----
         # (resize_np: cv2's resize, as the JAX package runs it)
         lines = []
         tracing.reset()
@@ -2813,7 +2645,7 @@ def real_data_phase(card, modules):
                    "episode_batch", "2", "test_num", "4", "save_models", "False")
         if not (hcfg.use_amp and hcfg.augmentations == ["hor_flip", "resize_np"]):
             raise AssertionError("configs/pascal_mmn.yaml changed: use_amp, augmentations")
-        with contextlib.chdir(root), pivot_route(True):   # its results/ goes with the tree
+        with contextlib.chdir(root):   # its results/ goes with the tree
             best = train_head.main(hcfg, "mmn", device="cuda", log=lines.append)
         head_log = log_txt_val(os.path.join(root, train_head.results_dir(hcfg, "mmn")),
                                "val: mIoU")
@@ -2821,7 +2653,7 @@ def real_data_phase(card, modules):
         mmn_launches = launch_counts()
         val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
         print(f"real data: train_head.main (configs/pascal_mmn.yaml as shipped: use_amp, "
-              f"hor_flip + resize_np through cv2; 2 steps of 2, FSS_PIVOT_MXU=1): {val_line}; "
+              f"hor_flip + resize_np through cv2; 2 steps of 2): {val_line}; "
               f"launches {mmn_launches}; log.txt {head_log}")
         if min(mmn_launches[k] for k in ("pivot_fwd", "pivot_dw")) < 1 \
                 or not np.isfinite(best):
@@ -2839,7 +2671,7 @@ def real_data_phase(card, modules):
 
 def train_match_entry(root, load_cfg, merge_cfg_from_list):
     """``train_match.main`` on configs/pascal_match.yaml and the PNG tree at
-    ``root``, flat route: one epoch of 2 steps of 2 with its train state
+    ``root``: one epoch of 2 steps of 2 with its train state
     saved, then a ``debug`` run (5 steps) resuming from that state for the
     second epoch. Runs in ``root`` (its ``results/`` goes with the tree)."""
     from few_shot_seg_cwt_tpu_torch.train import train_match
@@ -2853,7 +2685,7 @@ def train_match_entry(root, load_cfg, merge_cfg_from_list):
     cfg.scan_cache = os.path.join(root, ".scan_cache")
     lines = []
     tracing.reset()
-    with contextlib.chdir(root), pivot_route(True):
+    with contextlib.chdir(root):
         best = train_match.main(cfg, device="cuda", log=lines.append)
         torch.cuda.synchronize()
         launches = launch_counts()
@@ -2870,7 +2702,7 @@ def train_match_entry(root, load_cfg, merge_cfg_from_list):
     resume_line = next((str(l) for l in resumed if "resumed full head train state" in str(l)),
                        None)
     epoch_line = next((str(l) for l in resumed if str(l).startswith("==== Epoch 2")), None)
-    print(f"real data: train_match.main (configs/pascal_match.yaml, FSS_PIVOT_MXU=1, 2 steps "
+    print(f"real data: train_match.main (configs/pascal_match.yaml, 2 steps "
           f"of 2): {val_line}; launches {launches}; then debug with resume_ckpt: "
           f"{resume_line}; {epoch_line}; best {best:.4f} / {best2:.4f}; log.txt {match_log}")
     if min(launches[k] for k in ("adapt_binary", "pivot_fwd", "pivot_dw")) < 1 \
@@ -2882,8 +2714,8 @@ def train_match_entry(root, load_cfg, merge_cfg_from_list):
 
 def chm_detr_entries(root, load_cfg, merge_cfg_from_list):
     """``train_match.main`` with ``crm_type chm`` (configs/pascal_match.yaml)
-    and ``train_trans.main`` (configs/pascal_trans.yaml as shipped, flat
-    route) on the PNG tree at ``root``: one epoch of 2 steps of 2 and its
+    and ``train_trans.main`` (configs/pascal_trans.yaml as shipped) on the
+    PNG tree at ``root``: one epoch of 2 steps of 2 and its
     validation each, counted (K1 in both; pivot_fwd and pivot_dw in
     train_trans). Runs in ``root`` (their ``results/`` go with the tree)."""
     from few_shot_seg_cwt_tpu_torch.train import train_head, train_match, train_trans
@@ -2894,7 +2726,7 @@ def chm_detr_entries(root, load_cfg, merge_cfg_from_list):
             "iter_per_epoch", "4", "episode_batch", "2", "test_num", "4", "save_models",
             "False"]
     out = {}
-    for name, path, extra, entry, head, flat in (
+    for name, path, extra, entry, head, pivot in (
             ("train_match_chm", "configs/pascal_match.yaml", ["crm_type", "chm"], train_match,
              "chm", False),
             ("train_trans", "configs/pascal_trans.yaml", [], train_trans, "detr", True)):
@@ -2902,7 +2734,7 @@ def chm_detr_entries(root, load_cfg, merge_cfg_from_list):
         cfg.scan_cache = os.path.join(root, ".scan_cache")
         lines = []
         tracing.reset()
-        with contextlib.chdir(root), pivot_route(flat):
+        with contextlib.chdir(root):
             t0 = time.perf_counter()
             best = entry.main(cfg, device="cuda", log=lines.append)
             torch.cuda.synchronize()
@@ -2911,11 +2743,11 @@ def chm_detr_entries(root, load_cfg, merge_cfg_from_list):
         launches = launch_counts()
         val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
         print(f"real data: {name}.main ({path}{' ' + ' '.join(extra) if extra else ''}, "
-              f"{'FSS_PIVOT_MXU=1, ' if flat else ''}2 steps of 2, test_num 4): {val_line}; "
+              f"2 steps of 2, test_num 4): {val_line}; "
               f"best {best:.4f}; {wall:.1f} s wall; launches {launches}; log.txt {log}")
-        need = ("adapt_binary", "pivot_fwd", "pivot_dw") if flat else ("adapt_binary",)
+        need = ("adapt_binary", "pivot_fwd", "pivot_dw") if pivot else ("adapt_binary",)
         if min(launches[k] for k in need) < 1 or not np.isfinite(best) \
-                or (not flat and launches["pivot_fwd"] + launches["pivot_dw"]):
+                or (not pivot and launches["pivot_fwd"] + launches["pivot_dw"]):
             raise AssertionError(f"real-data {name}: launches {launches}, best {best}")
         out[name] = launches
     return out
@@ -3149,14 +2981,13 @@ def vgg_phase(card, calib_images, modules):
 
 def bench_phase(card):
     """(d) ``tools.bench.run`` in every mode, 3 timed batches: the pivot
-    kernels on the flat route in the MMN modes, K2 (FSS_INNER_TILE=2) in
-    the CWT train step; each JSON line printed."""
+    kernels in the MMN modes, K2 (FSS_INNER_TILE=2) in the CWT train step;
+    each JSON line printed."""
     from few_shot_seg_cwt_tpu_torch.tools import bench
 
     lines = {}
     for mode in bench.MODES:
-        flat = mode.startswith("head")
-        with pivot_route(flat), inner_tile(2 if mode == "train" else None):
+        with inner_tile(2 if mode == "train" else None):
             out = bench.run(mode, device="cuda", batches=3, quiet=1)
         print(f"bench {json.dumps(out)}")
         if not (np.isfinite(out["value"]) and np.isfinite(out["mfu"])):
@@ -3179,20 +3010,19 @@ def module_state(module) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
 
 
-def stage_artifact(name, engine, export, episodes, w0, work, flat=False):
+def stage_artifact(name, engine, export, episodes, w0, work):
     """Export ``engine``'s serve program at the batch of ``episodes`` with
     ``export`` (tracing launches no kernel), save it and its inputs, and run
     the engine's eager ``serve_batch`` on them once for its masks and once
     timed. Returns what ``check_artifacts`` reads."""
     e = len(episodes["q_img"])
     path = os.path.join(work, f"{name}_serve.pt2")
-    with pivot_route(flat):
-        t0 = time.perf_counter()
-        exported = export(engine, e)
-        export_s = time.perf_counter() - t0
-        torch.export.save(exported, path)
-        eager = engine.serve_batch(episodes, w0=w0).cpu()
-        eager_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 1)
+    t0 = time.perf_counter()
+    exported = export(engine, e)
+    export_s = time.perf_counter() - t0
+    torch.export.save(exported, path)
+    eager = engine.serve_batch(episodes, w0=w0).cpu()
+    eager_s = host_seconds(lambda: engine.serve_batch(episodes, w0=w0), 1)
     inputs = os.path.join(work, f"{name}_inputs.pt")
     torch.save({"s_img": torch.as_tensor(episodes["s_img"]),
                 "s_label": torch.as_tensor(episodes["s_label"]).int(),
@@ -3243,12 +3073,11 @@ def check_artifacts(staged, card):
 
 def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
     """(a) the CWT serve artifact at batch 8 on the calibrated weights of
-    phase 4, (b) the MMN one on configs/pascal_mmn.yaml as shipped on the
-    flat route at batch 4 (weights of phase 6), (b2) the CHM one
-    (pascal_match.yaml with crm_type chm, q route) and the DeTr one
-    (pascal_trans.yaml as shipped, flat route) at batch 4 on the weights of
-    phases 6e and 6f, and the fuse one (pascal_fuse.yaml, flat route, its
-    frozen MatchNet inside) on phase 6g's, all loaded in one fresh process;
+    phase 4, (b) the MMN one on configs/pascal_mmn.yaml as shipped at batch
+    4 (weights of phase 6), (b2) the CHM one (pascal_match.yaml with
+    crm_type chm) and the DeTr one (pascal_trans.yaml as shipped) at batch 4
+    on the weights of phases 6e and 6f, and the fuse one (pascal_fuse.yaml,
+    its frozen MatchNet inside) on phase 6g's, all loaded in one fresh process;
     (c) ``validate_transformer`` with ``profile_dir`` (1 run x 8 episodes):
     the trace names K1's kernel."""
     load_cfg, merge_cfg_from_list, EpisodicEngine, HeadEngine = modules
@@ -3268,21 +3097,19 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
             cfg, eng, e), episodes, w0, work)]
 
         mcfg, mmn_state, mmn_episodes, mmn_w0 = mmn
-        with pivot_route(True):
-            mmn_engine = HeadEngine(mcfg, "mmn", device="cuda")
+        mmn_engine = HeadEngine(mcfg, "mmn", device="cuda")
         mmn_engine.backbone.load_state_dict(mmn_state["backbone"])
         mmn_engine.head.load_state_dict(mmn_state["head"])
         staged.append(stage_artifact(
             "MMN", mmn_engine, lambda eng, e: export_serve.build_head_serve_export(
-                mcfg, "mmn", eng, e), mmn_episodes, mmn_w0, work, flat=True))
+                mcfg, "mmn", eng, e), mmn_episodes, mmn_w0, work))
         del mmn_engine
 
         names = {"chm": "CHM", "detr": "DeTr", "fuse": "fuse"}
-        flats = {"chm": False, "detr": True, "fuse": True}
-        for head, flat in flats.items():
+        pivots = {"chm": False, "detr": True, "fuse": True}   # a centre-pivot consensus
+        for head in pivots:
             h = heads[head]
-            with pivot_route(flat):
-                h_engine = HeadEngine(h["cfg"], head, device="cuda")
+            h_engine = HeadEngine(h["cfg"], head, device="cuda")
             h_engine.backbone.load_state_dict(h["state"]["backbone"])
             h_engine.head.load_state_dict(h["state"]["head"])
             if "frozen_match" in h["state"]:
@@ -3290,7 +3117,7 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
             staged.append(stage_artifact(
                 names[head], h_engine,
                 lambda eng, e, c=h["cfg"], ht=head: export_serve.build_head_serve_export(
-                    c, ht, eng, e), h["episodes"], h["w0"], work, flat=flat))
+                    c, ht, eng, e), h["episodes"], h["w0"], work))
             del h_engine
             torch.cuda.empty_cache()
 
@@ -3300,11 +3127,11 @@ def tools_phase(card, cwt_state, episodes, w0, mmn, heads, modules):
             raise AssertionError(f"the loaded CWT artifact launched {cwt['launches']}")
         if min(mmn_art["launches"].get(k, 0) for k in ("adapt_binary", "pivot_fwd")) < 1:
             raise AssertionError(f"the loaded MMN artifact launched {mmn_art['launches']}")
-        head_arts = {head: arts[names[head]] for head in flats}
-        for head, flat in flats.items():
-            need = ("adapt_binary", "pivot_fwd") if flat else ("adapt_binary", "hough4d")
+        head_arts = {head: arts[names[head]] for head in pivots}
+        for head, pivot in pivots.items():
+            need = ("adapt_binary", "pivot_fwd") if pivot else ("adapt_binary", "hough4d")
             got = head_arts[head]["launches"]
-            if min(got.get(k, 0) for k in need) < 1 or (not flat and got.get("pivot_fwd")):
+            if min(got.get(k, 0) for k in need) < 1 or (not pivot and got.get("pivot_fwd")):
                 raise AssertionError(f"the loaded {head} artifact launched {got}")
 
         # ---- the profiler trace of validate_transformer ----
@@ -3407,8 +3234,8 @@ def scale_out_layout():
 def scale_out_phase(card, cwt_state, mmn_state):
     """``parallel/dryrun.py`` at full width (473 px, ResNet-50, adapt_iter
     200, TF32 off in every process): the CWT train step of 4 on K1 and K2,
-    the MMN step of pascal_mmn.yaml as shipped (flat route, fp32 and bf16
-    head), the stage-1 step at batch 4 (dropout and mixup off, the JAX
+    the MMN step of pascal_mmn.yaml as shipped (fp32 and bf16 head), the
+    stage-1 step at batch 4 (dropout and mixup off, the JAX
     package's self-calibrating bar), one gathered eval batch of 4,
     ``validate_transformer`` and ``episodic_validate``, and the collectives;
     a reference process runs each step alone and in a group of one over
@@ -3595,7 +3422,7 @@ def main() -> int:
     from few_shot_seg_cwt_tpu_torch.train.common import trans_ckpt_dir
     from few_shot_seg_cwt_tpu_torch.train.optim import build_optimizer
 
-    for var in ROUTE_SWITCHES:
+    for var in SWITCHES:
         os.environ.pop(var, None)
 
     # ---- 2. build every kernel: one nvcc per source, all at once ----
@@ -3806,7 +3633,7 @@ def main() -> int:
 
     lap("6-6c (MMN)")
 
-    # ---- 6d. the match head: three routes, the pivot pair at 1 -> 10, cv4 ----
+    # ---- 6d. the match head: the pivot pair at 1 -> 10, eval, serve, step, cv4 ----
     match = match_phase(card, calib_images, calib, cuda_ms, (
         load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
         cuda_pivot, get_corr, build_pspnet, CenterPivotConv4d))
@@ -3814,7 +3641,7 @@ def main() -> int:
 
     lap("6d (match)")
 
-    # ---- 6e. the CHM head on the true 4D conv's four routes ----
+    # ---- 6e. the CHM head ----
     chm = chm_phase(card, calib_images, (
         load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
         cuda_pivot, build_pspnet))
@@ -3822,7 +3649,7 @@ def main() -> int:
 
     lap("6e (CHM)")
 
-    # ---- 6f. the DeTr head, as shipped and with sf_att, on two routes ----
+    # ---- 6f. the DeTr head, as shipped and with sf_att ----
     detr = detr_phase(card, calib_images, calib, (
         load_cfg, merge_cfg_from_list, HeadEngine, make_episode_batch, cuda_inner_loop,
         cuda_pivot, get_corr, build_pspnet))
@@ -3853,7 +3680,7 @@ def main() -> int:
 
     lap("6i (int8)")
 
-    # ---- 7. the head trainer's entry point (flat route) ----
+    # ---- 7. the head trainer's entry point ----
     hcfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"), [
         "synthetic_data", "True", "epochs", "1", "iter_per_epoch", "8",
         "episode_batch", "2", "test_num", "8", "save_models", "False"])
@@ -3862,7 +3689,7 @@ def main() -> int:
     # directory: run them in one of the smoke's own
     os.makedirs("build", exist_ok=True)
     run_dir = os.path.abspath(tempfile.mkdtemp(prefix="chip_smoke_head_", dir="build"))
-    with contextlib.chdir(run_dir), pivot_route(True):
+    with contextlib.chdir(run_dir):
         best = train_head.main(hcfg, "mmn", device="cuda", log=lines.append)
     val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
     head_log = log_txt_val(os.path.join(run_dir, train_head.results_dir(hcfg, "mmn")),
@@ -3876,7 +3703,7 @@ def main() -> int:
         "synthetic_data", "True", "shot", str(SHOT5), "epochs", "1", "iter_per_epoch", "2",
         "episode_batch", "1", "test_num", "2", "save_models", "False"])
     lines = []
-    with contextlib.chdir(run_dir), pivot_route(True):
+    with contextlib.chdir(run_dir):
         best = train_kshot.main(kcfg, device="cuda", log=lines.append)
     shutil.rmtree(run_dir, ignore_errors=True)
     val_line = next(str(l) for l in lines if str(l).startswith("val: mIoU"))
@@ -3958,13 +3785,13 @@ def main() -> int:
         "real_data": {"launches": real["eval_launches"]["adapt_binary"]},
         "match": {"launches": match["eval_launches"]["adapt_binary"],
                   "train_match_launches": real["train_match_launches"]["adapt_binary"]},
-        "chm": {"launches": chm["rows"]["q"]["eval_launches"]["adapt_binary"],
-                "train_launches": chm["rows"]["q"]["train_launches"]["adapt_binary"],
+        "chm": {"launches": chm["run"]["eval_launches"]["adapt_binary"],
+                "train_launches": chm["run"]["train_launches"]["adapt_binary"],
                 "train_match_chm_launches":
                     real["train_match_chm_launches"]["adapt_binary"],
                 "loaded_artifact_launches": tools["chm"]["launches"].get("adapt_binary", 0)},
-        "detr": {"launches": detr["shipped"]["flat"]["eval_launches"]["adapt_binary"],
-                 "sf_att_launches": detr["sf_att"]["flat"]["eval_launches"]["adapt_binary"],
+        "detr": {"launches": detr["shipped"]["eval_launches"]["adapt_binary"],
+                 "sf_att_launches": detr["sf_att"]["eval_launches"]["adapt_binary"],
                  "train_trans_launches": real["train_trans_launches"]["adapt_binary"],
                  "loaded_artifact_launches": tools["detr"]["launches"].get("adapt_binary", 0)},
         "att": {"launches": att["att"]["eval_launches"]["adapt_binary"],
@@ -3976,15 +3803,14 @@ def main() -> int:
         "asy": {"launches": att["asy"]["eval_launches"]["adapt_binary"],
                 "train_launches": att["asy"]["train_launches"]["adapt_binary"],
                 "train_asy_launches": att["trainers"]["train_asy"]["adapt_binary"]},
-        "fuse": {"launches": att["fuse"]["flat"]["eval_launches"]["adapt_binary"],
-                 "serve_launches": att["fuse"]["flat"]["serve_launches"]["adapt_binary"],
-                 "train_launches": att["fuse"]["flat"]["train_launches"]["adapt_binary"],
+        "fuse": {"launches": att["fuse"]["eval_launches"]["adapt_binary"],
+                 "serve_launches": att["fuse"]["serve_launches"]["adapt_binary"],
+                 "train_launches": att["fuse"]["train_launches"]["adapt_binary"],
                  "train_fuse_launches": att["trainers"]["train_fuse"]["adapt_binary"],
                  "loaded_artifact_launches": tools["fuse"]["launches"].get("adapt_binary", 0)},
         "pretrain_episodic_val": {"launches": pre["episodic"]["launches"]},
-        "cca": {"launches": cca["flat"]["eval_launches"]["adapt_binary"]
-                + cca["flat"]["train_launches"]["adapt_binary"]
-                + cca["rank-4"]["eval_launches"]["adapt_binary"],
+        "cca": {"launches": cca["run"]["eval_launches"]["adapt_binary"]
+                + cca["run"]["train_launches"]["adapt_binary"],
                 "train_cca_launches": cca["entries"]["train_cca"]["adapt_binary"],
                 "train_cca1_launches": cca["entries"]["train_cca1"]["adapt_binary"]},
         "loaded_artifacts": {"cwt_launches": tools["cwt"]["launches"].get("adapt_binary", 0),
@@ -4021,19 +3847,18 @@ def main() -> int:
         "launches": mmn_eval_launches["pivot_fwd"],
         "real_data": {"launches": real["train_head_launches"]["pivot_fwd"]},
         "loaded_artifacts": {"mmn_launches": tools["mmn"]["launches"].get("pivot_fwd", 0)},
-        "detr": {"launches": detr["shipped"]["flat"]["eval_launches"]["pivot_fwd"],
-                 "train_launches": detr["shipped"]["flat"]["train_launches"]["pivot_fwd"],
-                 "sf_att_launches": detr["sf_att"]["flat"]["eval_launches"]["pivot_fwd"],
+        "detr": {"launches": detr["shipped"]["eval_launches"]["pivot_fwd"],
+                 "train_launches": detr["shipped"]["train_launches"]["pivot_fwd"],
+                 "sf_att_launches": detr["sf_att"]["eval_launches"]["pivot_fwd"],
                  "train_trans_launches": real["train_trans_launches"]["pivot_fwd"],
                  "loaded_artifact_launches": tools["detr"]["launches"].get("pivot_fwd", 0)},
-        "fuse": {"launches": att["fuse"]["flat"]["eval_launches"]["pivot_fwd"],
-                 "serve_launches": att["fuse"]["flat"]["serve_launches"]["pivot_fwd"],
-                 "train_launches": att["fuse"]["flat"]["train_launches"]["pivot_fwd"],
+        "fuse": {"launches": att["fuse"]["eval_launches"]["pivot_fwd"],
+                 "serve_launches": att["fuse"]["serve_launches"]["pivot_fwd"],
+                 "train_launches": att["fuse"]["train_launches"]["pivot_fwd"],
                  "train_fuse_launches": att["trainers"]["train_fuse"]["pivot_fwd"],
                  "loaded_artifact_launches": tools["fuse"]["launches"].get("pivot_fwd", 0)},
-        "cca": {"launches": cca["flat"]["eval_launches"]["pivot_fwd"],
-                "train_launches": cca["flat"]["train_launches"]["pivot_fwd"],
-                "rank4_launches": cca["rank-4"]["eval_launches"]["pivot_fwd"],
+        "cca": {"launches": cca["run"]["eval_launches"]["pivot_fwd"],
+                "train_launches": cca["run"]["train_launches"]["pivot_fwd"],
                 "cca1_train_launches": cca["cca1"]["pivot_fwd"],
                 "train_cca_launches": cca["entries"]["train_cca"]["pivot_fwd"],
                 "train_cca1_launches": cca["entries"]["train_cca1"]["pivot_fwd"]},
@@ -4058,13 +3883,12 @@ def main() -> int:
         "also_replaces": "few_shot_seg_cwt_tpu/ops/pallas_pivot.py:165",
         "launches": mmn_train_launches["pivot_dw"],
         "real_data": {"launches": real["train_head_launches"]["pivot_dw"]},
-        "detr": {"launches": detr["shipped"]["flat"]["train_launches"]["pivot_dw"],
-                 "sf_att_launches": detr["sf_att"]["flat"]["train_launches"]["pivot_dw"],
+        "detr": {"launches": detr["shipped"]["train_launches"]["pivot_dw"],
+                 "sf_att_launches": detr["sf_att"]["train_launches"]["pivot_dw"],
                  "train_trans_launches": real["train_trans_launches"]["pivot_dw"]},
-        "fuse": {"train_launches": att["fuse"]["flat"]["train_launches"]["pivot_dw"],
+        "fuse": {"train_launches": att["fuse"]["train_launches"]["pivot_dw"],
                  "train_fuse_launches": att["trainers"]["train_fuse"]["pivot_dw"]},
-        "cca": {"train_launches": cca["flat"]["train_launches"]["pivot_dw"],
-                "rank4_train_launches": cca["rank-4"]["train_launches"]["pivot_dw"],
+        "cca": {"train_launches": cca["run"]["train_launches"]["pivot_dw"],
                 "cca1_train_launches": cca["cca1"]["pivot_dw"],
                 "train_cca_launches": cca["entries"]["train_cca"]["pivot_dw"],
                 "train_cca1_launches": cca["entries"]["train_cca1"]["pivot_dw"]},
@@ -4086,8 +3910,8 @@ def main() -> int:
         "route": "cuda",
         "source": "few_shot_seg_cwt_tpu_torch/csrc/hough4d.cu",
         "replaces": None,   # the JAX package's CHM6d and CHM4d are XLA convolutions
-        "launches": chm["rows"]["q"]["eval_launches"]["hough4d"],
-        "train_launches": chm["rows"]["q"]["train_launches"]["hough4d"],
+        "launches": chm["run"]["eval_launches"]["hough4d"],
+        "train_launches": chm["run"]["train_launches"]["hough4d"],
         "loaded_artifact_launches": tools["chm"]["launches"].get("hough4d", 0),
         "chm6d": hough["chm6d"],
         "max_abs_err": hough["chm4d"]["err"],

@@ -201,8 +201,8 @@ _DEFAULTS: Dict[str, Any] = {
                                # per-shot checkpoints instead)
     "remat_blocks": None,      # per-block remat inside NeighConsensus.
                                # None = route default (models/matching.py
-                               # block_remat_default): off on the rank-4
-                               # consensus route, on for the flat route
+                               # block_remat_default): on, save on the
+                               # int8 consensus's rank-4 route
     "eval_episode_tile": 1,    # head/CCA eval + serving: episodes vmapped
                                # per lax.map step (1 = fully sequential, the
                                # rank-4-route-safe default at 473px; rank-5

@@ -29,8 +29,8 @@ The MMN readout runs per shot (``HeadEngine._mmn_att_shots``) and is
 averaged over every shot (the reference's mean, unlike the MMN engine's
 valid-shot mean). ``loss_shot sum``, ``aux``, ``use_amp`` (the head in
 bf16 in the train step, its tail fp32) and ``remat_head`` (a checkpoint of
-the head's forward) are honoured as in JAX. The consensus takes the route
-in effect: the pivot kernels on the flat route, cuDNN on rank-4. Serving
+the head's forward) are honoured as in JAX. The consensus runs on the
+pivot kernels (on rank-4 cuDNN plane convs under ``FSS_NCONS_INT8``). Serving
 (``predict_batch``, ``serve_batch``) gives the argmax of the blended
 compressed prediction without reading the query label; the JAX engine
 inherits a serving program that fails on its parts.

@@ -12,9 +12,9 @@ src/train_fuse.py:130-190):
   frozen backbone features with block-level taps (one pass over the batch)
   -> inner-loop adaptation of the episodic classifier (CUDA kernel K1)
   -> the head's refinement of the query feature (consensus on the pivot
-     kernels on the flat route, cuDNN plane convs on the rank-4 route,
-     6D plane convs or the true 4D conv on the 6D route; CHM's 6D and 4D
-     Hough convs on the true 4D conv's routes)
+     kernels where they take the stack, else 6D plane convs or the true
+     4D conv; the int8 consensus on rank-4 plane convs; CHM's 6D and 4D
+     Hough convs on the true 4D conv)
   -> classifier predictions upsampled to the image size
   -> the head's query loss on the head's parameters only.
 
@@ -38,8 +38,8 @@ support ignore mask of ``get_ig_mask`` as a -1000 bias; ``asy`` trains one
 standalone scalar, the ``outer_forward`` blend's gamma (0.2 at init);
 ``fuse`` filters the tap's correlation with a frozen MatchNet
 (``frozen_match``, outside the head's parameters and ``state_dict``, run
-under ``torch.no_grad``: the JAX ``stop_gradient``; its consensus takes
-the route in effect, the pivot kernels on the flat route) and learns
+under ``torch.no_grad``: the JAX ``stop_gradient``; its consensus runs
+on the pivot kernels) and learns
 FuseNet1's per-pixel blend of its readout and the query feature. ``att``
 and ``asy`` read the query label in their prediction (the ignore mask), so
 they have no serving form, as in JAX. ``remat_head`` puts each episode's

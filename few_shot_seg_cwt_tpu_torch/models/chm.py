@@ -8,7 +8,7 @@ src/model/base/chm.py, chm_kernel.py and src/model/match.py:191-244):
   group, spread over the kernel as w / len(group); the group order is the
   reference's, which weight import relies on;
 * ``CHM4d``: the parameter-shared 4D conv (1 in / 1 out channel) through
-  ``models.conv4d.conv4d`` and its ``FSS_CONV4D_IM2COL`` routes;
+  ``models.conv4d.conv4d``;
 * ``CHM6d``: the 3x3 scale pairs folded into the channels of ONE
   ``conv4d`` with a block-sparse (5, 5, 5, 5, 9, 9) kernel, the flipped
   scale convolution as a linear mix of scale pairs (as the JAX package

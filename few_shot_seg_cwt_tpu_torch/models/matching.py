@@ -13,19 +13,20 @@ src/model/match.py and src/model/base/spatial_context.py):
   static window gather instead of the reference's per-pixel loop) concat
   the feature, through a 1x1 conv and a ReLU.
 
-Three consensus routes, chosen as the JAX package chooses them: the rank-4
-(B, Q, S, C) route with cuDNN plane convs (the default for centre-pivot
-stacks), the flat (B, C, Q, S) route through the hand-written pivot
-kernels when ``FSS_PIVOT_MXU=1`` or ``FSS_PIVOT_PALLAS=1`` is set, and the
-6D channels-last (B, h, w, hs, ws, C) route (``FSS_NCONS_R4=0``, and every
-``cv4`` stack), whose symmetric form is the reference's
-stack(x) + swap(stack(swap(x))) with per-block recompute on by default.
+Each consensus stack takes one route, ``NeighConsensus.route``: a
+centre-pivot stack whose blocks the pivot kernels take (3^4, stride 1,
+padding 1) runs the flat (B, C, Q, S) route through them; a ``cv4`` stack,
+or a centre-pivot stack they do not take, runs the 6D channels-last
+(B, h, w, hs, ws, C) route, whose symmetric form is the reference's
+stack(x) + swap(stack(swap(x))); a centre-pivot stack under
+``FSS_NCONS_INT8`` runs the rank-4 (B, Q, S, C) route, whose plane convs
+are the ones the JAX package quantizes. Per-block recompute is on by
+default, save on the rank-4 route.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.corr import (get_corr, l2norm, masked_attention_readout, mutual_matching,
                         mutual_matching_bqsc, mutual_matching_flat)
-from ..ops.cuda_pivot import pivot_pallas_active
+from ..ops.cuda_pivot import pivot_takes
+from ..ops.quant import ncons_int8_mode
 from ..utils.tracing import span
 from .conv4d import CenterPivotConv4d, Conv4d
 from .msm import pointwise
@@ -48,22 +50,14 @@ def _swap_planes(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 4, 1, 2, 5)
 
 
-def ncons_r4_active(cv_type: str) -> bool:
-    """True when the rank-4 (B, Q, S, C) consensus route is in effect: the
-    default for centre-pivot stacks, unless ``FSS_NCONS_R4=0`` or a flat
-    pivot-kernel switch is set."""
-    if cv_type != "red" or os.environ.get("FSS_NCONS_R4") == "0":
-        return False
-    return not pivot_pallas_active()
-
-
 def block_remat_default(cfg, cv_type: str) -> bool:
     """Per-block recompute in the backward: cfg ``remat_blocks`` wins; by
-    default off on the rank-4 route and on elsewhere (the JAX policy)."""
+    default on, save for a centre-pivot stack under ``FSS_NCONS_INT8`` (the
+    rank-4 route, as JAX's policy)."""
     want = cfg.get("remat_blocks", None)
     if want is not None:
         return bool(want)
-    return not ncons_r4_active(cv_type)
+    return not (cv_type == "red" and ncons_int8_mode())
 
 
 class NeighConsensus(nn.Module):
@@ -87,6 +81,18 @@ class NeighConsensus(nn.Module):
                        nn.ReLU()]
             c_in = ch
         self.conv = nn.Sequential(*layers)
+
+    def route(self) -> str:
+        """The stack's route for this call: "r4" for a centre-pivot stack
+        under ``FSS_NCONS_INT8``, "flat" for one whose every block the pivot
+        kernels take, "6d" otherwise (every ``cv4`` stack)."""
+        if self.conv_type != "red":
+            return "6d"
+        if ncons_int8_mode():
+            return "r4"
+        if all(pivot_takes((k,) * 4, (1,) * 4, (k // 2,) * 4) for k in self.kernel_sizes):
+            return "flat"
+        return "6d"
 
     def _run(self, blk: nn.Module, *args) -> torch.Tensor:
         if self.block_remat and torch.is_grad_enabled():
@@ -122,15 +128,14 @@ class NeighConsensus(nn.Module):
 
     def forward(self, x: torch.Tensor, flat_dims=None) -> torch.Tensor:
         """x (B, h, w, hs, ws, C) on the 6D route, or flat (B, C, Q, S) with
-        ``flat_dims`` = (hq, wq, hs, ws): through the pivot kernels when the
-        flat route is on for a centre-pivot stack, else converted once
-        around the 6D stack."""
+        ``flat_dims`` = (hq, wq, hs, ws): through the pivot kernels on the
+        flat route, else converted once around the 6D stack."""
         with span("consensus"):
             if flat_dims is None:
                 if self.symmetric_mode:
                     return self._stack6(x) + _swap_planes(self._stack6(_swap_planes(x)))
                 return self._stack6(x)
-            if self.conv_type == "red" and pivot_pallas_active(self.kernel_sizes):
+            if self.route() == "flat":
                 return self._symmetric(x, flat_dims, False)
             b, c = x.shape[:2]
             hq, wq, hs, ws = (int(d) for d in flat_dims)
@@ -208,7 +213,6 @@ class MatchNet(nn.Module):
         self.temp, self.cv_type = temp, cv_type
         self.in_channel = in_channel
         self.sce, self.cyc, self.ass_drop = sce, cyc, ass_drop
-        self.cv_kernels = tuple(cv_kernels)
         if sce:
             self.SpatialContextEncoder = SpatialContextEncoder(feat_dim, 25, 2048)
         self.NeighConsensus = NeighConsensus(cv_kernels, cv_channels, sym_mode,
@@ -221,15 +225,16 @@ class MatchNet(nn.Module):
         return mutual_matching(corr4d)
 
     def run_match_model_flat(self, corr: torch.Tensor, dims) -> torch.Tensor:
-        """(B, C, Q, S) in, (B, Q, S) filtered correlation out, on the route
-        in effect (flat, rank-4 or 6D)."""
+        """(B, C, Q, S) in, (B, Q, S) filtered correlation out, on the
+        consensus's route (flat, rank-4 or 6D)."""
         hq, wq, hs, ws = (int(d) for d in dims)
         b, c = corr.shape[:2]
-        if self.cv_type == "red" and pivot_pallas_active(self.cv_kernels):
+        route = self.NeighConsensus.route()
+        if route == "flat":
             corr = mutual_matching_flat(corr)
             corr = self.NeighConsensus(corr, flat_dims=(hq, wq, hs, ws))
             return mutual_matching_flat(corr)[:, 0]
-        if ncons_r4_active(self.cv_type):
+        if route == "r4":
             xr = (corr.reshape(b, hq * wq, hs * ws, 1) if c == 1
                   else corr.permute(0, 2, 3, 1))
             return self.run_match_model_bqsc(xr, dims)

@@ -10,10 +10,11 @@ first; the correlations are stacked as channels (``agg cat``) or summed
 the support feature, and blended into the query feature:
 fq = f_q * (1 - att_wt) + att_fq * att_wt.
 
-The volume is built in the layout of the active consensus route: rank-4
-(shot, Q, S, L) by default, channels-major (shot, L, Q, S) for the flat
-pivot-kernel route. Parameter names are the reference's, so
-``utils.ckpt.import_mmn`` of the JAX package reads ``state_dict()``.
+The volume is built in the layout of the consensus's route: channels-major
+(shot, L, Q, S) for the pivot kernels (and the 6D route, which converts
+it), rank-4 (shot, Q, S, L) under ``FSS_NCONS_INT8``. Parameter names are
+the reference's, so ``utils.ckpt.import_mmn`` of the JAX package reads
+``state_dict()``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn as nn
 
 from ..ops.corr import get_corr
 from .conv4d import init_conv_parameters
-from .matching import MatchNet, block_remat_default, ncons_r4_active
+from .matching import MatchNet, block_remat_default
 from .msm import WeightAverage, pointwise
 from .resnet import RESNET_DEPTHS
 
@@ -106,7 +107,7 @@ class MMN(nn.Module):
             corr_ch.append(get_corr(fq_fea, fs_fea))            # (shot, Nq, Ns)
 
         dims = (h, w, h, w)
-        if ncons_r4_active(self.cv_type):
+        if self.corr_net.NeighConsensus.route() == "r4":
             corr = torch.stack(corr_ch, dim=-1)
             if self.agg == "sum":
                 corr = corr.sum(dim=-1, keepdim=True)

@@ -36,13 +36,14 @@ Dispatch is by device only: CPU tensors run the plain versions
 (``pivot_conv_flat_reference``, ``pivot_dw_reference``: ``F.conv2d`` and its
 weight gradient over reshaped views); CUDA tensors launch the kernels or the
 call raises. There is no fallback from the card to the plain version.
+``pivot_takes`` is the shape gate: the consensus sends a block here only
+where it passes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,41 +61,15 @@ Dims = Tuple[int, int, int, int]
 
 
 # --------------------------------------------------------------------------- #
-# route switches (the JAX package's names)
+# shape gate
 # --------------------------------------------------------------------------- #
 
 
-def pivot_impl() -> Optional[str]:
-    """The flat-route switch: "mxu" under ``FSS_PIVOT_MXU=1``, "vpu" under
-    ``FSS_PIVOT_PALLAS=1``, else None. Both select the same Hopper kernels
-    (one function, one contract); None means the rank-4 route.
-    ``FSS_DISABLE_PALLAS=1`` turns the flat route off."""
-    if os.environ.get("FSS_DISABLE_PALLAS") == "1":
-        return None
-    if os.environ.get("FSS_PIVOT_PALLAS") == "1":
-        return "vpu"
-    if os.environ.get("FSS_PIVOT_MXU") == "1":
-        return "mxu"
-    return None
-
-
-def pivot_kernel_available(kernel_size, stride, padding) -> bool:
-    """Structural gate: the kernels take 3^4 kernels, stride 1, padding 1."""
-    if os.environ.get("FSS_DISABLE_PALLAS") == "1":
-        return False
+def pivot_takes(kernel_size, stride, padding) -> bool:
+    """Do the kernels take a centre-pivot block of this shape? 3^4 kernels,
+    stride 1, padding 1."""
     return (tuple(kernel_size) == (3, 3, 3, 3) and tuple(stride) == (1, 1, 1, 1)
             and tuple(padding) == (1, 1, 1, 1))
-
-
-def pivot_pallas_active(kernel_sizes=None) -> bool:
-    """Is the flat route on for this process? With ``kernel_sizes`` (one per
-    NeighConsensus block) every block must also pass the structural gate, so
-    the stack-level and per-block decisions never disagree."""
-    if kernel_sizes is not None and not all(
-            pivot_kernel_available((k,) * 4, (1,) * 4, (k // 2,) * 4)
-            for k in kernel_sizes):
-        return False
-    return pivot_impl() is not None
 
 
 # --------------------------------------------------------------------------- #

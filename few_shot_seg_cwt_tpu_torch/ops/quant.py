@@ -1,9 +1,10 @@
 """int8 quantization for the consensus-volume convolutions.
 
 Counterpart of ``few_shot_seg_cwt_tpu.ops.quant``. Two modes of
-``FSS_NCONS_INT8``, read each time a consensus block runs (like
-``FSS_NCONS_R4``), taken by the rank-4 route's plane convolutions only
-(``models.conv4d.CenterPivotConv4d._bqsc``, as in JAX):
+``FSS_NCONS_INT8``, read each time a consensus stack runs; a centre-pivot
+stack under either runs the rank-4 route, whose plane convolutions
+(``models.conv4d.CenterPivotConv4d._bqsc``) are the ones quantized, as in
+JAX:
 
 * ``fake``: both operands of each plane conv go through
   ``dequant(quant(x))`` (per tensor) and the conv runs at the incoming

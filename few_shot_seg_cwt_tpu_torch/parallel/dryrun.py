@@ -29,14 +29,13 @@ rank's inits; ``validate``, ``validate_transformer`` and
 ``train_cwt.main`` and ``train_head.main`` (the ``train_ddp`` path) whole,
 cut after one epoch and resumed, and ``pretrain.main``, in a scratch
 directory, with the files each rank wrote; ``chm`` and ``detr``, the CHM
-head's train step (configs/pascal_match.yaml with ``crm_type chm``, the
-default ``FSS_CONV4D_IM2COL`` route, its whole-loss checkpoint) and the
-DeTr head's (configs/pascal_trans.yaml on the flat consensus route, the
-pivot kernels); ``att``, ``asy`` and ``fuse``, the attention head's step
-(configs/pascal_asy.yaml, ``cross_att``, its dropout off), the gamma
-step (the same config) and the fusion head's (configs/pascal_fuse.yaml,
-its frozen MatchNet on the flat route with live biases); each in fp32,
-held as the MMN step's fp32 head is.
+head's train step (configs/pascal_match.yaml with ``crm_type chm``, its
+whole-loss checkpoint) and the DeTr head's (configs/pascal_trans.yaml, its
+consensus on the pivot kernels); ``att``, ``asy`` and ``fuse``, the
+attention head's step (configs/pascal_asy.yaml, ``cross_att``, its dropout
+off), the gamma step (the same config) and the fusion head's
+(configs/pascal_fuse.yaml, its frozen MatchNet with live biases); each in
+fp32, held as the MMN step's fp32 head is.
 
 Every check prints one JSON line with its error against its limit, the
 ranks' launches of each kernel beside the reference's, each step's ms and
@@ -71,17 +70,13 @@ CHECKS = ("cwt", "mmn", "pretrain", "eval", "validate", "collectives", "trainers
 HEAD_CONFIGS = {"chm": "configs/pascal_match.yaml", "detr": "configs/pascal_trans.yaml",
                 "att": "configs/pascal_asy.yaml", "asy": "configs/pascal_asy.yaml",
                 "fuse": "configs/pascal_fuse.yaml"}
-# the heads whose consensus (DeTr's, the fuse head's frozen MatchNet) runs
-# on the flat route, the pivot kernels
-FLAT_HEADS = ("detr", "fuse")
-PIVOT_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4")
 TILES = (1, 2)   # FSS_INNER_TILE of the CWT step: K1, then K2
 LR = 0.01        # the CWT and MMN steps' SGD rate
 
 
 def default_spec(size: int = 473, adapt_iter: int = 200, checks=CHECKS[:6]) -> Dict:
     """The steps at the width of configs/pascal.yaml, pascal_mmn.yaml (as
-    shipped: ``use_amp``, 2 episodes a step, the flat route) and
+    shipped: ``use_amp``, 2 episodes a step) and
     pascal_pretrain.yaml (batch 10), from seeded weights and batches. Below
     473 px the MMN step trains ``wt_ce``: the config's ``wt_dc`` saturates
     on small random inputs (exactly zero head gradients at 33 px)."""
@@ -286,8 +281,6 @@ def run_mmn_shot(part: Dict, shot: int, seed: int, device, rank: int, world: int
     e = int(part["episodes"])
     cfg = _cfg(part, "episode_batch", str(e), "att_drop", "0.0", "proj_drop", "0.0",
                "shot", str(shot))
-    flat = {k: None for k in PIVOT_SWITCHES}
-    flat["FSS_PIVOT_MXU"] = "1"   # the flat route: the pivot kernels
     episodes = make_episode_batch(seed + shot, e, size=int(cfg.image_size), shot=shot)
     if shot > 1:
         episodes["s_label"][0, -1] = 255   # a padded shot
@@ -295,70 +288,20 @@ def run_mmn_shot(part: Dict, shot: int, seed: int, device, rank: int, world: int
     local = _shard(episodes, rank, world)
     w0_local = None if w0 is None else _shard({"w": w0}, rank, world)["w"]
     out = {}
-    with _env(**flat):
-        engine = HeadEngine(cfg, "mmn", device=device)
-        if part.get("weights"):
-            engine.backbone.load_state_dict(part["weights"]["backbone"])
-            engine.head.load_state_dict(part["weights"]["head"])
-        else:
-            live_consensus(engine.head)
-        start = copy.deepcopy(engine.head.state_dict())
-        for amp in ([False, True] if cfg.get("use_amp", False) else [False]):
-            engine.cfg.use_amp = amp   # fp32 head: use_amp off in the step, the backbone kept
-            engine.head.load_state_dict(start)
-            opt = torch.optim.SGD(engine.head.parameters(), lr=LR)
-            step = engine.make_train_step(opt)
-            rec = _step_record(lambda: step(local, torch.Generator().manual_seed(seed),
-                                            w0_local), engine.head, device, keep)
-            rec.update(_allreduce_cost(engine.head.parameters(), device))
-            _, rec["warm_ms"] = _timed(
-                lambda: step(local, torch.Generator().manual_seed(seed), w0_local), device)
-            if keep and world == 1 and n_ranks > 1:
-                engine.head.load_state_dict(start)
-                w0_all = (w0 if w0 is not None else
-                          engine.init_weights(e, torch.Generator().manual_seed(seed)))
-                rec["split_grads"] = _split_grads(engine, episodes, w0_all, n_ranks)
-            out["bf16_head" if amp else "fp32_head"] = rec
-    return out
-
-
-def run_head(part: Dict, head_type: str, seed: int, device, rank: int, world: int,
-             keep: bool, n_ranks: int) -> Dict:
-    """A head's train step in fp32 (DeTr and the fuse head's frozen MatchNet
-    on the flat consensus route, the attention head's dropout off); with
-    ``n_ranks`` > 1 one process alone also gives the ranks' slices run one
-    after another (``split_grads``), as for MMN."""
-    from ..data.synthetic import make_episode_batch
-    from ..episodic.heads import HeadEngine
-    from ..models.matching import live_consensus
-
-    e = int(part["episodes"])
-    cfg = _cfg(part, "episode_batch", str(e), "use_amp", "False")
-    switches = {k: None for k in PIVOT_SWITCHES}
-    if head_type in FLAT_HEADS:
-        switches["FSS_PIVOT_MXU"] = "1"
-    episodes = make_episode_batch(seed + 11, e, size=int(cfg.image_size))
-    local = _shard(episodes, rank, world)
-    w0 = part.get("w0")
-    w0_local = None if w0 is None else _shard({"w": w0}, rank, world)["w"]
-    with _env(**switches):
-        engine = HeadEngine(cfg, head_type, device=device)
-        if part.get("weights"):
-            engine.backbone.load_state_dict(part["weights"]["backbone"])
-            engine.head.load_state_dict(part["weights"]["head"])
-            if "frozen_match" in part["weights"]:
-                engine.frozen_match.load_state_dict(part["weights"]["frozen_match"])
-        elif head_type == "detr":
-            live_consensus(engine.head)
-        if head_type == "fuse":
-            live_consensus(engine.frozen_match)
-        if head_type == "att":
-            _no_dropout(engine.head)
-        start = copy.deepcopy(engine.head.state_dict())
+    engine = HeadEngine(cfg, "mmn", device=device)
+    if part.get("weights"):
+        engine.backbone.load_state_dict(part["weights"]["backbone"])
+        engine.head.load_state_dict(part["weights"]["head"])
+    else:
+        live_consensus(engine.head)
+    start = copy.deepcopy(engine.head.state_dict())
+    for amp in ([False, True] if cfg.get("use_amp", False) else [False]):
+        engine.cfg.use_amp = amp   # fp32 head: use_amp off in the step, the backbone kept
+        engine.head.load_state_dict(start)
         opt = torch.optim.SGD(engine.head.parameters(), lr=LR)
         step = engine.make_train_step(opt)
-        rec = _step_record(lambda: step(local, torch.Generator().manual_seed(seed), w0_local),
-                           engine.head, device, keep)
+        rec = _step_record(lambda: step(local, torch.Generator().manual_seed(seed),
+                                        w0_local), engine.head, device, keep)
         rec.update(_allreduce_cost(engine.head.parameters(), device))
         _, rec["warm_ms"] = _timed(
             lambda: step(local, torch.Generator().manual_seed(seed), w0_local), device)
@@ -367,6 +310,50 @@ def run_head(part: Dict, head_type: str, seed: int, device, rank: int, world: in
             w0_all = (w0 if w0 is not None else
                       engine.init_weights(e, torch.Generator().manual_seed(seed)))
             rec["split_grads"] = _split_grads(engine, episodes, w0_all, n_ranks)
+        out["bf16_head" if amp else "fp32_head"] = rec
+    return out
+
+
+def run_head(part: Dict, head_type: str, seed: int, device, rank: int, world: int,
+             keep: bool, n_ranks: int) -> Dict:
+    """A head's train step in fp32 (the attention head's dropout off); with
+    ``n_ranks`` > 1 one process alone also gives the ranks' slices run one
+    after another (``split_grads``), as for MMN."""
+    from ..data.synthetic import make_episode_batch
+    from ..episodic.heads import HeadEngine
+    from ..models.matching import live_consensus
+
+    e = int(part["episodes"])
+    cfg = _cfg(part, "episode_batch", str(e), "use_amp", "False")
+    episodes = make_episode_batch(seed + 11, e, size=int(cfg.image_size))
+    local = _shard(episodes, rank, world)
+    w0 = part.get("w0")
+    w0_local = None if w0 is None else _shard({"w": w0}, rank, world)["w"]
+    engine = HeadEngine(cfg, head_type, device=device)
+    if part.get("weights"):
+        engine.backbone.load_state_dict(part["weights"]["backbone"])
+        engine.head.load_state_dict(part["weights"]["head"])
+        if "frozen_match" in part["weights"]:
+            engine.frozen_match.load_state_dict(part["weights"]["frozen_match"])
+    elif head_type == "detr":
+        live_consensus(engine.head)
+    if head_type == "fuse":
+        live_consensus(engine.frozen_match)
+    if head_type == "att":
+        _no_dropout(engine.head)
+    start = copy.deepcopy(engine.head.state_dict())
+    opt = torch.optim.SGD(engine.head.parameters(), lr=LR)
+    step = engine.make_train_step(opt)
+    rec = _step_record(lambda: step(local, torch.Generator().manual_seed(seed), w0_local),
+                       engine.head, device, keep)
+    rec.update(_allreduce_cost(engine.head.parameters(), device))
+    _, rec["warm_ms"] = _timed(
+        lambda: step(local, torch.Generator().manual_seed(seed), w0_local), device)
+    if keep and world == 1 and n_ranks > 1:
+        engine.head.load_state_dict(start)
+        w0_all = (w0 if w0 is not None else
+                  engine.init_weights(e, torch.Generator().manual_seed(seed)))
+        rec["split_grads"] = _split_grads(engine, episodes, w0_all, n_ranks)
     return rec
 
 

@@ -12,8 +12,8 @@ same weights) with it on, and reports
     episode labels (255 ignored), and the delta in points;
   * the argmax flip rate between the two masks (at the image size).
 
-The mode reaches the rank-4 route's plane convs only (the default route;
-the flat and 6D routes run unquantized under the flag, as in JAX). Model
+Under the flag a centre-pivot consensus runs the rank-4 route, whose plane
+convs are the ones quantized (as in JAX); without it, the pivot kernels. Model
 settings: the MMN ones of configs/pascal_mmn.yaml (``conv4d red``, ``temp
 20``, ``att_wt 0.2``, ``rmid l34``, ``wa``, dropouts 0.5), as the JAX tool
 sets them. Weights: the seeded random init, or a stage-1 PSPNet ``--pth``

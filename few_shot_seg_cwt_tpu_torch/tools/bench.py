@@ -38,9 +38,8 @@ the host clock. The line reports the median rate and the p10/p50/p90 rates,
 FLOPs per episode (per image in ``pretrain``) and the model FLOP
 utilisation against the H100's dense peak of the backbone's dtype (fp32
 with TF32 off 67 TFLOP/s, bf16 989), the peak memory and the card's name
-and power limit. The inner-loop and pivot launches that the pivot route
-(``FSS_PIVOT_MXU``) and ``FSS_INNER_TILE`` select are those of the
-environment, as in the entry points. No TPU figure and no baseline
+and power limit. The inner-loop launches that ``FSS_INNER_TILE`` selects
+are those of the environment, as in the entry points. No TPU figure and no baseline
 estimate carry over. On the CPU (``device="cpu"``, for tests) the line
 names the CPU and gives no utilisation, peak or memory figure.
 """

@@ -10,22 +10,21 @@ The port's counterpart of the repository root's ``tools/bench_head_parts.py``
   mm_vol10, mm_vjp_vol10  mutual matching on the flat (1, 10, Q, S) volume,
                           forward and forward + backward wrt its input
   swap_vol10              one whole-volume plane swap (symmetric mode)
-  pivot_<ci>to<co>_<route>_fwd / _grad
+  pivot_<ci>to<co>_fwd / _grad
                           one CenterPivotConv4d block (2->10, 10->10,
-                          10->1, 1->10) on the flat route (the hand-written
-                          ``pivot_fwd`` / ``pivot_dw`` operators) and on the
-                          rank-4 route (cuDNN plane convs on (B, Q, S, C)),
-                          forward and forward + backward
-  match_pipeline_fwd / _grad[<route>]
+                          10->1, 1->10) on the flat volume (the hand-written
+                          ``pivot_fwd`` / ``pivot_dw`` operators), forward
+                          and forward + backward
+  match_pipeline_fwd / _grad
                           mutual matching -> symmetric NeighConsensus
-                          (1->10->10->1) -> mutual matching, on each route
-  chm6d_conv_fwd / _grad[<route>], chm4d_conv_fwd / _grad[<route>]
+                          (1->10->10->1) -> mutual matching
+  chm6d_conv_fwd / _grad, chm4d_conv_fwd / _grad
                           the CHM head's two true 4D convs (``conv4d``) at
                           its shapes: (1, 30, 30, 30, 30, 9) through the
                           (5, 5, 5, 5, 9, 9) kernel and (1, 60, 60, 60, 60, 1)
-                          through (5, 5, 5, 5, 1, 1), on each
-                          ``FSS_CONV4D_IM2COL`` route (q, qp, gemm, loop);
-                          the gradient is wrt the kernel and the input
+                          through (5, 5, 5, 5, 1, 1) (the forward on
+                          ``hough4d``); the gradient is wrt the kernel and
+                          the input
   chm_glue, chm_glue_vjp  sigmoid -> scale max-pool -> interpolate4d to 60,
                           the CHM steps between the two convs
   chm_mutual_nn           softplus -> the (1, 3600, 3600) mutual filter
@@ -65,13 +64,6 @@ from .roofline import card_line
 CHAIN = "cuda-events"
 
 
-def _route(flat: bool) -> None:
-    if flat:
-        os.environ["FSS_PIVOT_MXU"] = "1"
-    else:
-        os.environ.pop("FSS_PIVOT_MXU", None)
-
-
 def main(argv: List[str] = None) -> List[Dict]:
     argv = sys.argv[1:] if argv is None else argv
     dtype_arg = argv[0] if argv else "fp32"
@@ -85,8 +77,6 @@ def main(argv: List[str] = None) -> List[Dict]:
     gen = torch.Generator(device=dev).manual_seed(0)
     filters = [f for f in os.environ.get("PARTS_FILTER", "").split(",") if f]
     results: List[Dict] = []
-    for var in ("FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCONS_R4"):
-        os.environ.pop(var, None)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -121,47 +111,31 @@ def main(argv: List[str] = None) -> List[Dict]:
     for ci, co in ((2, 10), (10, 10), (10, 1), (1, 10)):
         blk = CenterPivotConv4d(ci, co).to(dev, dt)
         x = rand(1, ci, q, s)
-        x_bqsc = x.permute(0, 2, 3, 1).contiguous()
-        for route, flat in (("flat", True), ("r4", False)):
-            _route(flat)
-            if flat:
-                fwd = lambda t: blk(t, fuse_relu=True, flat_dims=dims)  # noqa: E731
-                inp = x
-            else:
-                fwd = lambda t: blk(t, fuse_relu=True, flat_dims=dims, bqsc=True)  # noqa: E731
-                inp = x_bqsc
-            with torch.no_grad():
-                rec(f"pivot_{ci}to{co}_{route}_fwd", lambda: fwd(inp))
-            rec(f"pivot_{ci}to{co}_{route}_grad", grad_of(fwd, inp))
-        del x, x_bqsc
+
+        def fwd(t):
+            return blk(t, fuse_relu=True, flat_dims=dims)
+        with torch.no_grad():
+            rec(f"pivot_{ci}to{co}_fwd", lambda: fwd(x))
+        rec(f"pivot_{ci}to{co}_grad", grad_of(fwd, x))
+        del x
 
     corr = rand(1, 1, q, s).abs()
-    for route, flat in (("flat", True), ("r4", False)):
-        _route(flat)
-        ncons = NeighConsensus(in_channel=1, block_remat=False).to(dev, dt)
-        if flat:
-            def pipeline(t):
-                return mutual_matching_flat(ncons(mutual_matching_flat(t), flat_dims=dims))
-        else:
-            def pipeline(t):
-                x4 = mutual_matching_flat(t).permute(0, 2, 3, 1)
-                return mutual_matching_flat(ncons.bqsc(x4, dims).permute(0, 3, 1, 2))
-        with torch.no_grad():
-            rec(f"match_pipeline_fwd[{route}]", lambda: pipeline(corr))
-        rec(f"match_pipeline_grad[{route}]", grad_of(pipeline, corr))
-    _route(False)
+    ncons = NeighConsensus(in_channel=1, block_remat=False).to(dev, dt)
+
+    def pipeline(t):
+        return mutual_matching_flat(ncons(mutual_matching_flat(t), flat_dims=dims))
+    with torch.no_grad():
+        rec("match_pipeline_fwd", lambda: pipeline(corr))
+    rec("match_pipeline_grad", grad_of(pipeline, corr))
     del corr
 
     hh = h // 2
     k6, k4 = rand(5, 5, 5, 5, 9, 9) * 0.02, rand(5, 5, 5, 5, 1, 1) * 0.02
     x6, x4 = rand(1, hh, hh, hh, hh, 9).abs(), rand(1, h, h, h, h, 1).abs()
-    for route in ("q", "qp", "gemm", "loop"):
-        os.environ["FSS_CONV4D_IM2COL"] = route
-        for name, x, k in (("chm6d", x6, k6), ("chm4d", x4, k4)):
-            with torch.no_grad():
-                rec(f"{name}_conv_fwd[{route}]", lambda: conv4d(x, k))
-            rec(f"{name}_conv_grad[{route}]", grad_of(conv4d, x, k))
-    os.environ.pop("FSS_CONV4D_IM2COL", None)
+    for name, x, k in (("chm6d", x6, k6), ("chm4d", x4, k4)):
+        with torch.no_grad():
+            rec(f"{name}_conv_fwd", lambda: conv4d(x, k))
+        rec(f"{name}_conv_grad", grad_of(conv4d, x, k))
     del x4, x6
 
     def chm_glue(t):

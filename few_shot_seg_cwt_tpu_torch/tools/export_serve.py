@@ -35,23 +35,20 @@ refined query feature -> blended prediction -> argmax;
 ``final.pt`` or a full ``train_state.pt``), random init without it. The
 ``fuse`` artifact also holds its frozen MatchNet, read from the config's
 ``matchnet_ckpt`` as at training time (``train_head.init_frozen_match``),
-and its consensus runs on the route in effect (``pivot_fwd`` on the flat
-route). ``--mesh`` raises ``NotImplementedError``: an exported program runs
-on one device, and the port's scale-out (item 13, ``parallel/``) serves
-over several cards by one serving process a card, each loading the
-artifact.
+and its consensus runs on ``pivot_fwd``, as every centre-pivot consensus
+the kernels take does. ``--mesh`` raises ``NotImplementedError``: an
+exported program runs on one device, and the port's scale-out
+(``parallel/``) serves over several cards by one serving process a card,
+each loading the artifact.
 
 The program is traced at a fixed batch, as JAX's is, on the device the
 export runs on (``cuda`` unless ``--device cpu``): exported on the card it
 launches the kernels, exported on the CPU it runs their plain versions.
-The route switches are read when the program is traced and are fixed in
-the artifact, as JAX's "trace-time env vars" are: ``FSS_PIVOT_MXU`` /
-``FSS_PIVOT_PALLAS`` (the consensus's flat route on ``pivot_fwd``, else the
-rank-4 cuDNN route; DeTr's cross-attention consensus and the fuse head's
-frozen MatchNet too),
-``FSS_CONV4D_IM2COL`` (the route of CHM's 4D and 6D convs),
-``FSS_INNER_TILE`` (K2 for the batch), and the
-config's stage dtype policy (``use_amp``: a bf16 backbone, fp32 head).
+What the environment selects is read when the program is traced and is
+fixed in the artifact, as JAX's "trace-time env vars" are:
+``FSS_INNER_TILE`` (K2 for the batch) and ``FSS_NCONS_INT8`` (the int8
+consensus), and so is the config's stage dtype policy (``use_amp``: a bf16
+backbone, fp32 head).
 
 Weights resolve exactly as in ``train.test`` (``resume_weights`` ``.pth``
 file or stage-1 directory schema, ``ckpt_used`` transformer checkpoint,
@@ -110,7 +107,7 @@ def example_inputs(cfg, batch: int, device, num_classes: int) -> tuple:
 def _single_device(mesh) -> None:
     if mesh:
         raise NotImplementedError("--mesh: an exported program runs on one device; the "
-                                  "port's scale-out (ROADMAP queue 1 item 13) serves over "
+                                  "port's scale-out (parallel/) serves over "
                                   "several cards by one serving process a card, each "
                                   "loading this artifact")
 

@@ -21,8 +21,9 @@ whole init (``w0=``). Tolerances:
   ``aux``): loss within 1e-5 relative, the binary I/U equal; the eval
   program on JAX's parts: equal metrics, loss within 1e-5;
 * the train step's head gradients on JAX's parts within 1e-4 of each
-  tensor's largest entry on the rank-4 and the flat route (the pivot
-  pair's plain version on CPU tensors); end to end (the port's own
+  tensor's largest entry under the JAX package's rank-4 and flat switches
+  (the port's one path: the pivot pair's plain version on CPU tensors);
+  end to end (the port's own
   features, 50 fp32 layers) within the MMN engine's 1e-3;
 * ``adaptive_relabel_batch`` equal to JAX's bit for bit from the same
   ``np.random.Generator`` on the same base predictions; the port's base

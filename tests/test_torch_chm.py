@@ -1,5 +1,6 @@
 """The port's CHM head against the JAX package, on the CPU: ``kernel_groups``,
-``CHM4d`` and ``CHM6d`` on each ``FSS_CONV4D_IM2COL`` route,
+``CHM4d`` and ``CHM6d`` (the port's one conv4d route against each of the
+JAX package's ``FSS_CONV4D_IM2COL`` routes),
 ``interpolate4d``, ``build_correlation6d``, ``CHMLearner``, the five
 keypoint-geometry functions, the ``chm`` ``HeadEngine`` (eval, serve and
 the train step's loss and head gradients) on ``configs/pascal_match.yaml``
@@ -491,27 +492,3 @@ def test_train_match_chm_main_on_the_cpu(tmp_path, monkeypatch):
     final = next(tmp_path.rglob("results/chm_pascal/**/final.pt"))
     state = torch.load(final, weights_only=True)
     assert "chm6d.param_3" in state and "scale_conv_2.weight" in state
-
-
-def test_folded_tap_conv_matches_conv2d_autograd():
-    """``qp``'s support-plane conv (``_FoldedTapConv``) at CHM6d's folded
-    shape cut to a side of 6 (225 channels: 5 tap rows of 5 taps x 9
-    scales): output, input gradient and the weight gradient taken a tap row
-    at a time equal autograd of one ``F.conv2d``, in fp64 and in fp32."""
-    from few_shot_seg_cwt_tpu_torch.models.conv4d import _FoldedTapConv
-
-    rng = np.random.default_rng(11)
-    x0 = rng.uniform(0, 1, (4, 225, 6, 6))
-    w0 = rng.normal(0, 0.02, (9, 225, 5, 5))
-    gy = rng.normal(0, 1, (4, 9, 6, 6))
-    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        got, want = [], []
-        for fn, out in ((lambda x, w: _FoldedTapConv.apply(x, w, (2, 2), 5), got),
-                        (lambda x, w: torch.nn.functional.conv2d(x, w, padding=(2, 2)), want)):
-            x = torch.tensor(x0, dtype=dtype, requires_grad=True)
-            w = torch.tensor(w0, dtype=dtype, requires_grad=True)
-            y = fn(x, w)
-            y.backward(torch.tensor(gy, dtype=dtype))
-            out += [y.detach(), x.grad, w.grad]
-        for g, w in zip(got, want):
-            assert float((g - w).abs().max()) <= tol * float(w.abs().max())

@@ -4,10 +4,10 @@ the CPU.
 
 * Weights from the reference's schema (``schema``, ``live_groups``), the
   two biases calibrated by the reference, loaded into ``CHMLearner`` by
-  name: the correlation volume, CHM6d and CHM4d on each
-  ``FSS_CONV4D_IM2COL`` route, the readout and the whole head equal the
-  reference's, on non-negative taps of side 6 (a 6^4 volume, a 12^4 one
-  for CHM4d).
+  name: the correlation volume, CHM6d and CHM4d (under each value of the
+  JAX package's ``FSS_CONV4D_IM2COL``, which the port does not read), the
+  readout and the whole head equal the reference's, on non-negative taps
+  of side 6 (a 6^4 volume, a 12^4 one for CHM4d).
 * ``HeadEngine(cfg, "chm").eval_metrics_batch`` of 2 episodes at 41 px (the
   benchmark cell's configuration, 5 inner steps) equals the reference's
   losses and areas on the same seeded backbone, head and inputs.
@@ -186,8 +186,7 @@ def engine_parts():
     return dict(cfg=cfg, sd=sd, p=p, eps=eps, w0=w0, engine=engine)
 
 
-def test_engine_eval_equals_the_reference(engine_parts, monkeypatch):
-    monkeypatch.setenv("FSS_CONV4D_IM2COL", "q")
+def test_engine_eval_equals_the_reference(engine_parts):
     cfg, eps, w0 = engine_parts["cfg"], engine_parts["eps"], engine_parts["w0"]
     got = engine_parts["engine"].eval_metrics_batch(eps, w0=w0)
     feat, taps = ref_pspnet.features(engine_parts["sd"], torch.cat([eps["s_img"][:, 0],
@@ -203,8 +202,7 @@ def test_engine_eval_equals_the_reference(engine_parts, monkeypatch):
     assert not torch.equal(got["inter1"], got["inter0"])
 
 
-def test_spans_once_an_episode_and_the_route_counted(engine_parts, monkeypatch):
-    monkeypatch.setenv("FSS_CONV4D_IM2COL", "q")
+def test_spans_once_an_episode_and_the_route_counted(engine_parts):
     tracing.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         engine_parts["engine"].eval_metrics_batch(engine_parts["eps"], w0=engine_parts["w0"])

@@ -1,9 +1,10 @@
 """The port's 4D convolutions and 6D correlation primitives against the JAX
-package, on the CPU: the true ``Conv4d`` on each ``FSS_CONV4D_IM2COL``
-route (forward and gradients, with and without the role swap), the 6D
-channels-last ``CenterPivotConv4d`` with strides, the flat route's 6D
-fallback, the 6D ``mutual_matching`` and ``mutual_nn_filter``,
-``spatial_descriptor`` and ``MSBlock``.
+package, on the CPU: the true ``Conv4d`` (its one route, ``q``) against
+each of the JAX package's ``FSS_CONV4D_IM2COL`` routes (forward and
+gradients, with and without the role swap), the 6D channels-last
+``CenterPivotConv4d`` with strides, the flat layout's 6D fallback, the 6D
+``mutual_matching`` and ``mutual_nn_filter``, ``spatial_descriptor`` and
+``MSBlock``.
 
 Inputs come from numpy seeds; weights are the JAX modules' own init with
 seeded noise on every leaf, carried to the port by ``utils/convert.py``.
@@ -79,9 +80,10 @@ def conv4d_pair(volume):
 @pytest.mark.parametrize("swap_roles", [False, True])
 @pytest.mark.parametrize("route", ROUTES)
 def test_conv4d_route_matches_jax(volume, conv4d_pair, route, swap_roles, monkeypatch):
-    """Each forward route, and autograd's gradients of it, against the JAX
-    module on the same route. The reference weight layout (k0, O, I, k1, k2,
-    k3) is what the port stores: a wrong permutation fails the forward."""
+    """The port's forward, and autograd's gradients of it, against the JAX
+    module on each of its routes (the switch is the JAX package's; the
+    port reads none). The reference weight layout (k0, O, I, k1, k2, k3) is
+    what the port stores: a wrong permutation fails the forward."""
     monkeypatch.setenv("FSS_CONV4D_IM2COL", route)
     x, _ = volume
     mod, params, port, t = conv4d_pair
@@ -108,19 +110,28 @@ def test_conv4d_route_matches_jax(volume, conv4d_pair, route, swap_roles, monkey
 @pytest.mark.parametrize("value,mode", [(None, "q"), ("", "q"), ("q", "q"), ("1", "qp"),
                                         ("qp", "qp"), ("0", "loop"), ("loop", "loop"),
                                         ("gemm", "gemm")])
-def test_conv4d_route_selector(value, mode, monkeypatch):
+def test_conv4d_route_selector(volume, conv4d_pair, value, mode, monkeypatch):
+    """Whatever the JAX package's switch says (``mode`` is the JAX route it
+    names), the port's conv4d runs route ``q``: it counts ``conv4d_q``, and
+    ``conv4d_im2col_mode()``, which the benchmark reads, says ``q``."""
     if value is None:
         monkeypatch.delenv("FSS_CONV4D_IM2COL", raising=False)
     else:
         monkeypatch.setenv("FSS_CONV4D_IM2COL", value)
-    assert conv4d_im2col_mode() == mode
+    assert conv4d_im2col_mode() == "q"
+    before = tracing.counts()
+    with torch.no_grad():
+        conv4d_pair[2](torch.from_numpy(volume[0]))
+    after = tracing.counts()
+    assert after["conv4d_q"] == before["conv4d_q"] + 1
+    assert all(after[f"conv4d_{r}"] == before[f"conv4d_{r}"] for r in ("qp", "gemm", "loop"))
 
 
 def test_conv4d_bad_route_and_even_kernel_raise(volume, monkeypatch):
+    """An even kernel raises. A route value the JAX package refuses is inert
+    here: the port reads no route switch."""
     monkeypatch.setenv("FSS_CONV4D_IM2COL", "2")
-    with pytest.raises(ValueError, match="FSS_CONV4D_IM2COL must be"):
-        conv4d_im2col_mode()
-    monkeypatch.delenv("FSS_CONV4D_IM2COL")
+    assert conv4d_im2col_mode() == "q"
     with pytest.raises(ValueError, match="odd kernels"):
         Conv4d(CI, CO, (2, 3, 3, 3))(torch.from_numpy(volume[0]))
 
@@ -162,19 +173,14 @@ def test_center_pivot_6d_matches_jax(volume, stride, swap_roles):
     _close(xt.grad.numpy(), gx, 1e-3, 1e-3)
 
 
-@pytest.mark.parametrize("case", ["kernel5", "disabled"])
+@pytest.mark.parametrize("case", ["kernel5"])
 def test_flat_route_falls_back_to_the_6d_math(volume, case, monkeypatch):
-    """A flat volume the pivot kernels do not take (a 5^4 kernel, or
-    FSS_DISABLE_PALLAS=1) runs the 6D math around one layout conversion, as
-    JAX ``_flat`` does, and launches no kernel."""
-    for var in ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS"):
-        monkeypatch.delenv(var, raising=False)
-    monkeypatch.setenv("FSS_PIVOT_MXU", "1")
-    if case == "disabled":
-        monkeypatch.setenv("FSS_DISABLE_PALLAS", "1")
+    """A flat volume the pivot kernels do not take (a 5^4 kernel) runs the
+    6D math around one layout conversion, as JAX ``_flat`` does, and
+    launches no kernel."""
+    monkeypatch.setenv("FSS_PIVOT_MXU", "1")    # JAX's flat route, for its _flat
     x, _ = volume
-    jmod, params, port = _pivot_pair((1, 1, 1, 1), np.random.default_rng(33),
-                                     kernel=5 if case == "kernel5" else 3)
+    jmod, params, port = _pivot_pair((1, 1, 1, 1), np.random.default_rng(33), kernel=5)
     hq, wq, hs, ws = DIMS
     flat = np.ascontiguousarray(x.transpose(0, 5, 1, 2, 3, 4).reshape(B, CI, hq * wq, hs * ws))
     for swap in (False, True):

@@ -20,6 +20,8 @@ two launches give equal bits, and the shapes their tiling and staging can
 get wrong are held too.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -446,12 +448,11 @@ def test_pivot_wrappers_refuse_what_the_kernels_do_not_take(device):
             assert tracing.counts()["pivot_fwd"] == before + 1
 
 
-def test_flat_route_on_cuda_launches_the_pivot_kernels(device, monkeypatch):
+def test_flat_route_on_cuda_launches_the_pivot_kernels(device):
     """NeighConsensus on the flat route: 6 forward launches per symmetric
     3-block stack, and its backward runs pivot_dw for every block."""
     from few_shot_seg_cwt_tpu_torch.models.matching import NeighConsensus
 
-    monkeypatch.setenv("FSS_PIVOT_MXU", "1")
     dims = (7, 8, 6, 9)
     net = NeighConsensus(in_channel=2, block_remat=False).to(device)
     x = torch.randn((1, 2, 56, 54), device=device)
@@ -463,11 +464,12 @@ def test_flat_route_on_cuda_launches_the_pivot_kernels(device, monkeypatch):
     assert tracing.counts()["pivot_dw"] - before["pivot_dw"] == 6
 
 
-def test_match_consensus_at_ci_1_on_the_flat_route(device, monkeypatch):
+def test_match_consensus_at_ci_1_on_the_flat_route(device):
     """The match head's stack (1 -> 10 -> 10 -> 1, symmetric) on the flat
-    route against the rank-4 route on the card: forward within 1e-5 of the
-    scale, weight gradients within 1e-3 of each tensor's largest entry;
-    pivot_dw runs at Ci = 1 for each stack's first block."""
+    route against the rank-4 layout's cuDNN plane convs on the card:
+    forward within 1e-5 of the scale, weight gradients within 1e-3 of each
+    tensor's largest entry; pivot_dw runs at Ci = 1 for each stack's first
+    block."""
     from few_shot_seg_cwt_tpu_torch.models.matching import NeighConsensus
 
     torch.backends.cudnn.allow_tf32 = False
@@ -480,10 +482,6 @@ def test_match_consensus_at_ci_1_on_the_flat_route(device, monkeypatch):
     x = torch.rand((2, 1, 90, 88), device=device)
     outs, grads = [], []
     for flat in (True, False):
-        if flat:
-            monkeypatch.setenv("FSS_PIVOT_MXU", "1")
-        else:
-            monkeypatch.delenv("FSS_PIVOT_MXU")
         net.zero_grad()
         before = tracing.counts()
         y = (net(x, flat_dims=dims) if flat
@@ -500,11 +498,22 @@ def test_match_consensus_at_ci_1_on_the_flat_route(device, monkeypatch):
         assert float((grads[0][k] - g).abs().max()) <= 1e-3 * float(g.abs().max()), k
 
 
-@pytest.mark.parametrize("route", ["q", "qp", "gemm", "loop"])
-def test_conv4d_routes_on_the_card(device, route, monkeypatch):
-    """The true 4D conv's routes (cuDNN and cuBLAS calls) against the loop
-    route on the CPU in fp64: forward and gradients within 1e-5 of the
-    scale."""
+def _conv4d_taps(x, kernel, bias):
+    """The 4D conv as a sum over its taps of the zero-padded volume shifted
+    by the tap, times the tap's (Ci, Co) matrix (odd kernels)."""
+    b, h, w, hs, ws, _ = x.shape
+    k0, k1, k2, k3 = kernel.shape[:4]
+    xp = torch.nn.functional.pad(x, (0, 0, k3 // 2, k3 // 2, k2 // 2, k2 // 2,
+                                     k1 // 2, k1 // 2, k0 // 2, k0 // 2))
+    out = bias
+    for i, j, m, n in itertools.product(range(k0), range(k1), range(k2), range(k3)):
+        out = out + xp[:, i:i + h, j:j + w, m:m + hs, n:n + ws] @ kernel[i, j, m, n]
+    return out
+
+
+def test_conv4d_on_the_card(device):
+    """The true 4D conv (route q: cuDNN calls) against its sum over the taps
+    on the CPU in fp64: forward and gradients within 1e-5 of the scale."""
     from few_shot_seg_cwt_tpu_torch.models.conv4d import Conv4d
 
     torch.backends.cudnn.allow_tf32 = False
@@ -512,15 +521,12 @@ def test_conv4d_routes_on_the_card(device, route, monkeypatch):
     torch.manual_seed(1)
     conv = Conv4d(3, 4)
     x = torch.randn(2, 5, 6, 4, 7, 3)
-    monkeypatch.setenv("FSS_CONV4D_IM2COL", "loop")
-    ref = conv.double()
     xr = x.double().requires_grad_(True)
-    y_ref = ref(xr)
+    wr = conv.weight.detach().double().requires_grad_(True)
+    y_ref = _conv4d_taps(xr, wr.permute(0, 3, 4, 5, 2, 1), conv.bias.detach().double())
     y_ref.sum().backward()
-    want = [y_ref.detach(), xr.grad, ref.weight.grad.clone()]
-    monkeypatch.setenv("FSS_CONV4D_IM2COL", route)
-    dev = conv.float().to(device)
-    dev.zero_grad()
+    want = [y_ref.detach(), xr.grad, wr.grad]
+    dev = conv.to(device)
     xd = x.to(device).requires_grad_(True)
     y = dev(xd)
     y.sum().backward()
@@ -534,10 +540,10 @@ CHM_CONVS = {"chm6d": ((1, 30, 30, 30, 30, 9), (5, 5, 5, 5, 9, 9)),
 _CHM_FP64 = {}
 
 
-def _chm_conv_fp64(conv, device, monkeypatch):
+def _chm_conv_fp64(conv, device):
     """The inputs of one CHM conv (uniform volume, N(0, 0.02) kernel, N(0, 1)
-    upstream gradient) and the q route's output and gradients on them in
-    fp64, on the card; computed once a session."""
+    upstream gradient) and conv4d's output and gradients on them in fp64,
+    on the card; computed once a session."""
     from few_shot_seg_cwt_tpu_torch.models.conv4d import conv4d
 
     if conv not in _CHM_FP64:
@@ -547,7 +553,6 @@ def _chm_conv_fp64(conv, device, monkeypatch):
         k = (0.02 * torch.randn(ks, generator=g, dtype=torch.float64)).to(device)
         k.requires_grad_(True)
         gy = torch.randn(xs[:5] + ks[-1:], generator=g, dtype=torch.float64).to(device)
-        monkeypatch.setenv("FSS_CONV4D_IM2COL", "q")
         y = conv4d(x, k)
         y.backward(gy)
         _CHM_FP64[conv] = ((x.detach(), k.detach(), gy), (y.detach(), x.grad, k.grad))
@@ -555,62 +560,33 @@ def _chm_conv_fp64(conv, device, monkeypatch):
 
 
 @pytest.mark.parametrize("conv", sorted(CHM_CONVS))
-@pytest.mark.parametrize("route", ["q", "qp", "gemm", "loop"])
-def test_conv4d_routes_at_chm_shapes_against_fp64(device, conv, route, monkeypatch):
-    """Each route of the true 4D conv in fp32 at the CHM head's 473 px
-    shapes against the q route in fp64 on the same inputs: output, input
-    gradient and kernel gradient within 1e-4 of the scale (the readings are
-    printed: ``pytest -rP``)."""
+def test_conv4d_at_chm_shapes_against_fp64(device, conv):
+    """The true 4D conv in fp32 under autograd (route q's cuDNN calls) at
+    the CHM head's 473 px shapes against itself in fp64 on the same inputs:
+    output, input gradient and kernel gradient within 1e-4 of the scale
+    (the readings are printed: ``pytest -rP``)."""
     from few_shot_seg_cwt_tpu_torch.models.conv4d import conv4d
     from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
 
     fp32_parity()
-    (x64, k64, gy64), want = _chm_conv_fp64(conv, device, monkeypatch)
-    monkeypatch.setenv("FSS_CONV4D_IM2COL", route)
+    (x64, k64, gy64), want = _chm_conv_fp64(conv, device)
     x = x64.float().requires_grad_(True)
     k = k64.float().requires_grad_(True)
     y = conv4d(x, k)
     y.backward(gy64.float())
     rel = {name: float((got.double() - w).abs().max() / w.abs().max())
            for name, got, w in zip(("y", "dx", "dk"), (y.detach(), x.grad, k.grad), want)}
-    print(f"{conv} {route}: max|v - v64| / max|v64| {rel}")
+    print(f"{conv}: max|v - v64| / max|v64| {rel}")
     assert max(rel.values()) <= 1e-4, rel
 
 
-def test_folded_tap_weight_gradient_on_the_card(device):
-    """``qp``'s support-plane conv (``_FoldedTapConv``) at CHM6d's 473 px
-    folded shape ((900, 225, 30, 30) taps: 5 tap rows of 5 taps x 9 scales;
-    a (9, 225, 5, 5) kernel): its weight gradient, a tap row at a time as
-    the route takes it, within 1e-4 of an fp64 run. Printed beside it, not
-    held: the same gradient in one call over all 225 channels, the call the
-    slicing avoids (cuDNN picks its algorithm by heuristic)."""
-    from few_shot_seg_cwt_tpu_torch.models.conv4d import _FoldedTapConv
-    from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
-
-    fp32_parity()
-    g = torch.Generator().manual_seed(6)
-    x = torch.rand((900, 225, 30, 30), generator=g).to(device)
-    w = (0.02 * torch.randn((9, 225, 5, 5), generator=g)).to(device)
-    gy = torch.randn((900, 9, 30, 30), generator=g).to(device)
-    want = torch.nn.grad.conv2d_weight(x.double(), w.shape, gy.double(), padding=2)
-    rel = {}
-    for rows in (5, 1):
-        wr = w.clone().requires_grad_(True)
-        _FoldedTapConv.apply(x, wr, (2, 2), rows).backward(gy)
-        rel[rows] = float((wr.grad.double() - want).abs().max() / want.abs().max())
-    print(f"qp weight gradient at CHM6d's folded shape, max|dk - dk64| / max|dk64|: a tap row "
-          f"at a time {rel[5]:.3e}, all 225 channels in one call {rel[1]:.3e}")
-    assert rel[5] <= 1e-4, rel
-
-
-@pytest.mark.parametrize("head,route", [("chm", "q"), ("chm", "gemm"), ("detr", "r4"),
-                                        ("detr", "flat")])
-def test_chm_and_detr_eval_on_the_card_match_the_cpu_port(device, head, route, monkeypatch):
+@pytest.mark.parametrize("head", ["chm", "detr"])
+def test_chm_and_detr_eval_on_the_card_match_the_cpu_port(device, head):
     """The CHM head (41 px: CHM needs an even feature side) and the DeTr head
-    (33 px, rank-4 and flat routes) on the card against the same engine's
-    weights on the CPU: predictions within 1e-2 (atol 2e-3 of the logit
-    scale) with >= 99.5% argmax agreement; K1 runs the inner loop, and the
-    flat route runs pivot_fwd (3 blocks x 2 directions an episode)."""
+    (33 px) on the card against the same engine's weights on the CPU:
+    predictions within 1e-2 (atol 2e-3 of the logit scale) with >= 99.5%
+    argmax agreement; K1 runs the inner loop, and DeTr's consensus runs
+    pivot_fwd (3 blocks x 2 directions an episode)."""
     import copy
 
     from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
@@ -620,15 +596,10 @@ def test_chm_and_detr_eval_on_the_card_match_the_cpu_port(device, head, route, m
     from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
 
     fp32_parity()
-    for var in ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_NCONS_R4"):
-        monkeypatch.delenv(var, raising=False)
     if head == "chm":
-        monkeypatch.setenv("FSS_CONV4D_IM2COL", route)
         size, cfg = 41, merge_cfg_from_list(load_cfg("configs/pascal_match.yaml"),
                                             ["crm_type", "chm"])
     else:
-        if route == "flat":
-            monkeypatch.setenv("FSS_PIVOT_MXU", "1")
         size, cfg = 33, load_cfg("configs/pascal_trans.yaml")
     cfg = merge_cfg_from_list(cfg, ["image_size", str(size), "adapt_iter", "5"])
     cpu = HeadEngine(cfg, head, device="cpu")
@@ -642,7 +613,7 @@ def test_chm_and_detr_eval_on_the_card_match_the_cpu_port(device, head, route, m
     got = card.predict_batch(ep, w0=w0.to(device))
     torch.cuda.synchronize()
     assert tracing.counts()["adapt_binary"] == 1
-    assert tracing.counts()["pivot_fwd"] == (12 if route == "flat" else 0)
+    assert tracing.counts()["pivot_fwd"] == (12 if head == "detr" else 0)
     for key in ("pred1", "pred"):
         g, w = got[key].cpu(), want[key]
         torch.testing.assert_close(g, w, rtol=1e-2, atol=2e-3 * float(w.abs().max()))
@@ -714,8 +685,8 @@ def test_operator_passes_opcheck_on_the_card(device, op):
     assert launches[op] >= 1, launches
 
 
-def test_saved_serve_program_launches_the_kernels(device, tmp_path, monkeypatch):
-    """The MMN serve program on the flat route at 65 px, exported on the
+def test_saved_serve_program_launches_the_kernels(device, tmp_path):
+    """The MMN serve program at 65 px, exported on the
     card, saved and loaded: the loaded program launches K1 and pivot_fwd
     and its masks equal eager ``serve_batch``'s."""
     from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
@@ -723,7 +694,6 @@ def test_saved_serve_program_launches_the_kernels(device, tmp_path, monkeypatch)
     from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
     from few_shot_seg_cwt_tpu_torch.tools.export_serve import build_head_serve_export
 
-    monkeypatch.setenv("FSS_PIVOT_MXU", "1")
     torch.backends.cudnn.allow_tf32 = False
     cfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"),
                               ["image_size", "65", "adapt_iter", "5"])
@@ -882,21 +852,22 @@ def test_qconv2d_dot_against_the_dequantized_conv(device, ci, co, planes, side):
     assert err <= 1e-5 and max(gerr) <= 1e-4, (err, gerr)
 
 
-def test_cca_flat_route_step_against_rank4(device, monkeypatch):
+def test_cca_flat_route_step_against_6d(device, monkeypatch):
     """A CCA train step (configs/pascal_cca.yaml at 33 px, 5 K-way inner
     steps, live consensus) on the flat route (the pivot pair launched)
-    against the rank-4 route on the same episodes and inits: head gradients
-    within 1e-3 of each tensor's largest entry, K1 never launched (the CCA
-    loop is K-way), the predictions' argmax >= 99.5% equal."""
+    against the 6D route's cuDNN plane convs (the pivot gate refused) on
+    the same episodes and inits: head gradients within 1e-3 of each
+    tensor's largest entry, K1 never launched (the CCA loop is K-way), the
+    predictions' argmax >= 99.5% equal."""
     from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
     from few_shot_seg_cwt_tpu_torch.data.synthetic import make_episode_batch
     from few_shot_seg_cwt_tpu_torch.episodic.cca import CCAEngine
+    from few_shot_seg_cwt_tpu_torch.models import matching
     from few_shot_seg_cwt_tpu_torch.models.matching import live_consensus
     from few_shot_seg_cwt_tpu_torch.train.common import fp32_parity
 
     fp32_parity()
-    for var in ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_NCONS_R4", "FSS_NCONS_INT8"):
-        monkeypatch.delenv(var, raising=False)
+    monkeypatch.delenv("FSS_NCONS_INT8", raising=False)
     cfg = merge_cfg_from_list(load_cfg("configs/pascal_cca.yaml"),
                               ["image_size", "33", "adapt_iter", "5"])
     engine = CCAEngine(cfg, device="cuda")
@@ -911,11 +882,9 @@ def test_cca_flat_route_step_against_rank4(device, monkeypatch):
     w0 = engine.base_weight().expand(2, 16, 512).clone()
     w0[torch.arange(2), torch.as_tensor(ep["cls"]).long()] = rows
     got = {}
-    for route in ("flat", "r4"):
-        if route == "flat":
-            monkeypatch.setenv("FSS_PIVOT_MXU", "1")
-        else:
-            monkeypatch.delenv("FSS_PIVOT_MXU", raising=False)
+    for route in ("flat", "6d"):
+        if route == "6d":
+            monkeypatch.setattr(matching, "pivot_takes", lambda *a: False)
         tracing.reset()
         m = engine.backward_batch(ep, w0=w0, deterministic=True)
         torch.cuda.synchronize()
@@ -926,9 +895,9 @@ def test_cca_flat_route_step_against_rank4(device, monkeypatch):
         got[route] = ({k: p.grad.clone() for k, p in engine.head.named_parameters()},
                       engine.predict_batch(ep, w0=w0))
     rel = {k: float((got["flat"][0][k] - g).abs().max() / g.abs().max())
-           for k, g in got["r4"][0].items() if float(g.abs().max()) > 0}
-    print(f"CCA step flat vs rank-4, max|g_flat - g_r4| / max|g_r4|: {rel}")
+           for k, g in got["6d"][0].items() if float(g.abs().max()) > 0}
+    print(f"CCA step flat vs 6D, max|g_flat - g_6d| / max|g_6d|: {rel}")
     assert rel and max(rel.values()) <= 1e-3, rel
     for key in ("pred", "pred1"):
-        agree = (got["flat"][1][key].argmax(-1) == got["r4"][1][key].argmax(-1)).float().mean()
+        agree = (got["flat"][1][key].argmax(-1) == got["6d"][1][key].argmax(-1)).float().mean()
         assert float(agree) >= 0.995, (key, float(agree))

@@ -3,8 +3,9 @@
 ``MSDeformAttn`` (one and two levels) and ``DeformAtt``, the ``DeTr``
 module with ``sf_att`` off and on, the ``detr`` ``HeadEngine`` (eval,
 serve and the train step's loss and head gradients) on
-``configs/pascal_trans.yaml`` as shipped and with ``sf_att True``, on the
-rank-4 and flat consensus routes, and ``train_trans.main``.
+``configs/pascal_trans.yaml`` as shipped and with ``sf_att True``, against
+the JAX package's rank-4 and flat consensus routes, and
+``train_trans.main``.
 
 Weights: the JAX modules' trees drawn from a numpy seed over the shapes
 ``jax.eval_shape`` gives (sampling-offset biases N(0, 1), so the sampled
@@ -13,9 +14,9 @@ zero-bias random consensus can be dead), carried to the port by
 ``utils/convert.py:detr_state_dict_from_flax``; each JAX reference is one
 jitted program. The engine runs at 33 px and adapt_iter 5; the JAX
 prologue runs once per episode and its ``_loss_detr`` on those parts (on
-its default rank-4 route), the port's on each route, with the JAX
-classifier-init draw of each episode as ``w0``; the flat route runs the
-pivot pair's plain version on CPU tensors. Tolerances: module outputs
+its default rank-4 route), the port's under each JAX switch, with the JAX
+classifier-init draw of each episode as ``w0``; the port runs the pivot
+pair's plain version on CPU tensors. Tolerances: module outputs
 within 1e-4 * max|ref| + 1e-5, gradients within 1e-3 * max|g| (episode 1
 of the engine: of the head gradient's largest entry); the engine's
 predictions as the match head's: rtol 1e-2, atol 2e-3 of the logit scale
@@ -60,7 +61,8 @@ SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCON
 
 @pytest.fixture
 def route(request, monkeypatch):
-    """"flat": the pivot-kernel route (FSS_PIVOT_MXU=1); "r4": the default."""
+    """The JAX package's route: "flat" (FSS_PIVOT_MXU=1) or "r4" (its
+    default); the port reads neither and runs the pivot kernels."""
     for var in SWITCHES:
         monkeypatch.delenv(var, raising=False)
     if request.param == "flat":

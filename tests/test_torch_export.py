@@ -153,8 +153,9 @@ def test_saved_chm_and_detr_programs_equal_eager_serve_batch(head, flat, tmp_pat
                                                              monkeypatch):
     """The CHM serve program (configs/pascal_match.yaml with crm_type chm,
     at 41 px: CHM needs an even feature side) and DeTr's
-    (configs/pascal_trans.yaml) on the rank-4 and flat routes; on the flat
-    route the artifact carries ``fss::pivot_fwd``."""
+    (configs/pascal_trans.yaml), with and without the JAX package's flat
+    switch, which the port does not read: DeTr's artifact carries
+    ``fss::pivot_fwd`` either way."""
     if flat:
         monkeypatch.setenv("FSS_PIVOT_MXU", "1")
     size = 41 if head == "chm" else SIZE
@@ -166,7 +167,7 @@ def test_saved_chm_and_detr_programs_equal_eager_serve_batch(head, flat, tmp_pat
     live_consensus(engine.head)
     exported = export_serve.build_head_serve_export(cfg, head, engine, E)
     ops = {str(n.target) for n in exported.graph.nodes if str(n.target).startswith("fss.")}
-    assert ops == ({"fss.adapt_binary.default", "fss.pivot_fwd.default"} if flat
+    assert ops == ({"fss.adapt_binary.default", "fss.pivot_fwd.default"} if head == "detr"
                    else {"fss.adapt_binary.default"})
     ep = make_episode_batch(6, E, size=size)
     w0 = engine.init_weights(E, torch.Generator().manual_seed(6))
@@ -225,10 +226,12 @@ def test_cwt_artifact_matches_the_jax_artifact(tmp_path):
 
 @pytest.mark.parametrize("what,item", [("mesh", 13)])
 def test_unported_heads_and_the_mesh_raise(what, item, tmp_path):
+    """``--mesh`` raises, naming the port's scale-out (``parallel/``, once
+    the roadmap's item ``item``)."""
     argv = ["--config", "configs/pascal.yaml", "--out", str(tmp_path / "x.pt2"),
             "--device", "cpu", "--opts", *OPTS]
     argv[4:4] = ["--mesh", "2"] if what == "mesh" else ["--head", what]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(NotImplementedError, match=r"scale-out \(parallel/\)"):
         export_serve.main(argv)
     assert not (tmp_path / "x.pt2").exists()
 

@@ -2,7 +2,7 @@
 ``avg_pool_2x2``, ``DynamicFusion``, ``FuseNet1`` and ``FuseNet`` (their
 ``_Conv4dStack`` on the 6D route, support stride 2), the ``fuse``
 ``HeadEngine`` on configs/pascal_fuse.yaml as shipped with its frozen
-MatchNet on the rank-4 and flat consensus routes (eval and serve
+MatchNet under the JAX package's rank-4 and flat switches (eval and serve
 predictions, the train step's loss and FuseNet1's gradients), the chain
 ``train_match`` -> ``best.pt`` -> ``matchnet_ckpt`` read by both packages'
 ``init_frozen_match`` -> the same fuse loss, ``train_fuse.main`` with exact
@@ -15,8 +15,8 @@ a zero-bias random consensus can be dead), carried to the port by
 ``utils/convert.py``; each JAX reference is one jitted program. The engine
 runs at 33 px (feature side 5, im_size 3) and adapt_iter 5, one torch
 thread; the JAX prologue runs once per episode and its ``_loss_fuse`` on
-those parts (its default rank-4 route), the port's engine end to end on
-each route (the flat route runs the pivot pair's plain version on CPU
+those parts (its default rank-4 route), the port's engine end to end under
+each switch (its one path runs the pivot pair's plain version on CPU
 tensors) with the JAX classifier-init draw of each episode as ``w0``.
 Tolerances: module outputs within 1e-5 * max|ref| (gradients of the
 outputs' squares within 1e-3 * max|g| per tensor); the engine's
@@ -68,7 +68,8 @@ SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS_NCON
 
 @pytest.fixture
 def route(request, monkeypatch):
-    """"flat": the pivot-kernel route (FSS_PIVOT_MXU=1); "r4": the default."""
+    """The JAX package's route: "flat" (FSS_PIVOT_MXU=1) or "r4" (its
+    default); the port reads neither and runs the pivot kernels."""
     for var in SWITCHES:
         monkeypatch.delenv(var, raising=False)
     if request.param == "flat":

@@ -1,7 +1,8 @@
 """The port's MMN head engine and trainer against the JAX package, on the
 CPU: ``HeadEngine`` eval, serve and one train-step gradient at 33 px
-(5x5 features) with adapt_iter 5, on both consensus routes (the flat route
-runs the pivot pair's plain version on CPU tensors); the head losses; the
+(5x5 features) with adapt_iter 5, against both JAX consensus routes (the
+port's one path runs the pivot pair's plain version on CPU tensors); the
+head losses; the
 optimizers and schedules; and ``train_head.main`` on synthetic episodes.
 
 Weights: the JAX modules' variable trees filled from a numpy seed (BN

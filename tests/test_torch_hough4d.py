@@ -35,7 +35,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from few_shot_seg_cwt_tpu_torch import ops
 from few_shot_seg_cwt_tpu_torch.models.chm import CHM6d
-from few_shot_seg_cwt_tpu_torch.models.conv4d import Conv4d, _conv4d_im2col, conv4d
+from few_shot_seg_cwt_tpu_torch.models.conv4d import Conv4d, _conv4d_q, conv4d
 from few_shot_seg_cwt_tpu_torch.ops import cuda_build, cuda_hough
 from few_shot_seg_cwt_tpu_torch.utils import tracing
 
@@ -85,7 +85,7 @@ def test_plain_version_matches_route_q(ci, shape, bias):
     k = _kernel(ci, ci, 2)
     bv = (torch.linspace(-1, 1, ci) if bias == "vector"
           else None if bias is None else torch.tensor(bias))
-    want = _conv4d_im2col(x, k, fold_all=False)
+    want = _conv4d_q(x, k)
     if bv is not None:
         want = want + bv
     got = cuda_hough.hough4d_reference(x, k, bv)
@@ -209,7 +209,6 @@ def test_operator_passes_opcheck_on_cpu(bias):
 
 @pytest.fixture
 def route_q(monkeypatch):
-    monkeypatch.setenv("FSS_CONV4D_IM2COL", "q")
     taken = []
     real = conv4d_mod.hough4d
     monkeypatch.setattr(conv4d_mod, "hough4d", lambda *a: taken.append(a) or real(*a))
@@ -272,15 +271,14 @@ def test_cpu_calls_keep_route_q(route_q):
     assert not route_q and not cuda_hough.hough4d_takes(x, k)
     assert tracing.counts()["conv4d_q"] == 1
     assert ops.launch_counts("hough4d") == {"hough4d": 0}
-    assert torch.equal(y, _conv4d_im2col(x, k, False))
+    assert torch.equal(y, _conv4d_q(x, k))
 
 
-def test_chm_layers_on_the_cpu_launch_nothing_and_count_route_q(monkeypatch):
+def test_chm_layers_on_the_cpu_launch_nothing_and_count_route_q():
     """CHM6d and CHM4d in evaluation on CPU tensors: two conv4d_q calls, no
     kernel launch, the bias in conv4d's sum as before."""
     from few_shot_seg_cwt_tpu_torch.models.chm import CHM4d
 
-    monkeypatch.setenv("FSS_CONV4D_IM2COL", "q")
     gen = torch.Generator().manual_seed(8)
     m6, m4 = CHM6d(generator=gen), CHM4d(generator=gen)
     corr = torch.rand((1, 3, 3, 4, 4, 4, 4), generator=gen)
@@ -288,9 +286,9 @@ def test_chm_layers_on_the_cpu_launch_nothing_and_count_route_q(monkeypatch):
     tracing.reset()
     with torch.no_grad():
         y6, y4 = m6(corr), m4(vol)
-        want6 = _conv4d_im2col(corr.reshape(1, 9, 4, 4, 4, 4).permute(0, 2, 3, 4, 5, 1),
-                               m6.channel_kernel((3, 3)), False) + m6.bias
-        want4 = _conv4d_im2col(vol, m4.kernel(), False) + m4.bias
+        want6 = _conv4d_q(corr.reshape(1, 9, 4, 4, 4, 4).permute(0, 2, 3, 4, 5, 1),
+                          m6.channel_kernel((3, 3))) + m6.bias
+        want4 = _conv4d_q(vol, m4.kernel()) + m4.bias
     assert tracing.counts()["conv4d_q"] == 2
     assert ops.launch_counts("hough4d") == {"hough4d": 0}
     assert torch.equal(y6, want6.permute(0, 5, 1, 2, 3, 4).reshape(y6.shape))
@@ -327,8 +325,8 @@ def test_kernel_against_route_q_at_chm_shapes(device, conv):
     x = _volume(shape, ci, cm, 5).to(device)
     k = _kernel(ci, ci, 6).to(device)
     bias = torch.tensor(0.25, device=device)
-    want = _conv4d_im2col(x.double(), k.double(), False) + bias.double()
-    q32 = _conv4d_im2col(x, k, False) + bias
+    want = _conv4d_q(x.double(), k.double()) + bias.double()
+    q32 = _conv4d_q(x, k) + bias
     tracing.reset()
     y = cuda_hough.hough4d(x, k, bias)
     y2 = cuda_hough.hough4d(x, k, bias)
@@ -349,11 +347,10 @@ def test_kernel_against_route_q_at_chm_shapes(device, conv):
 
 @pytest.mark.cuda
 def test_dispatch_counts_on_the_card(device, monkeypatch):
-    """hough4d launches for CUDA fp32 no-grad calls at the two CHM instances
-    on route q only: not under grad, not on the CPU, not for MatchNet's
-    Conv4d (3^4, 10 channels), not on route gemm; conv4d_q counts every
-    call on its route."""
-    monkeypatch.setenv("FSS_CONV4D_IM2COL", "q")
+    """hough4d launches for CUDA fp32 no-grad calls at the two CHM instances:
+    not under grad, not on the CPU, not for MatchNet's Conv4d (3^4, 10
+    channels); the JAX package's ``FSS_CONV4D_IM2COL=gemm`` changes
+    nothing; conv4d_q counts every call."""
     x1 = _volume((1, 8, 8, 8, 8), 1, False, 7).to(device)
     x9 = _volume((1, 4, 4, 4, 4), 9, True, 7).to(device)
     k1, k9 = _kernel(1, 1, 8).to(device), _kernel(9, 9, 8).to(device)
@@ -369,8 +366,8 @@ def test_dispatch_counts_on_the_card(device, monkeypatch):
         monkeypatch.setenv("FSS_CONV4D_IM2COL", "gemm")
         conv4d(x1, k1)
     torch.cuda.synchronize()
-    assert tracing.counts()["conv4d_q"] == 6 and tracing.counts()["conv4d_gemm"] == 1
-    assert ops.launch_counts("hough4d") == {"hough4d": 3}
+    assert tracing.counts()["conv4d_q"] == 7 and tracing.counts()["conv4d_gemm"] == 0
+    assert ops.launch_counts("hough4d") == {"hough4d": 4}
 
 
 @pytest.mark.cuda

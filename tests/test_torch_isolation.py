@@ -53,9 +53,7 @@ cfg = default_cfg()
 cfg.image_size, cfg.adapt_iter, cfg.cls_lr = 33, 2, 0.1
 engine = EpisodicEngine(cfg, device="cpu")
 masks = engine.serve_batch(make_episode_batch(1, 2, size=33), torch.Generator().manual_seed(0))
-# the MMN head on the flat consensus route (the pivot kernels' plain version)
-import os
-os.environ["FSS_PIVOT_MXU"] = "1"
+# the MMN head on the pivot kernels' plain version
 from few_shot_seg_cwt_tpu_torch.config import load_cfg, merge_cfg_from_list
 from few_shot_seg_cwt_tpu_torch.episodic.heads import HeadEngine
 mcfg = merge_cfg_from_list(load_cfg("configs/pascal_mmn.yaml"),

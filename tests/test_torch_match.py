@@ -1,6 +1,7 @@
 """The port's MatchNet family against the JAX package, on the CPU: the 6D
-``NeighConsensus`` (centre-pivot and true 4D), ``MatchNet`` on the rank-4,
-flat and 6D routes with ``sce``, ``cyc`` and an ignore mask, the ``rmid nr``
+``NeighConsensus`` (centre-pivot and true 4D), ``MatchNet`` against the
+JAX package's rank-4, flat and 6D routes with ``sce``, ``cyc`` and an
+ignore mask, the ``rmid nr``
 tap, the match ``HeadEngine`` (eval with and without ``ignore``, serve and
 the train step's gradients) on ``configs/pascal_match.yaml`` at 33 px and
 adapt_iter 5, the ``meta_aug`` support stream, ``eval_episode_tile``,
@@ -11,8 +12,8 @@ Weights: the JAX modules' trees filled from a numpy seed (non-zero biases),
 carried to the port by ``utils/convert.py``. The engine comparisons run
 the JAX prologue once per episode (``episode_parts``, jitted) and its
 ``_loss_match`` eagerly on those parts for each setting; the port gets the
-JAX classifier-init draw of each episode as ``w0``. The flat route runs
-the pivot pair's plain version on CPU tensors. Tolerances: rtol 1e-5 for
+JAX classifier-init draw of each episode as ``w0``. The port's one path
+runs the pivot pair's plain version on CPU tensors. Tolerances: rtol 1e-5 for
 the consensus, rtol 1e-4 (atol 1e-4 of the scale) for MatchNet, rtol 1e-2
 (atol 2e-3 of the logit scale) and argmax agreement >= 99.5% for the
 engine's predictions, gradients rtol 1e-3 (atol 1e-3 of each tensor's
@@ -64,8 +65,9 @@ C = 16
 
 @pytest.fixture
 def route(request, monkeypatch):
-    """"flat": the pivot-kernel route (FSS_PIVOT_MXU=1); "6d": the 6D route
-    (FSS_NCONS_R4=0); "r4": the rank-4 default."""
+    """The JAX package's route: "flat" (FSS_PIVOT_MXU=1), "6d"
+    (FSS_NCONS_R4=0) or "r4" (its default); the port reads none of them and
+    runs its one path (the pivot kernels for a centre-pivot stack)."""
     for var in SWITCHES:
         monkeypatch.delenv(var, raising=False)
     if request.param == "flat":

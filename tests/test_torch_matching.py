@@ -1,15 +1,17 @@
 """The port's MMN building blocks against the JAX package, on the CPU:
 ``CenterPivotConv4d`` (rank-4 and flat routes, with and without the role
 swap), the symmetric ``NeighConsensus``, ``WeightAverage``, ``MMN`` and the
-``utils/convert.py`` <-> ``utils/ckpt.py:import_mmn`` round trip.
+``utils/convert.py`` <-> ``utils/ckpt.py:import_mmn`` round trip, and the
+MMN forward's one path under each of the JAX package's route switches.
 
 Inputs come from numpy seeds; weights are the JAX package's own init with
 seeded noise on every leaf (the inits leave biases at zero, which would hide
 a bias that lands in the wrong place), carried to the port by
-``mmn_state_dict_from_flax``. The flat route runs the pivot pair's plain
-version on CPU tensors (``FSS_PIVOT_MXU=1``); the JAX side runs its default
-routes. Tolerances: rtol 1e-5 (atol 1e-5) for the blocks and the consensus,
-rtol 1e-4 (atol 1e-4 of the output scale) for MMN.
+``mmn_state_dict_from_flax``. The flat layout runs the pivot pair's plain
+version on CPU tensors; the ``route`` cases set the JAX package's flat
+switch (``FSS_PIVOT_MXU=1``) or leave its rank-4 default, which the port
+does not read. Tolerances: rtol 1e-5 (atol 1e-5) for the blocks and the
+consensus, rtol 1e-4 (atol 1e-4 of the output scale) for MMN.
 """
 
 import numpy as np
@@ -24,8 +26,10 @@ from few_shot_seg_cwt_tpu.models.matching import NeighConsensus as JaxNeighConse
 from few_shot_seg_cwt_tpu.models.mmn import MMN as JaxMMN
 from few_shot_seg_cwt_tpu.models.msm import WeightAverage as JaxWeightAverage
 from few_shot_seg_cwt_tpu.utils.ckpt import import_mmn
-from few_shot_seg_cwt_tpu_torch.models.conv4d import CenterPivotConv4d
-from few_shot_seg_cwt_tpu_torch.models.matching import MatchNet
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from few_shot_seg_cwt_tpu_torch.models.conv4d import CenterPivotConv4d, init_conv_parameters
+from few_shot_seg_cwt_tpu_torch.models.matching import MatchNet, live_consensus
 from few_shot_seg_cwt_tpu_torch.models.mmn import MMN
 from few_shot_seg_cwt_tpu_torch.models.msm import WeightAverage
 from few_shot_seg_cwt_tpu_torch.utils import tracing
@@ -40,8 +44,9 @@ FLAT_SWITCHES = ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS", "FSS
 
 @pytest.fixture
 def route(request, monkeypatch):
-    """"flat" turns the port's flat (pivot-kernel) route on, "r4" leaves the
-    rank-4 default."""
+    """"flat" sets the JAX package's flat switch, "r4" leaves its rank-4
+    default; the port reads neither, and the block tests call each of its
+    layouts directly."""
     for var in FLAT_SWITCHES:
         monkeypatch.delenv(var, raising=False)
     if request.param == "flat":
@@ -250,3 +255,47 @@ def test_import_mmn_round_trip(mmn_pair):
     assert [p for p, _ in got] == [p for p, _ in want], case
     for (_, g), (path, w) in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), w, err_msg=str(path))
+
+
+# the JAX package's route switch settings: its rank-4 default, the MXU and
+# VPU flat routes, the 6D route, and the flat route turned off
+JAX_SWITCHES = {"none": {}, "mxu": {"FSS_PIVOT_MXU": "1"}, "pallas": {"FSS_PIVOT_PALLAS": "1"},
+                "ncons_r4_0": {"FSS_NCONS_R4": "0"},
+                "disabled": {"FSS_PIVOT_MXU": "1", "FSS_DISABLE_PALLAS": "1"}}
+
+
+class _OpCalls(TorchDispatchMode):
+    """Counts the ``fss::`` operators dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if str(func).startswith("fss."):
+            self.calls.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("setting", sorted(JAX_SWITCHES))
+def test_mmn_runs_one_path_whatever_the_jax_switches(setting, monkeypatch):
+    """The port reads none of the JAX package's route switches: under each
+    setting the MMN forward is the same bits as with none set, and each of
+    the symmetric consensus's 2 x 3 blocks runs ``fss::pivot_fwd`` (its
+    plain version on the CPU)."""
+    for var in FLAT_SWITCHES:
+        monkeypatch.delenv(var, raising=False)
+    port = MMN(temp=20.0, att_wt=0.2, feature_channels=FEAT_CH, block_remat=False,
+               **MMN_CASES["pascal_mmn"])
+    init_conv_parameters(port, torch.Generator().manual_seed(15))
+    live_consensus(port)
+    inputs = jax.tree.map(torch.from_numpy, _mmn_inputs("pascal_mmn", np.random.default_rng(15)))
+    with torch.no_grad():
+        want = port(*inputs)
+        for var, value in JAX_SWITCHES[setting].items():
+            monkeypatch.setenv(var, value)
+        with _OpCalls() as ops:
+            got = port(*inputs)
+    assert ops.calls == ["fss.pivot_fwd.default"] * 6
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -144,19 +144,16 @@ def test_flatten_weights_layout():
 
 
 def test_route_switches(monkeypatch):
-    for var in ("FSS_PIVOT_MXU", "FSS_PIVOT_PALLAS", "FSS_DISABLE_PALLAS"):
-        monkeypatch.delenv(var, raising=False)
-    assert cuda_pivot.pivot_impl() is None
-    assert not cuda_pivot.pivot_pallas_active((3, 3, 3))
-    monkeypatch.setenv("FSS_PIVOT_MXU", "1")
-    assert cuda_pivot.pivot_impl() == "mxu"
-    assert cuda_pivot.pivot_pallas_active((3, 3, 3))
-    assert not cuda_pivot.pivot_pallas_active((3, 5, 3))  # 5^4 blocks: no kernel
-    monkeypatch.setenv("FSS_PIVOT_PALLAS", "1")
-    assert cuda_pivot.pivot_impl() == "vpu"
-    monkeypatch.setenv("FSS_DISABLE_PALLAS", "1")
-    assert cuda_pivot.pivot_impl() is None
-    assert not cuda_pivot.pivot_kernel_available((3,) * 4, (1,) * 4, (1,) * 4)
+    """The shape gate takes 3^4 blocks at stride 1 and padding 1, whatever
+    route switch of the JAX package is set: the port reads none."""
+    for var, value in (("FSS_PIVOT_MXU", "1"), ("FSS_PIVOT_PALLAS", "1"),
+                       ("FSS_DISABLE_PALLAS", "1"), ("FSS_NCONS_R4", "0")):
+        monkeypatch.setenv(var, value)
+        assert cuda_pivot.pivot_takes((3,) * 4, (1,) * 4, (1,) * 4)
+    assert not cuda_pivot.pivot_takes((5,) * 4, (1,) * 4, (2,) * 4)
+    assert not cuda_pivot.pivot_takes((3,) * 4, (1, 1, 2, 2), (1,) * 4)
+    assert not cuda_pivot.pivot_takes((3,) * 4, (1,) * 4, (0,) * 4)
+    assert not hasattr(cuda_pivot, "os")
 
 
 def test_kernel_source_and_build():

@@ -13,9 +13,10 @@ the JAX package's, on the CPU.
   quantization level in one block would move the next: held by the mean
   relative difference, 1e-5; measured 1.9e-7 under ``fake``, 0 under
   ``dot``); ``dot`` against ``fake`` statistically, as JAX's test holds
-  it; trainable (finite gradients); the flat and 6D routes give the unflagged result under
-  either mode, bit for bit (the JAX package reads the flag on the rank-4
-  route only).
+  it; trainable (finite gradients); under either mode the port's result
+  does not depend on the JAX package's flat or 6D route switch, bit for
+  bit (a centre-pivot stack under the flag runs the rank-4 route, the one
+  JAX quantizes).
 * ``tools/ab_int8``: the JAX tool's keys on a 33 px run, the flag back as
   it was.
 """
@@ -209,12 +210,18 @@ def test_matchnet_rank4_int8_modes_match_jax(matchnets, mode, monkeypatch):
 
 @pytest.mark.parametrize("route", ["flat", "6d"])
 @pytest.mark.parametrize("mode", ["fake", "dot"])
-def test_flat_and_6d_routes_ignore_the_flag(matchnets, route, mode, monkeypatch):
-    monkeypatch.setenv("FSS_PIVOT_MXU" if route == "flat" else "FSS_NCONS_R4",
-                       "1" if route == "flat" else "0")
+def test_int8_result_ignores_the_route_switches(matchnets, route, mode, monkeypatch):
+    """The port reads no route switch: under ``mode`` its result with the
+    JAX package's flat (``FSS_PIVOT_MXU=1``) or 6D (``FSS_NCONS_R4=0``)
+    switch set is the quantized result without it, bit for bit."""
     base = _port_run(matchnets)
     monkeypatch.setenv("FSS_NCONS_INT8", mode)
-    assert torch.equal(_port_run(matchnets), base)
+    want = _port_run(matchnets)
+    monkeypatch.setenv("FSS_PIVOT_MXU" if route == "flat" else "FSS_NCONS_R4",
+                       "1" if route == "flat" else "0")
+    got = _port_run(matchnets)
+    assert torch.equal(got, want)
+    assert not torch.allclose(got, base, rtol=1e-5, atol=1e-5)   # the quantization acts
 
 
 def test_ab_int8_prints_the_jax_keys(monkeypatch, capsys):
